@@ -1,0 +1,51 @@
+"""Architecture registry of the port: the configs ported so far.
+
+``get_config(name)`` returns the exact published config;
+``get_smoke_config(name)`` returns a same-family reduced config that runs
+on the CPU in seconds.  The values are copies of the JAX package's
+registry; the remaining eight architectures arrive with their model
+families.
+"""
+
+from __future__ import annotations
+
+from importlib import import_module
+from typing import Dict, List
+
+from ..models.config import ModelConfig, SHAPES, ShapeConfig, shape_applicable
+
+ARCH_IDS: List[str] = [
+    "stablelm_1_6b",
+    "internlm2_20b",
+]
+
+# CLI aliases (assignment spelling -> module name)
+ALIASES: Dict[str, str] = {
+    "stablelm-1.6b": "stablelm_1_6b",
+    "internlm2-20b": "internlm2_20b",
+}
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCH_IDS:
+        raise KeyError(f"config {name!r} is not ported; have {ARCH_IDS}")
+    return import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_IDS}
+
+
+__all__ = [
+    "ARCH_IDS", "ALIASES", "SHAPES", "ShapeConfig", "ModelConfig",
+    "get_config", "get_smoke_config", "all_configs", "shape_applicable",
+]

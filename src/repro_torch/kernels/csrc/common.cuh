@@ -1,0 +1,55 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+//
+// Every kernel is templated on its element type (float or __nv_bfloat16),
+// computes in f32 and converts only through the intrinsics below, so the
+// sources build with or without the toolkit's implicit bf16 conversions.
+// Entry points have a plain C interface (loaded with ctypes), launch on the
+// stream they are given, allocate nothing, and return cudaGetLastError()
+// right after the launch so the caller sees a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+// Masked scores are *replaced* by this value (never added to), exactly as
+// the Pallas kernels do with jnp.where(mask, s, NEG_INF).
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+
+// Raise the dynamic shared-memory cap of `kernel` when a launch needs more
+// than the default 48 KB (up to the 227 KB a Hopper block may use).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace repro_torch

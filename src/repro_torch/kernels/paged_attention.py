@@ -1,0 +1,282 @@
+"""Paged GQA attention: wrappers of the hand-written CUDA kernels.
+
+Replaces the JAX package's Pallas kernels in
+``repro/kernels/paged_attention.py``:
+
+- :func:`paged_decode_attention` (``csrc/paged_decode.cu``): one new
+  query token per request attends to its paged history;
+- :func:`paged_prefill_attention` (``csrc/paged_prefill.cu``): a chunk of
+  C query tokens of one request attends causally to its paged history
+  plus the chunk itself (the chunk's K/V are already in the pool).
+
+Pools keep the JAX layout, token-major ``(P, page_size, K, hd)``.  The
+kernels read them through their strides, so a per-layer view of a
+stacked pool goes in as it is and no call copies or transposes a pool.
+
+The wrappers take CUDA tensors only: they check what the kernels accept,
+allocate the output, launch on the current stream, raise if the launch
+was refused, and count their launches in ``<wrapper>.launches``.  The
+plain versions live in :mod:`repro_torch.kernels.ref` and serve the CPU
+through :mod:`repro_torch.kernels.ops`.  int8 pages (``k_scales`` /
+``v_scales``) are not ported yet.
+
+The host-side checks :func:`check_block_table_bounds` and
+:func:`check_scale_pool_finite` are numpy copies of the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: query rows per prefill block (the f32 accumulator is BM x hd)
+PREFILL_BLOCK_ROWS = 64
+
+
+def _check_pools(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 what: str) -> None:
+    tensors = (q, k_pages, v_pages)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{what} kernel takes CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if q.dtype not in _SUFFIX or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{what} kernel takes f32/bf16 q and pages of one dtype, "
+                         f"got {[t.dtype for t in tensors]}")
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"{what} kernel takes (P, ps, K, hd) pools with hd_v == hd, "
+                         f"got {tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
+    H, hd = q.shape[-2], q.shape[-1]
+    K = k_pages.shape[2]
+    if k_pages.shape[3] != hd or H % K:
+        raise ValueError(f"{what} kernel: q heads {H} x {hd} do not group over "
+                         f"pool heads {K} x {k_pages.shape[3]}")
+
+
+def _index(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
+    if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous int32 tensor on {device}, "
+                         f"got {t.dtype} on {t.device}")
+    return t
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # (B, H, hd)
+    k_pages: torch.Tensor,       # (P, page_size, K, hd) physical page pool
+    v_pages: torch.Tensor,       # (P, page_size, K, hd)
+    block_tables: torch.Tensor,  # (B, pages_per_seq) int32 page ids
+    lengths: torch.Tensor,       # (B,) int32 — valid tokens (incl. current)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention over a paged KV pool through per-request block tables.
+
+    Pages at or past ``ceil(lengths[b] / page_size)`` are never read;
+    positions at or past ``lengths[b]`` get weight exactly 0 and their V
+    rows are zeroed, so garbage (even NaN) in recycled pages cannot leak.
+    A row of length 0 returns zeros.
+
+    Returns
+    -------
+    torch.Tensor
+        ``(B, H, hd)`` in ``q.dtype``.
+    """
+    _check_pools(q, k_pages, v_pages, "paged decode")
+    B, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or lengths.shape != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {B}")
+    bt = _index(block_tables, q.device, "block_tables")
+    lens = _index(lengths, q.device, "lengths")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    scale = scale if scale is not None else hd ** -0.5
+    name = f"paged_decode_{_SUFFIX[q.dtype]}"
+    code = getattr(_build.library(), name)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), B, H, K, hd, ps, bt.shape[1], P,
+        *k_pages.stride(), *v_pages.stride(), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(code, name)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,            # (C, H, hd) — one request's chunk queries
+    k_pages: torch.Tensor,      # (P, page_size, K, hd) physical page pool
+    v_pages: torch.Tensor,      # (P, page_size, K, hd)
+    block_table: torch.Tensor,  # (pages_per_seq,) int32 page ids
+    past: int,                  # prompt tokens already prefilled (chunk offset)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused chunked-prefill attention over one request's block table.
+
+    The chunk's K/V must already be scattered into the pools (positions
+    ``past .. past+C``); its queries attend causally to the
+    ``ceil((past+C)/page_size)`` context pages named by the block table.
+    ``past`` is a runtime argument of the kernel: no chunk offset builds
+    anything new.
+
+    Returns
+    -------
+    torch.Tensor
+        ``(C, H, hd)`` in ``q.dtype``.
+    """
+    _check_pools(q, k_pages, v_pages, "paged prefill")
+    C, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    past = int(past)
+    n_ctx_pages = -(-(past + C) // ps)
+    if block_table.dim() != 1 or block_table.shape[0] < n_ctx_pages or past < 0:
+        raise ValueError(f"block_table {tuple(block_table.shape)} cannot cover "
+                         f"past={past} + C={C} at page size {ps}")
+    bt = _index(block_table, q.device, "block_table")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    scale = scale if scale is not None else hd ** -0.5
+    name = f"paged_prefill_{_SUFFIX[q.dtype]}"
+    code = getattr(_build.library(), name)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        out.data_ptr(), C, H, K, hd, ps, P, past, PREFILL_BLOCK_ROWS,
+        *k_pages.stride(), *v_pages.stride(), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(code, name)
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0
+
+
+def check_block_table_bounds(
+    block_tables,
+    lengths,
+    num_pages: int,
+    page_size: int,
+    trash_page: int = 0,
+) -> None:
+    """Host-side static bounds check of a decode call's block tables.
+
+    The kernels read ``bt[b, j]`` only for pages the length covers and
+    trap on an id outside the pool, but a trash entry inside a row's
+    covered range means a live token's KV was never given a real page,
+    and the engine's scatter-write would land out of bounds on a bad id.
+    This check runs on the host arrays immediately before the kernel
+    (under ``REPRO_SANITIZE``/``sanitize=True``) and in unit tests with
+    adversarial tables.
+
+    Parameters
+    ----------
+    block_tables : array_like, shape (B, pages_per_seq)
+        Physical page ids per row (``trash_page`` marks padding).
+    lengths : array_like, shape (B,)
+        Valid tokens per row *excluding* the token being decoded (the
+        engine's convention: the incoming token writes at position
+        ``lengths[b]``); 0 marks a padding row.
+    num_pages : int
+        The allocator's pool size.
+    page_size : int
+        Tokens per page.
+    trash_page : int, optional
+        The reserved padding page id.
+
+    Raises
+    ------
+    ValueError
+        Naming the offending row/entry on any out-of-range index or
+        any trash entry within a live row's covered page range.
+    """
+    bt = np.asarray(block_tables)
+    lens = np.asarray(lengths)
+    if bt.ndim != 2 or lens.shape != (bt.shape[0],):
+        raise ValueError(
+            f"shape mismatch: block_tables {bt.shape} vs lengths {lens.shape}"
+        )
+    bad = (bt < 0) | (bt >= num_pages)
+    if bad.any():
+        b, j = map(int, np.argwhere(bad)[0])
+        raise ValueError(
+            f"block-table entry out of pool bounds: bt[{b}, {j}] = "
+            f"{int(bt[b, j])} not in [0, {num_pages})"
+        )
+    # a live row writes at position lengths[b]: pages 0..lengths[b]//ps
+    # inclusive must be real pages
+    cov = np.where(lens > 0, lens // page_size + 1, 0)
+    if (cov > bt.shape[1]).any():
+        b = int(np.argmax(cov > bt.shape[1]))
+        raise ValueError(
+            f"row {b} needs {int(cov[b])} pages for length {int(lens[b])} "
+            f"but the block table holds only {bt.shape[1]}"
+        )
+    pos = np.arange(bt.shape[1])[None, :]
+    covered_trash = (pos < cov[:, None]) & (bt == trash_page)
+    if covered_trash.any():
+        b, j = map(int, np.argwhere(covered_trash)[0])
+        raise ValueError(
+            f"trash page inside covered range: bt[{b}, {j}] is the trash "
+            f"page but row {b} has length {int(lens[b])} "
+            f"(covers {int(cov[b])} pages)"
+        )
+
+
+def check_scale_pool_finite(
+    k_scales,
+    v_scales,
+    block_tables,
+    lengths,
+    page_size: int,
+) -> None:
+    """Host-side check that quantized pages' scales are finite and positive.
+
+    A corrupted scale entry (NaN/inf/non-positive) inside a live row's
+    covered range would poison every logit that touches the page — and
+    unlike garbage K/V *values* (masked to softmax weight 0), a bad
+    scale multiplies *valid* dequantized history.
+
+    Parameters
+    ----------
+    k_scales, v_scales : array_like, shape (P, page_size, K)
+        Per-page scale pools (float32).
+    block_tables : array_like, shape (B, pages_per_seq)
+        Physical page ids per row.
+    lengths : array_like, shape (B,)
+        Valid tokens per row *excluding* the token being decoded.
+    page_size : int
+        Tokens per page.
+
+    Raises
+    ------
+    ValueError
+        Naming the offending (row, page, slot) on the first bad scale
+        covering a live token.
+    """
+    bt = np.asarray(block_tables)
+    lens = np.asarray(lengths)
+    for name, scales in (("k_scales", k_scales), ("v_scales", v_scales)):
+        sc = np.asarray(scales)
+        bad = ~np.isfinite(sc) | (sc <= 0)
+        if not bad.any():
+            continue
+        # bad entries only matter where a live token's KV lives
+        for b in range(bt.shape[0]):
+            n = int(lens[b])
+            for t in range(n):
+                page, slot = int(bt[b, t // page_size]), t % page_size
+                if bad[page, slot].any():
+                    kh = int(np.argmax(bad[page, slot]))
+                    raise ValueError(
+                        f"{name}[{page}, {slot}, {kh}] = "
+                        f"{float(sc[page, slot, kh])!r} covers live token "
+                        f"{t} of row {b}: scales must be finite and > 0"
+                    )

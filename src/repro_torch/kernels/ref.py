@@ -1,0 +1,156 @@
+"""Plain PyTorch versions of the ported kernels (the ``ref.py`` contract).
+
+Each function repeats, op for op, the JAX package's oracle of the same
+name (``repro/kernels/ref.py``): float32 math, additive ``NEG_INF``
+masks, a softmax over the gathered dense view.  They are the semantics
+the hand-written CUDA kernels are held against, and the path the model
+takes for tensors that lie on the CPU.
+
+Like their JAX originals, the attention versions mask *additively*, so
+a NaN in a masked slot still reaches the output: they are not NaN-safe.
+The CUDA kernels replace masked scores and zero masked V rows instead;
+a NaN check therefore compares a kernel with itself on clean versus
+poisoned pages, never with these functions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Attention (prefill/train): GQA + causal
+# ---------------------------------------------------------------------------
+def attention_ref(
+    q: torch.Tensor,            # (B, S_q, H, hd)
+    k: torch.Tensor,            # (B, S_k, K, hd)
+    v: torch.Tensor,            # (B, S_k, K, hd)
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,          # absolute position of q[0] (cached prefix len)
+    kv_len: Optional[torch.Tensor] = None,  # (B,) valid kv length per batch
+) -> torch.Tensor:
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    hd_v = v.shape[-1]
+    g = H // K
+    scale = scale if scale is not None else hd ** -0.5
+    dev = q.device
+    qf = q.float() * scale
+    qf = qf.reshape(B, Sq, K, g, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    mask = torch.zeros((B, 1, 1, Sq, Sk), dtype=torch.float32, device=dev)
+    if causal:
+        qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+        kpos = torch.arange(Sk, device=dev)[None, :]
+        causal_mask = torch.where(kpos > qpos, NEG_INF, 0.0)
+        mask = mask + causal_mask[None, None, None]
+    if kv_len is not None:
+        valid = torch.arange(Sk, device=dev)[None, :] < kv_len.to(dev)[:, None]
+        mask = mask + torch.where(valid, 0.0, NEG_INF)[:, None, None, None, :]
+    w = torch.softmax(logits + mask, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.reshape(B, Sq, H, hd_v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention: single query token vs KV cache with valid lengths
+# ---------------------------------------------------------------------------
+def decode_attention_ref(
+    q: torch.Tensor,            # (B, H, hd)
+    k_cache: torch.Tensor,      # (B, S, K, hd)
+    v_cache: torch.Tensor,      # (B, S, K, hd)
+    lengths: torch.Tensor,      # (B,) int — valid cache entries
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    B, H, hd = q.shape
+    _, S, K, _ = k_cache.shape
+    hd_v = v_cache.shape[-1]
+    g = H // K
+    scale = scale if scale is not None else hd ** -0.5
+    qf = (q.float() * scale).reshape(B, K, g, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    valid = (
+        torch.arange(S, device=q.device)[None, :]
+        < lengths.to(q.device)[:, None]
+    )                                                          # (B, S)
+    logits = logits + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.float())
+    return out.reshape(B, H, hd_v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention (vLLM-style PagedAttention)
+# ---------------------------------------------------------------------------
+def gather_pages(
+    pages: torch.Tensor,         # (P, page_size, K, hd) physical page pool
+    block_tables: torch.Tensor,  # (B, pages_per_seq) int page ids
+) -> torch.Tensor:
+    """Materialize the dense (B, S, K, hd) view a block table describes.
+
+    Token t of request b lives at (block_tables[b, t // ps], t % ps);
+    gathering page-by-page therefore reconstructs positions in order.
+    """
+    P, ps, K, hd = pages.shape
+    B, npp = block_tables.shape
+    flat = pages.reshape(P * ps, K, hd)
+    bt = block_tables.to(device=pages.device, dtype=torch.long)
+    tok = bt[:, :, None] * ps + torch.arange(ps, device=pages.device)[None, None, :]
+    return flat[tok.reshape(B, npp * ps)]
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,             # (B, H, hd)
+    k_pages: torch.Tensor,       # (P, page_size, K, hd)
+    v_pages: torch.Tensor,       # (P, page_size, K, hd_v)
+    block_tables: torch.Tensor,  # (B, pages_per_seq) int
+    lengths: torch.Tensor,       # (B,) int — valid tokens (incl. current)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    k_dense = gather_pages(k_pages, block_tables)
+    v_dense = gather_pages(v_pages, block_tables)
+    return decode_attention_ref(q, k_dense, v_dense, lengths, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Paged chunked-prefill attention: C chunk queries of a single request vs
+# the context pages named by its block table (history + in-chunk segment,
+# both already scattered into the pool)
+# ---------------------------------------------------------------------------
+def paged_prefill_attention_ref(
+    q: torch.Tensor,            # (C, H, hd) — one request's chunk queries
+    k_pages: torch.Tensor,      # (P, page_size, K, hd)
+    v_pages: torch.Tensor,      # (P, page_size, K, hd_v)
+    block_table: torch.Tensor,  # (pages_per_seq,) int
+    past: int,                  # prompt tokens already prefilled (chunk offset)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    C = q.shape[0]
+    ps = k_pages.shape[1]
+    ctx = past + C
+    n_ctx_pages = -(-ctx // ps)
+    bt = block_table[None, :n_ctx_pages]
+    k_ctx = gather_pages(k_pages, bt)            # (1, n_ctx_pages*ps, K, hd)
+    v_ctx = gather_pages(v_pages, bt)
+    kv_len = torch.tensor([ctx], dtype=torch.int32, device=q.device)
+    out = attention_ref(
+        q[None], k_ctx, v_ctx, causal=True, scale=scale,
+        q_offset=past, kv_len=kv_len,
+    )
+    return out[0]
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm_ref(
+    x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)

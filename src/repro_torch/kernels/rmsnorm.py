@@ -1,0 +1,61 @@
+"""Fused RMSNorm: the wrapper of the hand-written CUDA kernel.
+
+Replaces the JAX package's Pallas kernel (``repro/kernels/rmsnorm.py``);
+the kernel is ``csrc/rmsnorm.cu``.  The wrapper takes CUDA tensors only
+(the plain version, :func:`repro_torch.kernels.ref.rmsnorm_ref`, serves
+the CPU through :mod:`repro_torch.kernels.ops`), checks what the kernel
+accepts, allocates the output and counts its launches in
+``rmsnorm.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``x * rsqrt(mean(x**2, -1) + eps) * gamma`` in f32, cast to ``x.dtype``.
+
+    Parameters
+    ----------
+    x : torch.Tensor
+        ``(..., d)`` CUDA tensor, float32 or bfloat16, contiguous.
+    gamma : torch.Tensor
+        ``(d,)`` scale of the same dtype and device.
+    eps : float, optional
+        Added to the mean square before the root.
+
+    Returns
+    -------
+    torch.Tensor
+        Same shape and dtype as ``x``.
+    """
+    if not x.is_cuda or gamma.device != x.device:
+        raise ValueError(
+            f"rmsnorm kernel takes CUDA tensors on one device, got "
+            f"{x.device} and {gamma.device}"
+        )
+    if x.dtype not in _SUFFIX or gamma.dtype != x.dtype:
+        raise ValueError(f"rmsnorm kernel takes f32/bf16 x and gamma of one "
+                         f"dtype, got {x.dtype} and {gamma.dtype}")
+    d = x.shape[-1]
+    if gamma.shape != (d,) or not x.is_contiguous() or not gamma.is_contiguous():
+        raise ValueError(f"rmsnorm kernel takes contiguous x (..., {d}) and "
+                         f"gamma ({d},), got {tuple(x.shape)} and "
+                         f"{tuple(gamma.shape)}")
+    out = torch.empty_like(x)
+    name = f"rmsnorm_{_SUFFIX[x.dtype]}"
+    code = getattr(_build.library(), name)(
+        x.data_ptr(), gamma.data_ptr(), out.data_ptr(), x.numel() // max(d, 1), d,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(code, name)
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0
