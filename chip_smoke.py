@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's paged serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (``nvcc``)::
@@ -17,18 +17,30 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    (H = 48, K = 8, hd = 128), with unreferenced pages and the tails past
    each length poisoned with finite values; the attention kernels also
    with those regions set to NaN, which must not change their output.
+   The slot path's kernels (flash attention, slot decode attention) are
+   held the same way at stablelm-1.6b's and internlm2-20b's widths and,
+   for flash, MLA's head dims (192 / 128), causal and not.
    Times (CUDA events, median) of the kernel, its plain version and one
    PyTorch library call for the same function (a yardstick the port
    never calls), beside the least time the card could take;
 3. ``held``    — stablelm-1.6b at full width cut to 2 layers, float32:
-   the same weights and requests through the engine on the card and on
-   the CPU must give the same greedy tokens;
-4. ``engine``  — the full stablelm-1.6b in bf16 through
+   the same weights and requests through the paged engine on the card
+   and on the CPU must give the same greedy tokens;
+4. ``held_slot`` — the same check through the slot engine ``LLMEngine``;
+5. ``engine``  — the full stablelm-1.6b in bf16 through
    ``PagedLLMEngine.admit``/``step``: 8 requests of 96-768 prompt
    tokens and 32 new tokens each, once with the default pool and once
    with the prefix cache on a pool small enough to force eviction,
    re-admission and copy-on-write; every kernel launch is counted and
-   must match the steps run exactly.
+   must match the steps run exactly;
+6. ``testbed`` — the paper's testbed: the full stablelm-1.6b in bf16
+   behind the port's ``build_engines``, ``ServingCluster``, a fitted
+   ``ProfileStore`` and ``build_scheduler``.  One seeded planning workload
+   of 12 jobs, each LLM task prefilling a ~386-token prompt, runs under
+   LLMSched and then FCFS on one slot replica (flash and slot decode
+   kernels, exact launch accounting), then under LLMSched on two paged
+   replicas with a small and a large page pool, live migration and the
+   prefix cache.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line,
 and a last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import statistics
 import subprocess
 import sys
@@ -58,7 +71,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
-PHASES = ("kernels", "held", "engine")
+PHASES = ("kernels", "held", "held_slot", "engine", "testbed")
 KERNEL_META = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                                "src/repro/kernels/paged_attention.py:119"),
@@ -66,7 +79,14 @@ KERNEL_META = {
                                 "src/repro/kernels/paged_attention.py:257"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:27"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:89"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:113"),
 }
+# the kernels of the paged engine's path and of the testbed's slot path
+PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention", "rmsnorm")
+SLOT_KERNELS = ("flash_attention", "decode_attention", "rmsnorm")
 
 
 def emit(phase: str, **fields) -> None:
@@ -201,11 +221,58 @@ def _err(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
     return float((g - w).abs().max())
 
 
+def _check_slot_kernels(rng, dev, errs, cases) -> None:
+    """The slot path's kernels against their plain versions: slot decode at
+    B = 4, S_max = 1024 with lengths 1, 17, 511, 1024 and the tails past them
+    poisoned (+-99 against the plain version, NaN against the kernel on
+    clean caches); flash at B = 1, Sq = Sk = 1, 97, 512, causal and not."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def randn(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    widths = {"stablelm-1.6b": (32, 32, 64, 64), "internlm2-20b GQA": (48, 8, 128, 128)}
+    B, S = 4, 1024
+    lens = np.array([1, 17, 511, 1024], np.int32)
+    tail = torch.from_numpy(np.arange(S)[None, :] >= lens[:, None]).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    for label, (H, K, hd, hd_v) in widths.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc = _on(dev, dtype, randn(B, H, hd), randn(B, S, K, hd),
+                            randn(B, S, K, hd_v))
+            k99, v99 = kc.clone(), vc.clone()
+            k99[tail], v99[tail] = 99.0, -99.0
+            got = decode_attention(q, k99, v99, ln)
+            errs["decode_attention"] = max(errs["decode_attention"], _err(
+                got, R.decode_attention_ref(q, k99, v99, ln), dtype))
+            knan, vnan = kc.clone(), vc.clone()
+            knan[tail], vnan[tail] = float("nan"), float("nan")
+            check(torch.equal(decode_attention(q, knan, vnan, ln),
+                              decode_attention(q, kc, vc, ln)),
+                  f"slot decode output changed under NaN tails ({label}, {dtype})")
+            cases.append(("slot decode", label, str(dtype), B))
+    widths["MLA 192/128"] = (16, 16, 192, 128)
+    for label, (H, K, hd, hd_v) in widths.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for Sq in (1, 97, 512):
+                q, k, v = _on(dev, dtype, randn(1, Sq, H, hd), randn(1, Sq, K, hd),
+                              randn(1, Sq, K, hd_v))
+                for causal in (True, False):
+                    got = flash_attention(q, k, v, causal=causal)
+                    errs["flash_attention"] = max(errs["flash_attention"], _err(
+                        got, R.attention_ref(q, k, v, causal=causal), dtype))
+                    cases.append(("flash", label, str(dtype), Sq, causal))
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_prefill_attention,
     )
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     rng = np.random.default_rng(0)
@@ -253,6 +320,7 @@ def phase_kernels(dev) -> dict:
             x, g = x.to(dev, dtype), g.to(dev, dtype)
             errs["rmsnorm"] = max(errs["rmsnorm"],
                                   _err(rmsnorm(x, g), R.rmsnorm_ref(x, g), dtype))
+    _check_slot_kernels(rng, dev, errs, cases)
     torch.cuda.synchronize()
 
     # times at the main path's shapes, bf16: decode B = 8 over 96..800
@@ -308,6 +376,38 @@ def phase_kernels(dev) -> dict:
         plain_ms=time_ms(lambda: R.rmsnorm_ref(x, g)),
         library_ms=time_ms(lambda: F.rms_norm(x, (2048,), g, 1e-5)),
         bound_ms=nb, bound_by=fl, shape="rows=64 d=2048")
+    # the testbed's slot decode: b = 4 slots of S_max = 1024 holding a
+    # ~386-token prompt plus what they decoded
+    B, S = 4, 1024
+    lens = np.array([386, 400, 430, 460], np.int32)
+    q, kc, vc = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
+                               for sh in ((B, H, hd), (B, S, K, hd), (B, S, K, hd))))
+    ln = torch.from_numpy(lens).to(dev)
+    smask = torch.arange(S, device=dev)[None, :] < ln[:, None].long()
+    k4, v4 = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    tokens = int(lens.sum())
+    nb, fl = bound(2 * B * H * hd * es + 2 * tokens * K * hd * es + 4 * B,
+                   4 * H * hd * tokens, dt)
+    timing["decode_attention"] = dict(
+        ms=time_ms(lambda: decode_attention(q, kc, vc, ln)),
+        plain_ms=time_ms(lambda: R.decode_attention_ref(q, kc, vc, ln)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k4, v4, attn_mask=smask[:, None, None, :])),
+        bound_ms=nb, bound_by=fl,
+        shape=f"B={B} S_max={S} H=K={H} hd={hd} tokens={tokens}")
+    # one admission's prefill: a 386-token prompt, causal
+    Sq = 386
+    q, k, v = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
+                             for sh in ((1, Sq, H, hd), (1, Sq, K, hd), (1, Sq, K, hd))))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = Sq * (Sq + 1) // 2
+    nb, fl = bound(2 * Sq * H * hd * es + 2 * Sq * K * hd * es, 4 * H * hd * pairs, dt)
+    timing["flash_attention"] = dict(
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: R.attention_ref(q, k, v, causal=True)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        bound_ms=nb, bound_by=fl, shape=f"B=1 Sq=Sk={Sq} causal H=K={H} hd={hd}")
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
            "peaks": "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"}
@@ -360,6 +460,48 @@ def phase_held(dev, cfg) -> dict:
            "max_logit_gap_first_chunk": gap, "seconds": secs}
     emit("held", **res)
     check(equal and len(outs["cuda"]) == 4, "card and CPU engines disagree")
+    return res
+
+
+def phase_held_slot(dev, cfg) -> dict:
+    """The slot engine on the card and on the CPU: equal greedy tokens."""
+    from repro_torch.bridge import params_to
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving import LLMEngine, Request
+
+    cpu_params = init_params(cfg, seed=1, device="cpu")
+    gpu_params = params_to(cpu_params, dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (40, 97, 150, 200, 64)]
+    logits = {}
+    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+        toks = torch.tensor([prompts[1]], dtype=torch.int32, device=d)
+        lg, _ = prefill(params, cfg, toks, max_len=256)
+        logits[name] = lg.float().cpu()
+    gap = float((logits["cuda"] - logits["cpu"]).abs().max())
+
+    outs, secs = {}, {}
+    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+        eng = LLMEngine(cfg, max_batch=4, max_len=256, params=params, device=d)
+        out, pending = {}, list(enumerate(prompts))
+        t0 = time.perf_counter()
+        while pending or eng.batch_size:
+            while pending and eng.can_admit():   # the fifth reuses a freed slot
+                i, p = pending.pop(0)
+                check(eng.admit(Request(
+                    rid=i, prompt=p, max_new_tokens=12 + 2 * i,
+                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens)))),
+                    "held_slot: admission refused")
+            eng.step()
+        secs[name] = time.perf_counter() - t0
+        outs[name] = out
+    torch.cuda.synchronize()
+    equal = outs["cuda"] == outs["cpu"]
+    res = {"model": "stablelm-1.6b width, 2 layers, float32, TF32 off, slot engine",
+           "tokens_equal": equal, "n_tokens": sum(len(v) for v in outs["cuda"].values()),
+           "max_logit_gap_prefill": gap, "seconds": secs}
+    emit("held_slot", **res)
+    check(equal and len(outs["cuda"]) == len(prompts), "card and CPU slot engines disagree")
     return res
 
 
@@ -430,7 +572,7 @@ def _serve(eng, reqs) -> dict:
           f"prefill launches {counts} vs {eng.prefill_chunks} chunks")
     check(counts["rmsnorm"] == (2 * layers + 1) * n_steps,
           f"rmsnorm launches {counts} vs {n_steps} steps")
-    check(all(v > 0 for v in counts.values()), f"a kernel never ran: {counts}")
+    check(all(counts[k] > 0 for k in PAGED_KERNELS), f"a kernel never ran: {counts}")
     eng.allocator.check_no_leaks()
     return res
 
@@ -479,13 +621,14 @@ def phase_engine(dev, cfg) -> dict:
 
 
 def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
-    """Trace ``n_steps`` steady decode steps at batch 8 with torch.profiler:
-    device time by kernel, and the share of the window the device idled."""
+    """Trace ``n_steps`` steady decode steps at batch ``len(reqs)`` with
+    torch.profiler: device time by kernel, and the share of the window the
+    device idled.  Works for the paged and the slot engine."""
     from torch.profiler import ProfilerActivity, profile
 
     for r in reqs:
         check(eng.admit(r), "profile: admission refused")
-    while eng.prefilling:
+    while getattr(eng, "prefilling", None):   # the slot engine prefills in admit()
         eng.step()
     for _ in range(2):
         eng.step()
@@ -509,12 +652,129 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
     return {
         "top_host_ops_ms": [{"name": e.key, "self_ms": e.self_cpu_time_total / 1e3,
                              "count": e.count} for e in host],
-        "window": f"{n_steps} decode steps, batch 8, 512-token prompts",
+        "window": f"{n_steps} decode steps, batch {len(reqs)}, "
+                  f"{len(reqs[0].prompt)}-token prompts, {type(eng).__name__}",
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "device_events": sum(n for _, n in by_kernel.values()),
         "top_kernels_ms": [{"name": k, "ms": t, "count": n} for k, (t, n) in top],
     }
+
+
+# ---------------------------------------------------------------------------
+# phase: testbed (the paper's testbed: scheduler + cluster + engines)
+# ---------------------------------------------------------------------------
+TESTBED_JOBS = 12
+TESTBED_SHARED_PROMPT = 384      # + 2 suffix tokens: ~386-token prompts
+TESTBED_TOKEN_SCALE = 4.0        # tasks decode ~8-160 tokens, ~30 on average
+TESTBED_TIME_SCALE = 4.0
+TESTBED_LIMIT_S = 300            # a run that has not finished by then stalled
+
+
+class Stalled(RuntimeError):
+    """A testbed run did not finish within TESTBED_LIMIT_S."""
+
+
+def _stalled(signum, frame):
+    raise Stalled(f"testbed run did not finish within {TESTBED_LIMIT_S} s")
+
+
+def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_scheduler
+    from repro_torch.serving import ServingCluster
+    from repro_torch.sim import generate_workload
+
+    wl = generate_workload("planning", TESTBED_JOBS, arrival_rate=0.9, seed=seed)
+    sched = build_scheduler(name, store, epsilon=0.2, seed=seed,
+                            plan_ahead_s=serve_cfg.plan_ahead_s)
+    cluster = ServingCluster(sched, engines, serve_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    signal.alarm(TESTBED_LIMIT_S)
+    try:
+        res = cluster.run(wl)
+        torch.cuda.synchronize()
+    finally:
+        signal.alarm(0)
+    counts = ops.launch_counts()
+    profiles = [e.latency_profile() for e in engines]
+    out = {
+        "scheduler": name, "engine": serve_cfg.engine, "replicas": len(engines),
+        "jobs": TESTBED_JOBS, "finished": len(res.jct_by_job),
+        "avg_jct_s": res.avg_jct, "makespan_s": res.makespan,
+        "tokens": res.tokens_generated, "sched_overhead_ms": res.avg_overhead_ms,
+        "preemptions": res.preemptions, "migrations": res.migrations,
+        "prefill_tokens": res.prefill_tokens, "prefill_saved": res.prefill_saved_tokens,
+        "l_b_ms": [({int(b): float(v) * 1e3 for b, v in zip(p.batch_sizes, p.latency)}
+                    if p else {}) for p in profiles],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts,
+    }
+    check(out["finished"] == TESTBED_JOBS, f"{name}: {out['finished']} of "
+          f"{TESTBED_JOBS} jobs finished")
+    layers = engines[0].cfg.n_layers
+    if serve_cfg.engine == "slot":
+        adm = sum(e.admissions for e in engines)
+        steps = sum(e.decode_steps for e in engines)
+        out.update(admissions=adm, decode_steps=steps)
+        check(counts["flash_attention"] == layers * adm,
+              f"flash launches {counts} vs {adm} admissions")
+        check(counts["decode_attention"] == layers * steps,
+              f"slot decode launches {counts} vs {steps} decode steps")
+        check(counts["rmsnorm"] == (2 * layers + 1) * (adm + steps),
+              f"rmsnorm launches {counts} vs {adm + steps} admissions and steps")
+        check(all(counts[k] > 0 for k in SLOT_KERNELS), f"a kernel never ran: {counts}")
+    else:
+        steps = sum(e.decode_steps for e in engines)
+        chunks = sum(e.prefill_chunks for e in engines)
+        out.update(decode_steps=steps, prefill_chunks=chunks,
+                   pool_pages=[e.num_pages for e in engines])
+        check(counts["paged_decode_attention"] == layers * steps,
+              f"paged decode launches {counts} vs {steps} steps")
+        check(counts["paged_prefill_attention"] == layers * chunks,
+              f"paged prefill launches {counts} vs {chunks} chunks")
+        check(counts["rmsnorm"] == (2 * layers + 1) * (steps + chunks),
+              f"rmsnorm launches {counts} vs {steps + chunks} steps and chunks")
+        for e in engines:
+            e.allocator.check_no_leaks(allow_indexed=True)
+    return out
+
+
+def phase_testbed(dev, cfg) -> dict:
+    from repro_torch.core import ProfileStore
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeConfig, build_engines
+    from repro_torch.sim import generate_traces, get_generators
+
+    gens = get_generators()
+    store = ProfileStore().fit([g.template for g in gens.values()],
+                               generate_traces("planning", 300, seed=7))
+    params = init_params(cfg, seed=0, device=dev)
+    common = dict(max_batch=4, n_regular=4, shared_prompt_tokens=TESTBED_SHARED_PROMPT,
+                  token_scale=TESTBED_TOKEN_SCALE, time_scale=TESTBED_TIME_SCALE, seed=0)
+    slot_cfg = ServeConfig(engine="slot", replicas=1, max_len=1024, **common)
+    runs = {}
+    for name in ("llmsched", "fcfs"):
+        engines = build_engines(cfg, slot_cfg, params=params, device=dev)
+        runs[name] = _testbed_run(name, store, engines, slot_cfg)
+        emit("testbed", **runs[name])
+        del engines
+    # two paged replicas: a pool that holds one request and a large one
+    fleet_cfg = ServeConfig(engine="paged", replicas=2, max_len=512, kv_pages=(33, 129),
+                            migrate=True, prefix_cache=True, **common)
+    engines = build_engines(cfg, fleet_cfg, params=params, device=dev)
+    runs["fleet"] = _testbed_run("llmsched", store, engines, fleet_cfg)
+    emit("testbed", **runs["fleet"])
+    del engines
+    # where a slot decode step's time goes: batch 4, testbed-sized prompts
+    rng = np.random.default_rng(6)
+    emit("profile", **_profile_decode(
+        build_engines(cfg, slot_cfg, params=params, device=dev)[0],
+        [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=386).tolist(),
+                 max_new_tokens=64) for i in range(4)]))
+    return runs
 
 
 def main(argv=None) -> int:
@@ -531,20 +791,31 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    signal.signal(signal.SIGALRM, _stalled)
     dev = torch.device("cuda", 0)
     phase_env(_build)
     kern = phase_kernels(dev) if "kernels" in phases else None
     from repro_torch.configs import get_config
 
+    held_cfg = get_config("stablelm_1_6b").with_(n_layers=2, dtype="float32")
     if "held" in phases:
-        phase_held(dev, get_config("stablelm_1_6b").with_(n_layers=2, dtype="float32"))
-    eng = None
+        phase_held(dev, held_cfg)
+    if "held_slot" in phases:
+        phase_held_slot(dev, held_cfg)
+    eng = tb = None
     if "engine" in phases:
         eng = phase_engine(dev, get_config("stablelm_1_6b"))
-    if kern is not None and eng is not None:
+    if "testbed" in phases:
+        tb = phase_testbed(dev, get_config("stablelm_1_6b"))
+    if kern is not None and eng is not None and tb is not None:
+        # launches: the paged kernels' and RMSNorm's from the engine phase's
+        # first run, the slot kernels' from the testbed's LLMSched slot run
+        launches = dict(eng["launches"])
+        launches.update({k: tb["llmsched"]["launches"][k]
+                         for k in ("flash_attention", "decode_attention")})
         summary = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": eng["launches"][name],
+             "launches": launches[name],
              "max_abs_err": kern["max_abs_err"][name],
              **{k: kern["timing_bf16"][name][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}

@@ -1,5 +1,8 @@
-"""Runtime checkers of the port (the KV-page sanitizer)."""
+"""Runtime checkers of the port: the KV-page sanitizer and the scheduler's
+invariant catalog."""
 
+from .invariants import INVARIANTS, InvariantViolation, check_decision
 from .kvsan import KVSanError, KVSanitizer
 
-__all__ = ["KVSanError", "KVSanitizer"]
+__all__ = ["INVARIANTS", "InvariantViolation", "KVSanError", "KVSanitizer",
+           "check_decision"]

@@ -10,7 +10,8 @@ Each ported kernel has:
 - ``ops.py``         — the dispatch the models call (kernel for CUDA
   tensors, plain version for CPU tensors).
 
-Kernels: paged decode attention, paged chunked-prefill attention, RMSNorm.
+Kernels: paged decode attention, paged chunked-prefill attention, RMSNorm,
+slot-cache decode attention and flash attention.
 """
 
 from . import ops, ref

@@ -45,6 +45,10 @@ SIGNATURES: Dict[str, List] = {
     "paged_decode_bf16": [P] * 6 + [I] * 7 + _STRIDES + [F, P],
     "paged_prefill_f32": [P] * 5 + [I] * 8 + _STRIDES + [F, P],
     "paged_prefill_bf16": [P] * 5 + [I] * 8 + _STRIDES + [F, P],
+    "decode_attention_f32": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
+    "decode_attention_bf16": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
+    "flash_attention_f32": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
+    "flash_attention_bf16": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
 }
 
 

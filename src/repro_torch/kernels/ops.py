@@ -20,6 +20,8 @@ import torch
 
 from . import _build
 from . import ref as _ref
+from .decode_attention import decode_attention as _da
+from .flash_attention import flash_attention as _fa
 from .paged_attention import paged_decode_attention as _pda
 from .paged_attention import paged_prefill_attention as _ppa
 from .rmsnorm import rmsnorm as _rn
@@ -30,6 +32,8 @@ KERNELS = {
     "paged_decode_attention": _pda,
     "paged_prefill_attention": _ppa,
     "rmsnorm": _rn,
+    "decode_attention": _da,
+    "flash_attention": _fa,
 }
 
 
@@ -58,6 +62,43 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Multi-head (GQA) attention: the flash kernel for CUDA tensors.
+
+    The kernel does not take ``kv_len`` or a causal ``q_offset`` and
+    raises ``NotImplementedError`` for them; they are not sent to the
+    plain version instead.
+    """
+    if _use_kernel(impl, q):
+        return _fa(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                   kv_len=kv_len)
+    return _ref.attention_ref(q, k, v, causal=causal, scale=scale,
+                              q_offset=q_offset, kv_len=kv_len)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Decode attention of one token per row over a dense slot cache."""
+    if _use_kernel(impl, q):
+        return _da(q, k_cache, v_cache, lengths, scale=scale)
+    return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
 
 
 def paged_decode_attention(

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense family's paged serving path so far."""
+"""Model zoo of the port: the dense family's slot and paged serving paths."""
 
 from .config import (
     SHAPES,
@@ -11,10 +11,19 @@ from .config import (
     XLSTMConfig,
     shape_applicable,
 )
-from .transformer import init_params, layer_kind, superblock_len
+from .transformer import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    layer_kind,
+    prefill,
+    superblock_len,
+)
 
 __all__ = [
     "SHAPES", "EncoderConfig", "MLAConfig", "MambaConfig", "MoEConfig",
     "ModelConfig", "ShapeConfig", "XLSTMConfig", "shape_applicable",
-    "init_params", "layer_kind", "superblock_len",
+    "decode_step", "forward", "init_cache", "init_params", "layer_kind",
+    "prefill", "superblock_len",
 ]

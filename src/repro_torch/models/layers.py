@@ -1,12 +1,14 @@
-"""Transformer layers of the paged serving path: plain functions on tensors.
+"""Transformer layers of the dense family: plain functions on tensors.
 
-The subset of ``repro/models/layers.py`` the dense family's paged path
-runs: ``embed``, ``rmsnorm``, ``rope``, ``_proj_qkv``, ``mlp`` and
-``unembed``, with the ``init_*`` functions of their weights.  Parameters
-are plain nested dicts of tensors with the JAX package's names, shapes
-and dtypes; the matrix products stay ``x @ w`` (outside any kernel, as
-the JAX package left them to XLA), and RMSNorm goes through
-:mod:`repro_torch.kernels.ops` (the CUDA kernel for CUDA tensors).
+The subset of ``repro/models/layers.py`` the dense family's serving
+paths run: ``embed``, ``rmsnorm``, ``rope``, ``_proj_qkv``,
+``attention_full`` and ``attention_decode`` (the slot engine's prefill
+and decode), ``mlp`` and ``unembed``, with the ``init_*`` functions of
+their weights.  Parameters are plain nested dicts of tensors with the
+JAX package's names, shapes and dtypes; the matrix products stay
+``x @ w`` (outside any kernel, as the JAX package left them to XLA),
+and RMSNorm and attention go through :mod:`repro_torch.kernels.ops`
+(the CUDA kernels for CUDA tensors).
 
 Weights are drawn as in the JAX package — normal with
 ``std = 1/sqrt(fan_in)``, drawn in float32 and cast to the model dtype —
@@ -126,6 +128,59 @@ def _proj_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, kv_src: torch.Tensor
         kk = kk + p["bk"].reshape(1, 1, k, hd)
         v = v + p["bv"].reshape(1, 1, k, hd)
     return q, kk, v
+
+
+def attention_full(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,               # (B, S, d)
+    positions: torch.Tensor,       # (B, S)
+    causal: bool = True,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention (prefill).  Returns (out, {"k", "v"})."""
+    q, k, v = _proj_qkv(p, cfg, x, x)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = ops.attention(q, k, v, causal=causal)
+    B, S, _ = x.shape
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, {"k": k, "v": v}
+
+
+def attention_decode(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,               # (B, 1, d)
+    cache_k: torch.Tensor,         # (B, S_max, K, hd)
+    cache_v: torch.Tensor,
+    lengths: torch.Tensor,         # (B,) int32 tokens already in cache
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode; returns (out, cache_k, cache_v).
+
+    The new K/V of row b are written **in place** at position
+    ``lengths[b]`` (the JAX version adds a one-hot row to a cache whose
+    slot there is zero, which stores the same values).  A row whose
+    length has reached ``S_max`` writes nothing, as the JAX one-hot of
+    an out-of-range index is all zeros.
+    """
+    B = x.shape[0]
+    S = cache_k.shape[1]
+    q, k, v = _proj_qkv(p, cfg, x, x)
+    if use_rope:
+        pos = lengths[:, None]
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    at = lengths.long().clamp(max=S - 1)
+    keep = (lengths >= S)[:, None, None]
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache[rows, at] = torch.where(keep, cache[rows, at], new[:, 0].to(cache.dtype))
+    out = ops.decode_attention(q[:, 0], cache_k, cache_v, (lengths + 1).to(torch.int32))
+    out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

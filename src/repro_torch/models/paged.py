@@ -38,7 +38,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from . import layers as L
 from .config import ModelConfig
-from .transformer import _apply_ffn, _scan_layout, layer_kind
+from .transformer import _apply_ffn, _layer_views, _scan_layout, layer_kind
 
 Params = Dict[str, Any]
 Pools = Dict[str, Any]
@@ -114,14 +114,6 @@ def _write_kv(pool: Dict[str, torch.Tensor], flat_idx: torch.Tensor,
         P, ps, K, hd = arr.shape
         arr.view(P * ps, K, hd).index_copy_(0, flat_idx, val.to(arr.dtype))
     return pool
-
-
-def _layer_views(tree: Dict[str, Any], s: int) -> Dict[str, Any]:
-    """Superblock ``s`` of a tree stacked on axis 0 (views, no copies)."""
-    return {
-        k: _layer_views(v, s) if isinstance(v, dict) else v[s]
-        for k, v in tree.items()
-    }
 
 
 # ---------------------------------------------------------------------------

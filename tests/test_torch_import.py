@@ -13,6 +13,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# modules of every subpackage, the scheduler core, simulator and launcher included
+REQUIRED = (
+    "core/scheduler.py", "core/profiler.py", "core/baselines.py",
+    "sim/simulator.py", "sim/workloads.py", "launch/serve.py",
+    "models/zoo.py", "serving/cluster.py", "kernels/flash_attention.py",
+    "kernels/decode_attention.py",
+)
 
 
 def _port_files():
@@ -32,6 +39,7 @@ def _imported_roots(path: Path):
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = _port_files()
     assert len(files) > 20 and (REPO / "chip_smoke.py").exists()
+    assert {PORT / r for r in REQUIRED} <= set(files)
     bad = [
         f"{path.relative_to(REPO)}:{line} imports {root}"
         for path in files
@@ -47,6 +55,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
         for p in PORT.rglob("*.py")
         if p.name != "__init__.py"
     )
+    for r in REQUIRED:
+        assert "repro_torch." + r[:-3].replace("/", ".") in modules
     code = (
         "import importlib, sys\n"
         "import repro_torch\n"
