@@ -19,19 +19,26 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    with those regions set to NaN, which must not change their output.
    The slot path's kernels (flash attention, slot decode attention) are
    held the same way at stablelm-1.6b's and internlm2-20b's widths and,
-   for flash, MLA's head dims (192 / 128), causal and not.
+   for flash, MLA's head dims (192 / 128), causal and not.  The int8
+   forms of both paged kernels are held against their plain versions at
+   those widths with f32 and bf16 queries, with +-99 payloads in every
+   unreferenced slot, whose scales set to NaN, Inf or 1e30 must leave the
+   output unchanged to the bit.
    Times (CUDA events, median) of the kernel, its plain version and one
    PyTorch library call for the same function (a yardstick the port
    never calls), beside the least time the card could take;
 3. ``held``    — stablelm-1.6b at full width cut to 2 layers, float32:
    the same weights and requests through the paged engine on the card
-   and on the CPU must give the same greedy tokens;
-4. ``held_slot`` — the same check through the slot engine ``LLMEngine``;
+   and on the CPU must give the same greedy tokens, with fp pages and
+   with int8 pages;
+4. ``held_slot`` — the same check through the slot engine ``LLMEngine``,
+   with a float and with an int8 slot cache;
 5. ``engine``  — the full stablelm-1.6b in bf16 through
    ``PagedLLMEngine.admit``/``step``: 8 requests of 96-768 prompt
    tokens and 32 new tokens each, once with the default pool and once
    with the prefix cache on a pool small enough to force eviction,
-   re-admission and copy-on-write; every kernel launch is counted and
+   re-admission and copy-on-write, and then those requests again with
+   int8 pages at the same pool bytes; every kernel launch is counted and
    must match the steps run exactly;
 6. ``testbed`` — the paper's testbed: the full stablelm-1.6b in bf16
    behind the port's ``build_engines``, ``ServingCluster``, a fitted
@@ -40,7 +47,8 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    LLMSched and then FCFS on one slot replica (flash and slot decode
    kernels, exact launch accounting), then under LLMSched on two paged
    replicas with a small and a large page pool, live migration and the
-   prefix cache.
+   prefix cache, once with bf16 pages and once with int8 pages at the
+   same pool bytes.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line,
 and a last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -52,6 +60,7 @@ fails when no CUDA device is present or the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import signal
 import statistics
@@ -83,10 +92,26 @@ KERNEL_META = {
                          "src/repro/kernels/decode_attention.py:89"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113"),
+    # the quantized=True forms: the dequantizing lines of the TPU kernels
+    "paged_decode_attention_int8": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                                    "src/repro/kernels/paged_attention.py:86"),
+    "paged_prefill_attention_int8": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                                     "src/repro/kernels/paged_attention.py:220"),
 }
-# the kernels of the paged engine's path and of the testbed's slot path
-PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention", "rmsnorm")
+# the kernels of the paged engine's path (by page dtype) and of the
+# testbed's slot path
+PAGED_KERNELS = {
+    "fp32": ("paged_decode_attention", "paged_prefill_attention", "rmsnorm"),
+    "int8": ("paged_decode_attention_int8", "paged_prefill_attention_int8", "rmsnorm"),
+}
 SLOT_KERNELS = ("flash_attention", "decode_attention", "rmsnorm")
+# what an unwritten or recycled slot's scale may hold
+GARBAGE_SCALES = (float("nan"), float("inf"), 1e30)
+# Card against CPU through int8 caches: a K/V value that straddles a
+# rounding boundary quantizes one step apart, and the step grows through
+# later layers.  Tokens must still agree; if they do not, the card's int8
+# logits must lie closer to the CPU's than int8 quantization itself moves
+# the CPU's logits (int8 against fp caches, same weights and input).
 
 
 def emit(phase: str, **fields) -> None:
@@ -266,10 +291,78 @@ def _check_slot_kernels(rng, dev, errs, cases) -> None:
                     cases.append(("flash", label, str(dtype), Sq, causal))
 
 
+def _int8_pools(kp, vp, garbage=None):
+    """int8 pools and f32 scale pools quantized from ``kp``/``vp``; every
+    slot of the ``(P, ps)`` mask ``garbage`` holds a +-99 payload with a
+    clean scale of 1."""
+    from repro_torch.kernels import ops
+
+    kq, ks = ops.quantize_kv(kp)
+    vq, vs = ops.quantize_kv(vp)
+    if garbage is not None:
+        kq[garbage], vq[garbage] = 99, -99
+        ks[garbage], vs[garbage] = 1.0, 1.0
+    return kq, vq, ks, vs
+
+
+def _check_int8_kernels(dev, errs, cases) -> None:
+    """Both int8 kernels against their plain versions, f32 and bf16 q, at
+    stablelm-1.6b's and internlm2-20b's widths: decode at B = 8 (lengths
+    1..1024 of 64 pages of 16), prefill C = 64 at past 0, 448 and 960.
+    NaN, Inf and 1e30 scales on every garbage slot must not change the
+    output by a bit."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_int8, paged_prefill_attention_int8,
+    )
+
+    rng = np.random.default_rng(8)
+    widths = {"stablelm-1.6b": (32, 32, 64), "internlm2-20b GQA": (48, 8, 128)}
+    ps, npp = 16, 64
+    for label, (H, K, hd) in widths.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            lens = np.concatenate([[1024, 1, ps, ps + 1], rng.integers(1, 1025, size=4)])
+            q, kp, vp, bt, ln, garbage = _decode_case(
+                rng, 8, H, K, hd, ps, npp, lens, torch.float32, dev)
+            kq, vq, ks, vs = _int8_pools(kp, vp, garbage)
+            q = q.to(dtype)
+            got = paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs)
+            want = R.paged_decode_attention_ref(q, kq, vq, bt, ln, k_scales=ks, v_scales=vs)
+            errs["paged_decode_attention_int8"] = max(
+                errs["paged_decode_attention_int8"], _err(got, want, dtype))
+            for bad in GARBAGE_SCALES:
+                k2, v2 = _poisoned(ks, vs, garbage, bad)
+                check(torch.equal(paged_decode_attention_int8(q, kq, vq, bt, ln, k2, v2),
+                                  got),
+                      f"int8 decode output changed under {bad} scales ({label}, {dtype})")
+            cases.append(("int8 decode", label, str(dtype), 8))
+            for past in (0, 448, 960):
+                C = 64
+                q, kp, vp, bt, garbage = _prefill_case(
+                    rng, C, H, K, hd, ps, past, torch.float32, dev)
+                kq, vq, ks, vs = _int8_pools(kp, vp, garbage)
+                q = q.to(dtype)
+                got = paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs)
+                want = R.paged_prefill_attention_ref(q, kq, vq, bt, past, k_scales=ks,
+                                                     v_scales=vs)
+                errs["paged_prefill_attention_int8"] = max(
+                    errs["paged_prefill_attention_int8"], _err(got, want, dtype))
+                for bad in GARBAGE_SCALES:
+                    k2, v2 = _poisoned(ks, vs, garbage, bad)
+                    check(torch.equal(
+                        paged_prefill_attention_int8(q, kq, vq, bt, past, k2, v2), got),
+                        f"int8 prefill output changed under {bad} scales "
+                        f"({label}, {dtype})")
+                cases.append(("int8 prefill", label, str(dtype), past))
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_prefill_attention,
+    )
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_int8, paged_prefill_attention_int8,
     )
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -320,8 +413,13 @@ def phase_kernels(dev) -> dict:
             x, g = x.to(dev, dtype), g.to(dev, dtype)
             errs["rmsnorm"] = max(errs["rmsnorm"],
                                   _err(rmsnorm(x, g), R.rmsnorm_ref(x, g), dtype))
+    # the timing inputs draw from the generator as it stands here, so the
+    # timed shapes stay those of the first slice (3160 decode tokens)
+    timing_rng = copy.deepcopy(rng)
     _check_slot_kernels(rng, dev, errs, cases)
+    _check_int8_kernels(dev, errs, cases)
     torch.cuda.synchronize()
+    rng = timing_rng
 
     # times at the main path's shapes, bf16: decode B = 8 over 96..800
     # tokens, a prefill chunk C = 64 at past = 448, RMSNorm of a chunk
@@ -349,6 +447,28 @@ def phase_kernels(dev) -> dict:
             q4, k4, v4, attn_mask=mask[:, None, None, :])),
         bound_ms=nb, bound_by=fl, shape=f"B=8 H=K={H} hd={hd} ps={ps} "
         f"tokens={tokens}")
+    # the int8 form on the same K/V, quantized; SDPA on the dequantized,
+    # gathered bf16 KV (dequantize and gather untimed, as above)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    errs["paged_decode_attention_int8"] = max(
+        errs["paged_decode_attention_int8"],
+        _err(paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs),
+             R.paged_decode_attention_ref(q, kq, vq, bt, ln, k_scales=ks, v_scales=vs), dt))
+    k8 = R.gather_pages(R.dequantize_pages_ref(kq, ks).to(dt), bt).transpose(1, 2).contiguous()
+    v8 = R.gather_pages(R.dequantize_pages_ref(vq, vs).to(dt), bt).transpose(1, 2).contiguous()
+    nb, fl = bound(
+        2 * 8 * H * hd * es + 2 * tokens * K * hd + 2 * tokens * K * 4
+        + 4 * int(sum(-(-int(n) // ps) for n in lens)) + 4 * 8,
+        4 * H * hd * tokens + 2 * tokens * K * hd, dt)
+    timing["paged_decode_attention_int8"] = dict(
+        ms=time_ms(lambda: paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs)),
+        plain_ms=time_ms(lambda: R.paged_decode_attention_ref(
+            q, kq, vq, bt, ln, k_scales=ks, v_scales=vs)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k8, v8, attn_mask=mask[:, None, None, :])),
+        bound_ms=nb, bound_by=fl, shape=f"B=8 H=K={H} hd={hd} ps={ps} "
+        f"tokens={tokens}, int8 pages, bf16 q")
+    del kq, vq, ks, vs, k8, v8
     past, C = 448, 64
     q, kp, vp, bt, _ = _prefill_case(rng, C, H, K, hd, ps, past, dt, dev)
     ctx = past + C
@@ -367,6 +487,27 @@ def phase_kernels(dev) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, attn_mask=cmask)),
         bound_ms=nb, bound_by=fl, shape=f"C={C} past={past} H=K={H} hd={hd} ps={ps}")
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    errs["paged_prefill_attention_int8"] = max(
+        errs["paged_prefill_attention_int8"],
+        _err(paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs),
+             R.paged_prefill_attention_ref(q, kq, vq, bt, past, k_scales=ks, v_scales=vs),
+             dt))
+    k8 = R.gather_pages(R.dequantize_pages_ref(kq, ks).to(dt), bt[None, :n_ctx])
+    v8 = R.gather_pages(R.dequantize_pages_ref(vq, vs).to(dt), bt[None, :n_ctx])
+    k8 = k8[:, :ctx].transpose(1, 2).contiguous()
+    v8 = v8[:, :ctx].transpose(1, 2).contiguous()
+    nb, fl = bound(2 * C * H * hd * es + 2 * ctx * K * hd + 2 * ctx * K * 4 + 4 * n_ctx,
+                   4 * H * hd * pairs + 2 * ctx * K * hd, dt)
+    timing["paged_prefill_attention_int8"] = dict(
+        ms=time_ms(lambda: paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs)),
+        plain_ms=time_ms(lambda: R.paged_prefill_attention_ref(
+            q, kq, vq, bt, past, k_scales=ks, v_scales=vs)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qc, k8, v8, attn_mask=cmask)),
+        bound_ms=nb, bound_by=fl,
+        shape=f"C={C} past={past} H=K={H} hd={hd} ps={ps}, int8 pages, bf16 q")
+    del kq, vq, ks, vs, k8, v8
     x = torch.randn(64, 2048, device=dev, dtype=dt,
                     generator=torch.Generator(device=dev).manual_seed(3))
     g = torch.ones(2048, device=dev, dtype=dt)
@@ -418,7 +559,40 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase: held (card vs CPU, float32)
 # ---------------------------------------------------------------------------
+def _int8_gap(caches) -> dict:
+    """Card against CPU int8 caches: how many int8 entries differ, by how
+    many steps at most, and the largest relative scale difference."""
+    a, b = caches["cuda"], caches["cpu"]
+    diff, n, rel = 0, 0, 0.0
+    for j, blk in a.items():
+        for name, t in blk.items():
+            u = b[j][name]
+            if t.dtype == torch.int8:
+                d = (t.int() - u.int()).abs()
+                n += int((d > 0).sum())
+                diff = max(diff, int(d.max()))
+            else:
+                rel = max(rel, float(((t - u).abs() / u.abs().clamp(min=1e-30)).max()))
+    return {"int8_entries_differing": n, "int8_max_step_diff": diff,
+            "scale_max_rel_diff": rel}
+
+
+def _held_verdict(name, res, outs, n_reqs, q8) -> None:
+    """Equal tokens; through int8 caches, if the tokens part, the card-CPU
+    logit gap must stay under the CPU's int8-against-fp gap (both printed
+    either way, the check never dropped)."""
+    check(len(outs["cuda"]) == len(outs["cpu"]) == n_reqs, f"{name}: requests missing")
+    if outs["cuda"] == outs["cpu"]:
+        return
+    check(q8, f"{name}: card and CPU engines disagree")
+    check(res["max_logit_gap"] < res["int8_vs_fp_gap_cpu"],
+          f"{name}: tokens differ and the card-CPU logit gap {res['max_logit_gap']} is "
+          f"not under int8's own {res['int8_vs_fp_gap_cpu']}")
+
+
 def phase_held(dev, cfg) -> dict:
+    """The paged engine on the card and on the CPU, with fp and int8 pages:
+    equal greedy tokens."""
     from repro_torch.bridge import params_to
     from repro_torch.models import init_params
     from repro_torch.models.paged import init_paged_pools, paged_prefill_chunk
@@ -428,81 +602,109 @@ def phase_held(dev, cfg) -> dict:
     gpu_params = params_to(cpu_params, dev)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (40, 97, 150, 200)]
+    out_all, cpu_logits = {}, {}
+    for kv_dtype in ("fp32", "int8"):
+        # first prefill chunk of the first prompt, straight through the model
+        logits, pools = {}, {}
+        for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+            pools[name] = init_paged_pools(cfg, 8, 16, kv_dtype=kv_dtype, device=d)
+            toks = torch.tensor([prompts[0][:40]], dtype=torch.int32, device=d)
+            bt = torch.arange(1, 5, dtype=torch.int32, device=d)
+            lg, _ = paged_prefill_chunk(params, cfg, pools[name], toks, bt, 0)
+            logits[name] = lg.float().cpu()
+        gap = float((logits["cuda"] - logits["cpu"]).abs().max())
+        cpu_logits[kv_dtype] = logits["cpu"]
 
-    # first prefill chunk of the first prompt, straight through the model
-    logits = {}
-    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
-        pools = init_paged_pools(cfg, 8, 16, device=d)
-        toks = torch.tensor([prompts[0][:40]], dtype=torch.int32, device=d)
-        bt = torch.arange(1, 5, dtype=torch.int32, device=d)
-        lg, _ = paged_prefill_chunk(params, cfg, pools, toks, bt, 0)
-        logits[name] = lg.float().cpu()
-    gap = float((logits["cuda"] - logits["cpu"]).abs().max())
-
-    outs, secs = {}, {}
-    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
-        eng = PagedLLMEngine(cfg, max_seqs=4, max_len=256, params=params, device=d)
-        out = {}
-        for i, p in enumerate(prompts):
-            check(eng.admit(Request(
-                rid=i, prompt=p, max_new_tokens=16,
-                on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens)))),
-                "held: admission refused")
-        t0 = time.perf_counter()
-        while eng.batch_size or eng.waiting:
-            eng.step()
-        secs[name] = time.perf_counter() - t0
-        outs[name] = out
-    torch.cuda.synchronize()
-    equal = outs["cuda"] == outs["cpu"]
-    res = {"model": "stablelm-1.6b width, 2 layers, float32, TF32 off",
-           "tokens_equal": equal, "n_tokens": sum(len(v) for v in outs["cuda"].values()),
-           "max_logit_gap_first_chunk": gap, "seconds": secs}
-    emit("held", **res)
-    check(equal and len(outs["cuda"]) == 4, "card and CPU engines disagree")
-    return res
+        outs, secs = {}, {}
+        for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+            eng = PagedLLMEngine(cfg, max_seqs=4, max_len=256, params=params,
+                                 kv_dtype=kv_dtype, device=d)
+            out = {}
+            for i, p in enumerate(prompts):
+                check(eng.admit(Request(
+                    rid=i, prompt=p, max_new_tokens=16,
+                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens)))),
+                    "held: admission refused")
+            t0 = time.perf_counter()
+            while eng.batch_size or eng.waiting:
+                eng.step()
+            secs[name] = time.perf_counter() - t0
+            outs[name] = out
+        torch.cuda.synchronize()
+        res = {"model": "stablelm-1.6b width, 2 layers, float32, TF32 off",
+               "kv_dtype": kv_dtype, "tokens_equal": outs["cuda"] == outs["cpu"],
+               "n_tokens": sum(len(v) for v in outs["cuda"].values()),
+               "max_logit_gap": gap, "logits": "first 40-token chunk", "seconds": secs}
+        if kv_dtype == "int8":
+            res["int8_vs_fp_gap_cpu"] = float(
+                (cpu_logits["int8"] - cpu_logits["fp32"]).abs().max())
+            res.update(_int8_gap({n: {j: {k: t.cpu() for k, t in blk.items()}
+                                      for j, blk in p["blocks"].items()}
+                                  for n, p in pools.items()}))
+        emit("held", **res)
+        _held_verdict("held", res, outs, len(prompts), kv_dtype == "int8")
+        out_all[kv_dtype] = res
+    return out_all
 
 
 def phase_held_slot(dev, cfg) -> dict:
-    """The slot engine on the card and on the CPU: equal greedy tokens."""
+    """The slot engine on the card and on the CPU, with a float and an int8
+    slot cache: equal greedy tokens."""
     from repro_torch.bridge import params_to
-    from repro_torch.models import init_params, prefill
+    from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serving import LLMEngine, Request
 
     cpu_params = init_params(cfg, seed=1, device="cpu")
     gpu_params = params_to(cpu_params, dev)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (40, 97, 150, 200, 64)]
-    logits = {}
-    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
-        toks = torch.tensor([prompts[1]], dtype=torch.int32, device=d)
-        lg, _ = prefill(params, cfg, toks, max_len=256)
-        logits[name] = lg.float().cpu()
-    gap = float((logits["cuda"] - logits["cpu"]).abs().max())
+    out_all, cpu_logits = {}, {}
+    for cache_dtype in (cfg.kv_cache_dtype, "int8"):
+        ccfg = cfg.with_(kv_cache_dtype=cache_dtype)
+        # prefill of the second prompt, then one decode step over its cache
+        # (the step an int8 cache first changes)
+        logits, caches = {}, {}
+        for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+            toks = torch.tensor([prompts[1]], dtype=torch.int32, device=d)
+            lg, cache = prefill(params, ccfg, toks, max_len=256)
+            lg2, cache = decode_step(params, ccfg, cache,
+                                     torch.tensor([prompts[1][0]], device=d))
+            logits[name] = torch.cat([lg.float().cpu(), lg2.float().cpu()])
+            caches[name] = {j: {k: t.cpu() for k, t in blk.items()}
+                            for j, blk in cache["blocks"].items()}
+        gap = float((logits["cuda"] - logits["cpu"]).abs().max())
+        cpu_logits[cache_dtype] = logits["cpu"]
 
-    outs, secs = {}, {}
-    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
-        eng = LLMEngine(cfg, max_batch=4, max_len=256, params=params, device=d)
-        out, pending = {}, list(enumerate(prompts))
-        t0 = time.perf_counter()
-        while pending or eng.batch_size:
-            while pending and eng.can_admit():   # the fifth reuses a freed slot
-                i, p = pending.pop(0)
-                check(eng.admit(Request(
-                    rid=i, prompt=p, max_new_tokens=12 + 2 * i,
-                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens)))),
-                    "held_slot: admission refused")
-            eng.step()
-        secs[name] = time.perf_counter() - t0
-        outs[name] = out
-    torch.cuda.synchronize()
-    equal = outs["cuda"] == outs["cpu"]
-    res = {"model": "stablelm-1.6b width, 2 layers, float32, TF32 off, slot engine",
-           "tokens_equal": equal, "n_tokens": sum(len(v) for v in outs["cuda"].values()),
-           "max_logit_gap_prefill": gap, "seconds": secs}
-    emit("held_slot", **res)
-    check(equal and len(outs["cuda"]) == len(prompts), "card and CPU slot engines disagree")
-    return res
+        outs, secs = {}, {}
+        for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+            eng = LLMEngine(ccfg, max_batch=4, max_len=256, params=params, device=d)
+            out, pending = {}, list(enumerate(prompts))
+            t0 = time.perf_counter()
+            while pending or eng.batch_size:
+                while pending and eng.can_admit():   # the fifth reuses a freed slot
+                    i, p = pending.pop(0)
+                    check(eng.admit(Request(
+                        rid=i, prompt=p, max_new_tokens=12 + 2 * i,
+                        on_finish=lambda r, out=out: out.__setitem__(
+                            r.rid, list(r.out_tokens)))),
+                        "held_slot: admission refused")
+                eng.step()
+            secs[name] = time.perf_counter() - t0
+            outs[name] = out
+        torch.cuda.synchronize()
+        res = {"model": "stablelm-1.6b width, 2 layers, float32, TF32 off, slot engine",
+               "kv_cache_dtype": cache_dtype, "tokens_equal": outs["cuda"] == outs["cpu"],
+               "n_tokens": sum(len(v) for v in outs["cuda"].values()),
+               "max_logit_gap": gap, "logits": "97-token prefill and one decode step",
+               "seconds": secs}
+        if cache_dtype == "int8":
+            res["int8_vs_fp_gap_cpu"] = float(
+                (cpu_logits["int8"] - cpu_logits[cfg.kv_cache_dtype]).abs().max())
+            res.update(_int8_gap(caches))
+        emit("held_slot", **res)
+        _held_verdict("held_slot", res, outs, len(prompts), cache_dtype == "int8")
+        out_all[cache_dtype] = res
+    return out_all
 
 
 # ---------------------------------------------------------------------------
@@ -564,17 +766,31 @@ def _serve(eng, reqs) -> dict:
     check(len(finished) == len(reqs), "not every request finished")
     check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
           "a request finished with the wrong token count")
-    n_steps = eng.decode_steps + eng.prefill_chunks
-    layers = eng.cfg.n_layers
-    check(counts["paged_decode_attention"] == layers * eng.decode_steps,
-          f"decode launches {counts} vs {eng.decode_steps} steps")
-    check(counts["paged_prefill_attention"] == layers * eng.prefill_chunks,
-          f"prefill launches {counts} vs {eng.prefill_chunks} chunks")
-    check(counts["rmsnorm"] == (2 * layers + 1) * n_steps,
-          f"rmsnorm launches {counts} vs {n_steps} steps")
-    check(all(counts[k] > 0 for k in PAGED_KERNELS), f"a kernel never ran: {counts}")
+    res["kv_dtype"] = eng.kv_dtype
+    _check_paged_launches(counts, [eng])
     eng.allocator.check_no_leaks()
     return res
+
+
+def _check_paged_launches(counts, engines) -> None:
+    """Exact launch accounting of paged engines of one page dtype: each
+    attention kernel once a layer per decode step or prefill chunk, RMSNorm
+    twice a layer plus once; the other page dtype's kernels never."""
+    kv_dtype = engines[0].kv_dtype
+    decode, prefill, _ = PAGED_KERNELS[kv_dtype]
+    steps = sum(e.decode_steps for e in engines)
+    chunks = sum(e.prefill_chunks for e in engines)
+    layers = engines[0].cfg.n_layers
+    check(counts[decode] == layers * steps, f"{decode} launches {counts} vs {steps} steps")
+    check(counts[prefill] == layers * chunks,
+          f"{prefill} launches {counts} vs {chunks} chunks")
+    check(counts["rmsnorm"] == (2 * layers + 1) * (steps + chunks),
+          f"rmsnorm launches {counts} vs {steps + chunks} steps and chunks")
+    check(all(counts[k] > 0 for k in PAGED_KERNELS[kv_dtype]),
+          f"a kernel never ran: {counts}")
+    other = PAGED_KERNELS["int8" if kv_dtype == "fp32" else "fp32"]
+    check(all(counts[k] == 0 for k in other[:2]),
+          f"{kv_dtype} pages launched the other page dtype's kernels: {counts}")
 
 
 def phase_engine(dev, cfg) -> dict:
@@ -612,12 +828,30 @@ def phase_engine(dev, cfg) -> dict:
     check(run2["preemptions"] > 0 and run2["cow_copies"] > 0
           and run2["prefix_hits"] > 0,
           "the small-pool run did not exercise eviction, prefix hits and CoW")
+    budget = eng.num_pages * eng.page_bytes
     del eng
-    emit("profile", **_profile_decode(
-        PagedLLMEngine(cfg, max_seqs=8, max_len=1024, params=params, device=dev),
-        [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=512).tolist(),
-                 max_new_tokens=64) for i in range(8)]))
-    return {"launches": main_counts, "runs": [run1, run2]}
+    # run 3: run 2's requests through int8 pages at run 2's pool bytes
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
+    eng = PagedLLMEngine(cfg, max_seqs=8, max_len=1024, params=params, device=dev,
+                         num_pages=PagedLLMEngine.pages_for_byte_budget(
+                             cfg, 16, budget, "int8"),
+                         prefix_cache=True, kv_dtype="int8")
+    check(eng.num_pages * eng.page_bytes <= budget, "int8 pool over run 2's bytes")
+    run3 = _serve(eng, reqs)
+    run3.update(pool_pages=eng.num_pages, pool_bytes=eng.num_pages * eng.page_bytes,
+                budget_bytes=budget)
+    # (1.88x the pages admit all eight at once, before any prefill has
+    # registered the shared prefix: no hits are expected here)
+    emit("engine", run="prefix cache, int8 pages at run 2's pool bytes", **run3)
+    del eng
+    for kv_dtype in ("fp32", "int8"):
+        emit("profile", kv_dtype=kv_dtype, **_profile_decode(
+            PagedLLMEngine(cfg, max_seqs=8, max_len=1024, params=params, device=dev,
+                           kv_dtype=kv_dtype),
+            [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=512).tolist(),
+                     max_new_tokens=64) for i in range(8)]))
+    return {"launches": main_counts, "launches_int8": run3["launches"],
+            "runs": [run1, run2, run3]}
 
 
 def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
@@ -727,16 +961,12 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
               f"rmsnorm launches {counts} vs {adm + steps} admissions and steps")
         check(all(counts[k] > 0 for k in SLOT_KERNELS), f"a kernel never ran: {counts}")
     else:
-        steps = sum(e.decode_steps for e in engines)
-        chunks = sum(e.prefill_chunks for e in engines)
-        out.update(decode_steps=steps, prefill_chunks=chunks,
-                   pool_pages=[e.num_pages for e in engines])
-        check(counts["paged_decode_attention"] == layers * steps,
-              f"paged decode launches {counts} vs {steps} steps")
-        check(counts["paged_prefill_attention"] == layers * chunks,
-              f"paged prefill launches {counts} vs {chunks} chunks")
-        check(counts["rmsnorm"] == (2 * layers + 1) * (steps + chunks),
-              f"rmsnorm launches {counts} vs {steps + chunks} steps and chunks")
+        out.update(decode_steps=sum(e.decode_steps for e in engines),
+                   prefill_chunks=sum(e.prefill_chunks for e in engines),
+                   pool_pages=[e.num_pages for e in engines],
+                   pool_bytes=[e.num_pages * e.page_bytes for e in engines],
+                   kv_dtype=serve_cfg.kv_dtype)
+        _check_paged_launches(counts, engines)
         for e in engines:
             e.allocator.check_no_leaks(allow_indexed=True)
     return out
@@ -745,7 +975,7 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
 def phase_testbed(dev, cfg) -> dict:
     from repro_torch.core import ProfileStore
     from repro_torch.models import init_params
-    from repro_torch.serving import Request, ServeConfig, build_engines
+    from repro_torch.serving import PagedLLMEngine, Request, ServeConfig, build_engines
     from repro_torch.sim import generate_traces, get_generators
 
     gens = get_generators()
@@ -767,6 +997,17 @@ def phase_testbed(dev, cfg) -> dict:
     engines = build_engines(cfg, fleet_cfg, params=params, device=dev)
     runs["fleet"] = _testbed_run("llmsched", store, engines, fleet_cfg)
     emit("testbed", **runs["fleet"])
+    budgets = [e.num_pages * e.page_bytes for e in engines]
+    del engines
+    # the same fleet with int8 pages at the same pool bytes per replica
+    q8_pages = tuple(PagedLLMEngine.pages_for_byte_budget(cfg, fleet_cfg.page_size, b, "int8")
+                     for b in budgets)
+    q8_cfg = ServeConfig(engine="paged", replicas=2, max_len=512, kv_pages=q8_pages,
+                         kv_dtype="int8", migrate=True, prefix_cache=True, **common)
+    engines = build_engines(cfg, q8_cfg, params=params, device=dev)
+    runs["fleet_int8"] = _testbed_run("llmsched", store, engines, q8_cfg)
+    runs["fleet_int8"]["budget_bytes"] = budgets
+    emit("testbed", **runs["fleet_int8"])
     del engines
     # where a slot decode step's time goes: batch 4, testbed-sized prompts
     rng = np.random.default_rng(6)
@@ -809,10 +1050,12 @@ def main(argv=None) -> int:
         tb = phase_testbed(dev, get_config("stablelm_1_6b"))
     if kern is not None and eng is not None and tb is not None:
         # launches: the paged kernels' and RMSNorm's from the engine phase's
-        # first run, the slot kernels' from the testbed's LLMSched slot run
+        # first run, the int8 paged kernels' from its third, the slot
+        # kernels' from the testbed's LLMSched slot run
         launches = dict(eng["launches"])
         launches.update({k: tb["llmsched"]["launches"][k]
                          for k in ("flash_attention", "decode_attention")})
+        launches.update({k: eng["launches_int8"][k] for k in PAGED_KERNELS["int8"][:2]})
         summary = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name],

@@ -10,7 +10,9 @@ the extension dtype named ``"bfloat16"``; those are read bit for bit
 (through a 16-bit integer view).  The port hands bfloat16 tensors out
 as float32 arrays, which hold every bfloat16 value exactly, so a round
 trip through :func:`params_to_numpy` and :func:`params_from_numpy` with
-``dtype=torch.bfloat16`` is bit-exact too.
+``dtype=torch.bfloat16`` is bit-exact too.  int8 arrays (the payload of
+int8 KV pages in migration tickets) and their float32 scale pools cross
+as they are, int8 to int8, bit for bit.
 """
 
 from __future__ import annotations

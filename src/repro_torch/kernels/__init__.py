@@ -10,8 +10,9 @@ Each ported kernel has:
 - ``ops.py``         — the dispatch the models call (kernel for CUDA
   tensors, plain version for CPU tensors).
 
-Kernels: paged decode attention, paged chunked-prefill attention, RMSNorm,
-slot-cache decode attention and flash attention.
+Kernels: paged decode attention and paged chunked-prefill attention (over
+fp or int8 pages), RMSNorm, slot-cache decode attention and flash
+attention.
 """
 
 from . import ops, ref

@@ -37,6 +37,7 @@ F = ctypes.c_float
 L = ctypes.c_longlong
 
 _STRIDES = [L] * 8
+_SCALE_STRIDES = [L] * 6  # (P, ps, K) strides of the k and v scale pools
 #: C signature of every entry point (all return an int cudaError_t)
 SIGNATURES: Dict[str, List] = {
     "rmsnorm_f32": [P, P, P, I, I, F, P],
@@ -45,6 +46,10 @@ SIGNATURES: Dict[str, List] = {
     "paged_decode_bf16": [P] * 6 + [I] * 7 + _STRIDES + [F, P],
     "paged_prefill_f32": [P] * 5 + [I] * 8 + _STRIDES + [F, P],
     "paged_prefill_bf16": [P] * 5 + [I] * 8 + _STRIDES + [F, P],
+    "paged_decode_q8_f32": [P] * 8 + [I] * 7 + _STRIDES + _SCALE_STRIDES + [F, P],
+    "paged_decode_q8_bf16": [P] * 8 + [I] * 7 + _STRIDES + _SCALE_STRIDES + [F, P],
+    "paged_prefill_q8_f32": [P] * 7 + [I] * 8 + _STRIDES + _SCALE_STRIDES + [F, P],
+    "paged_prefill_q8_bf16": [P] * 7 + [I] * 8 + _STRIDES + _SCALE_STRIDES + [F, P],
     "decode_attention_f32": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
     "decode_attention_bf16": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
     "flash_attention_f32": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],

@@ -1,8 +1,10 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
-// Every kernel is templated on its element type (float or __nv_bfloat16),
-// computes in f32 and converts only through the intrinsics below, so the
-// sources build with or without the toolkit's implicit bf16 conversions.
+// Every kernel is templated on its element type (float or __nv_bfloat16;
+// the paged kernels' pools may also be int8_t, dequantized through f32
+// scale pools), computes in f32 and converts only through the intrinsics
+// below, so the sources build with or without the toolkit's implicit bf16
+// conversions.
 // Entry points have a plain C interface (loaded with ctypes), launch on the
 // stream they are given, allocate nothing, and return cudaGetLastError()
 // right after the launch so the caller sees a refused launch.
@@ -10,6 +12,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace repro_torch {
 
@@ -29,6 +34,15 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);  // exact: every int8 is a float
+}
+
+// int8 pages carry f32 scale pools; float and bf16 pages do not
+template <typename TP>
+constexpr bool kQuantized = std::is_same<TP, int8_t>::value;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

@@ -1,11 +1,14 @@
 // Paged GQA decode attention: one query token per row over its paged KV.
 //
 // Replaces: repro/kernels/paged_attention.py::paged_decode_attention
-// (Pallas, _paged_decode_kernel).
+// (Pallas, _paged_decode_kernel), in both forms: fp pages (the pool in
+// q's dtype) and quantized=True (int8 pools plus f32 scale pools
+// (P, ps, K), one symmetric scale per token slot and kv head).
 // Bound on the H100: bytes. Each (row, kv head) reads its len x hd K and V
 // once and does 4 flops per K/V element pair per grouped query head, so even
 // at group size 6 the work is ~6 flops a byte, far under the ~295 a byte at
-// which bf16 compute would bind.
+// which bf16 compute would bind. int8 pages halve the bf16 bytes (plus 4
+// bytes of scale per token and kv head for K and for V).
 // Design:
 // - one block per (row b, kv head kh) holds that head's g query rows,
 //   pre-scaled, in f32 shared memory, so every K/V page is read once for
@@ -15,32 +18,40 @@
 //   the page count are range-checked (a bad id, or a length the table
 //   cannot cover, traps instead of reading outside the pool or table);
 // - the pool is read through its strides, token-major (P, ps, K, hd), so
-//   nothing transposes or copies the pool per call;
-// - each page's K and V (ps x hd) are staged in shared memory as f32; the
-//   K rows are padded by one float so the per-score dot products do not
-//   collide on one bank;
+//   nothing transposes or copies the pool per call; so are the scale pools;
+// - each page's K and V (ps x hd) are staged in shared memory as f32; int8
+//   rows are dequantized there, float(int8) * scale[token, kv head], the
+//   same f32 product as the TPU kernel; the K rows are padded by one float
+//   so the per-score dot products do not collide on one bank;
 // - scores past the length are *replaced* by -1e30, their weights set to
-//   exactly 0 and the V rows past the length zeroed before p.V, so NaN or
-//   Inf left in a recycled page cannot reach a live row (0 * NaN guard);
+//   exactly 0 and the V rows past the length zeroed (after dequantizing)
+//   before p.V, so NaN or Inf left in a recycled page, or in the scale of
+//   an unwritten slot, cannot reach a live row (0 * NaN guard);
 // - online softmax (running max m, sum l, f32 accumulator) across pages;
-//   the output is acc / max(l, 1e-30), so length 0 gives 0 as on the TPU.
+//   the output is acc / max(l, 1e-30), so length 0 gives 0 as on the TPU,
+//   rounded once to q's dtype (the TPU's f32 output, then astype).
 // No tensor cores, TMA or pipelining yet: one page at a time, synchronous.
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-template <typename T>
+// T: q and out; TP: the pools' element type (T, or int8_t with scale pools)
+template <typename T, typename TP>
 __global__ void paged_decode_kernel(
     const T* __restrict__ q,       // (B, H, hd) contiguous
-    const T* __restrict__ kp,      // (P, ps, K, hd) via strides
-    const T* __restrict__ vp,      // (P, ps, K, hd) via strides
+    const TP* __restrict__ kp,     // (P, ps, K, hd) via strides
+    const TP* __restrict__ vp,     // (P, ps, K, hd) via strides
+    const float* __restrict__ ksc, // (P, ps, K) via strides; int8 pools only
+    const float* __restrict__ vsc, // (P, ps, K) via strides; int8 pools only
     const int* __restrict__ bt,    // (B, npp)
     const int* __restrict__ lens,  // (B,) valid tokens incl. the current one
     T* __restrict__ out,           // (B, H, hd)
     int H, int K, int hd, int ps, int npp, int P,
     long long ks0, long long ks1, long long ks2, long long ks3,
     long long vs0, long long vs1, long long vs2, long long vs3,
+    long long kss0, long long kss1, long long kss2,
+    long long vss0, long long vss1, long long vss2,
     float scale) {
   extern __shared__ float smem[];
   const int g = H / K;
@@ -76,13 +87,19 @@ __global__ void paged_decode_kernel(
     const int page = bt[static_cast<size_t>(b) * npp + j];
     if (page < 0 || page >= P) __trap();
     const int t0 = j * ps;
-    const T* kpage = kp + page * ks0 + kh * ks2;
-    const T* vpage = vp + page * vs0 + kh * vs2;
+    const TP* kpage = kp + page * ks0 + kh * ks2;
+    const TP* vpage = vp + page * vs0 + kh * vs2;
     for (int i = tid; i < ps * hd; i += nt) {
       const int t = i / hd;
       const int d = i % hd;
-      k_s[t * ld + d] = to_f32(kpage[t * ks1 + d * ks3]);
-      v_s[i] = (t0 + t < len) ? to_f32(vpage[t * vs1 + d * vs3]) : 0.f;
+      float kv = to_f32(kpage[t * ks1 + d * ks3]);
+      float vv = to_f32(vpage[t * vs1 + d * vs3]);
+      if constexpr (kQuantized<TP>) {
+        kv *= ksc[page * kss0 + t * kss1 + kh * kss2];
+        vv *= vsc[page * vss0 + t * vss1 + kh * vss2];
+      }
+      k_s[t * ld + d] = kv;
+      v_s[i] = (t0 + t < len) ? vv : 0.f;
     }
     __syncthreads();
 
@@ -130,22 +147,26 @@ __global__ void paged_decode_kernel(
 
 constexpr int kThreads = 128;
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* bt, const void* lens,
-           void* out, int B, int H, int K, int hd, int ps, int npp, int P, long long ks0,
-           long long ks1, long long ks2, long long ks3, long long vs0, long long vs1,
-           long long vs2, long long vs3, float scale, void* stream) {
+template <typename T, typename TP>
+int launch(const void* q, const void* kp, const void* vp, const void* ksc, const void* vsc,
+           const void* bt, const void* lens, void* out, int B, int H, int K, int hd, int ps,
+           int npp, int P, long long ks0, long long ks1, long long ks2, long long ks3,
+           long long vs0, long long vs1, long long vs2, long long vs3, long long kss0,
+           long long kss1, long long kss2, long long vss0, long long vss1, long long vss2,
+           float scale, void* stream) {
   if (B == 0) return 0;
   const int g = H / K;
   const size_t smem =
       sizeof(float) * static_cast<size_t>(g * (hd + 1) + ps * (hd + 1) + ps * hd +
                                           g * ps + g * hd + 3 * g);
-  const cudaError_t err = allow_smem(paged_decode_kernel<T>, smem);
+  const cudaError_t err = allow_smem(paged_decode_kernel<T, TP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_kernel<T><<<B * K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+  paged_decode_kernel<T, TP><<<B * K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(kp), static_cast<const TP*>(vp),
+      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
       static_cast<const int*>(bt), static_cast<const int*>(lens), static_cast<T*>(out), H,
-      K, hd, ps, npp, P, ks0, ks1, ks2, ks3, vs0, vs1, vs2, vs3, scale);
+      K, hd, ps, npp, P, ks0, ks1, ks2, ks3, vs0, vs1, vs2, vs3, kss0, kss1, kss2, vss0,
+      vss1, vss2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -158,9 +179,27 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt, const 
                       int npp, int P, long long ks0, long long ks1, long long ks2,       \
                       long long ks3, long long vs0, long long vs1, long long vs2,        \
                       long long vs3, float scale, void* stream) {                        \
-    return repro_torch::launch<T>(q, kp, vp, bt, lens, out, B, H, K, hd, ps, npp, P, ks0, \
-                                  ks1, ks2, ks3, vs0, vs1, vs2, vs3, scale, stream);     \
+    return repro_torch::launch<T, T>(q, kp, vp, nullptr, nullptr, bt, lens, out, B, H, K, \
+                                     hd, ps, npp, P, ks0, ks1, ks2, ks3, vs0, vs1, vs2,  \
+                                     vs3, 0, 0, 0, 0, 0, 0, scale, stream);              \
+  }
+
+// int8 pools: T names q's and out's dtype; ksc/vsc are the f32 scale pools
+#define REPRO_PAGED_DECODE_Q8_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const void* q, const void* kp, const void* vp, const void* ksc,    \
+                      const void* vsc, const void* bt, const void* lens, void* out, int B, \
+                      int H, int K, int hd, int ps, int npp, int P, long long ks0,       \
+                      long long ks1, long long ks2, long long ks3, long long vs0,        \
+                      long long vs1, long long vs2, long long vs3, long long kss0,       \
+                      long long kss1, long long kss2, long long vss0, long long vss1,    \
+                      long long vss2, float scale, void* stream) {                       \
+    return repro_torch::launch<T, int8_t>(q, kp, vp, ksc, vsc, bt, lens, out, B, H, K, hd, \
+                                          ps, npp, P, ks0, ks1, ks2, ks3, vs0, vs1, vs2, \
+                                          vs3, kss0, kss1, kss2, vss0, vss1, vss2, scale, \
+                                          stream);                                       \
   }
 
 REPRO_PAGED_DECODE_ENTRY(paged_decode_f32, float)
 REPRO_PAGED_DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16)
+REPRO_PAGED_DECODE_Q8_ENTRY(paged_decode_q8_f32, float)
+REPRO_PAGED_DECODE_Q8_ENTRY(paged_decode_q8_bf16, __nv_bfloat16)

@@ -2,7 +2,8 @@
 // causally to the request's paged history plus the chunk itself.
 //
 // Replaces: repro/kernels/paged_attention.py::paged_prefill_attention
-// (Pallas, _paged_prefill_kernel).
+// (Pallas, _paged_prefill_kernel), in both forms: fp pages and
+// quantized=True (int8 pools plus f32 scale pools (P, ps, K)).
 // Bound on the H100: a kv head's C*g query rows do ~C*g flops per bf16 K/V
 // byte read, so the card's bf16 rate would bind only above C*g ~ 295 rows;
 // at the serving widths (C = 64, g = 1 for stablelm, g = 6 for internlm2)
@@ -18,29 +19,38 @@
 //   range-checking each page id;
 // - `past` is a runtime argument, so one compiled kernel serves every
 //   chunk offset;
-// - the pool is read through its strides, token-major (P, ps, K, hd);
+// - the pool is read through its strides, token-major (P, ps, K, hd), and so
+//   are the scale pools; int8 rows are dequantized into the f32 shared-memory
+//   tile as float(int8) * scale[token, kv head], the TPU kernel's product;
 // - the causal mask kpos <= past + r / g *replaces* scores by -1e30 and
 //   sets the weights of masked slots to exactly 0, so a row whose causal
 //   window has not started yet (m still -1e30) adds nothing; V rows at or
-//   past ctx = past + C are zeroed before p.V (0 * NaN guard);
+//   past ctx = past + C are zeroed (after dequantizing) before p.V, so NaN
+//   or Inf in a slot's payload or scale cannot reach a live row (0 * NaN
+//   guard);
 // - online softmax across pages with an f32 accumulator in shared memory,
-//   output acc / max(l, 1e-30).
+//   output acc / max(l, 1e-30), rounded once to q's dtype.
 // No tensor cores, TMA or pipelining yet.
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-template <typename T>
+// T: q and out; TP: the pools' element type (T, or int8_t with scale pools)
+template <typename T, typename TP>
 __global__ void paged_prefill_kernel(
-    const T* __restrict__ q,      // (C, H, hd) contiguous
-    const T* __restrict__ kp,     // (P, ps, K, hd) via strides
-    const T* __restrict__ vp,     // (P, ps, K, hd) via strides
-    const int* __restrict__ bt,   // (npp,)
+    const T* __restrict__ q,       // (C, H, hd) contiguous
+    const TP* __restrict__ kp,     // (P, ps, K, hd) via strides
+    const TP* __restrict__ vp,     // (P, ps, K, hd) via strides
+    const float* __restrict__ ksc, // (P, ps, K) via strides; int8 pools only
+    const float* __restrict__ vsc, // (P, ps, K) via strides; int8 pools only
+    const int* __restrict__ bt,    // (npp,)
     T* __restrict__ out,          // (C, H, hd)
     int C, int H, int K, int hd, int ps, int P, int past, int BM,
     long long ks0, long long ks1, long long ks2, long long ks3,
     long long vs0, long long vs1, long long vs2, long long vs3,
+    long long kss0, long long kss1, long long kss2,
+    long long vss0, long long vss1, long long vss2,
     float scale) {
   extern __shared__ float smem[];
   const int g = H / K;
@@ -80,13 +90,19 @@ __global__ void paged_prefill_kernel(
     const int page = bt[j];
     if (page < 0 || page >= P) __trap();
     const int t0 = j * ps;
-    const T* kpage = kp + page * ks0 + kh * ks2;
-    const T* vpage = vp + page * vs0 + kh * vs2;
+    const TP* kpage = kp + page * ks0 + kh * ks2;
+    const TP* vpage = vp + page * vs0 + kh * vs2;
     for (int i = tid; i < ps * hd; i += nt) {
       const int t = i / hd;
       const int d = i % hd;
-      k_s[t * ld + d] = to_f32(kpage[t * ks1 + d * ks3]);
-      v_s[i] = (t0 + t < ctx) ? to_f32(vpage[t * vs1 + d * vs3]) : 0.f;
+      float kv = to_f32(kpage[t * ks1 + d * ks3]);
+      float vv = to_f32(vpage[t * vs1 + d * vs3]);
+      if constexpr (kQuantized<TP>) {
+        kv *= ksc[page * kss0 + t * kss1 + kh * kss2];
+        vv *= vsc[page * vss0 + t * vss1 + kh * vss2];
+      }
+      k_s[t * ld + d] = kv;
+      v_s[i] = (t0 + t < ctx) ? vv : 0.f;
     }
     __syncthreads();
 
@@ -140,23 +156,26 @@ __global__ void paged_prefill_kernel(
 
 constexpr int kThreads = 256;
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* bt, void* out, int C,
-           int H, int K, int hd, int ps, int P, int past, int BM, long long ks0,
-           long long ks1, long long ks2, long long ks3, long long vs0, long long vs1,
-           long long vs2, long long vs3, float scale, void* stream) {
+template <typename T, typename TP>
+int launch(const void* q, const void* kp, const void* vp, const void* ksc, const void* vsc,
+           const void* bt, void* out, int C, int H, int K, int hd, int ps, int P, int past,
+           int BM, long long ks0, long long ks1, long long ks2, long long ks3, long long vs0,
+           long long vs1, long long vs2, long long vs3, long long kss0, long long kss1,
+           long long kss2, long long vss0, long long vss1, long long vss2, float scale,
+           void* stream) {
   if (C == 0) return 0;
   const int g = H / K;
   const size_t smem =
       sizeof(float) * static_cast<size_t>(BM * (hd + 1) + ps * (hd + 1) + ps * hd +
                                           BM * ps + BM * hd + 3 * BM);
-  const cudaError_t err = allow_smem(paged_prefill_kernel<T>, smem);
+  const cudaError_t err = allow_smem(paged_prefill_kernel<T, TP>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(K, (C * g + BM - 1) / BM);
-  paged_prefill_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+  paged_prefill_kernel<T, TP><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(kp), static_cast<const TP*>(vp),
+      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
       static_cast<const int*>(bt), static_cast<T*>(out), C, H, K, hd, ps, P, past, BM, ks0,
-      ks1, ks2, ks3, vs0, vs1, vs2, vs3, scale);
+      ks1, ks2, ks3, vs0, vs1, vs2, vs3, kss0, kss1, kss2, vss0, vss1, vss2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -169,9 +188,27 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt, void* 
                       int BM, long long ks0, long long ks1, long long ks2, long long ks3, \
                       long long vs0, long long vs1, long long vs2, long long vs3,        \
                       float scale, void* stream) {                                       \
-    return repro_torch::launch<T>(q, kp, vp, bt, out, C, H, K, hd, ps, P, past, BM, ks0,  \
-                                  ks1, ks2, ks3, vs0, vs1, vs2, vs3, scale, stream);     \
+    return repro_torch::launch<T, T>(q, kp, vp, nullptr, nullptr, bt, out, C, H, K, hd,  \
+                                     ps, P, past, BM, ks0, ks1, ks2, ks3, vs0, vs1, vs2, \
+                                     vs3, 0, 0, 0, 0, 0, 0, scale, stream);              \
+  }
+
+// int8 pools: T names q's and out's dtype; ksc/vsc are the f32 scale pools
+#define REPRO_PAGED_PREFILL_Q8_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const void* q, const void* kp, const void* vp, const void* ksc,    \
+                      const void* vsc, const void* bt, void* out, int C, int H, int K,   \
+                      int hd, int ps, int P, int past, int BM, long long ks0,            \
+                      long long ks1, long long ks2, long long ks3, long long vs0,        \
+                      long long vs1, long long vs2, long long vs3, long long kss0,       \
+                      long long kss1, long long kss2, long long vss0, long long vss1,    \
+                      long long vss2, float scale, void* stream) {                       \
+    return repro_torch::launch<T, int8_t>(q, kp, vp, ksc, vsc, bt, out, C, H, K, hd, ps, \
+                                          P, past, BM, ks0, ks1, ks2, ks3, vs0, vs1, vs2, \
+                                          vs3, kss0, kss1, kss2, vss0, vss1, vss2, scale, \
+                                          stream);                                       \
   }
 
 REPRO_PAGED_PREFILL_ENTRY(paged_prefill_f32, float)
 REPRO_PAGED_PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16)
+REPRO_PAGED_PREFILL_Q8_ENTRY(paged_prefill_q8_f32, float)
+REPRO_PAGED_PREFILL_Q8_ENTRY(paged_prefill_q8_bf16, __nv_bfloat16)

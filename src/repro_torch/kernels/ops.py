@@ -9,12 +9,14 @@ Models call these entry points; ``impl`` selects:
   plain version, a CUDA tensor to the kernel.
 
 There is no fallback: a CUDA tensor whose kernel fails to build or to
-launch raises, it never goes to the plain version.
+launch raises, it never goes to the plain version.  The paged attention
+entry points take ``k_scales``/``v_scales`` for int8 pools; on a CUDA
+device those go to the int8 kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,7 +25,9 @@ from . import ref as _ref
 from .decode_attention import decode_attention as _da
 from .flash_attention import flash_attention as _fa
 from .paged_attention import paged_decode_attention as _pda
+from .paged_attention import paged_decode_attention_int8 as _pda8
 from .paged_attention import paged_prefill_attention as _ppa
+from .paged_attention import paged_prefill_attention_int8 as _ppa8
 from .rmsnorm import rmsnorm as _rn
 
 IMPLS = ("ref", "cuda", "auto")
@@ -34,6 +38,8 @@ KERNELS = {
     "rmsnorm": _rn,
     "decode_attention": _da,
     "flash_attention": _fa,
+    "paged_decode_attention_int8": _pda8,
+    "paged_prefill_attention_int8": _ppa8,
 }
 
 
@@ -108,13 +114,23 @@ def paged_decode_attention(
     block_tables: torch.Tensor,
     lengths: torch.Tensor,
     scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Decode attention over a paged KV pool via per-request block tables."""
+    """Decode attention over a paged KV pool via per-request block tables.
+
+    With ``k_scales``/``v_scales`` the pools are int8 and dequantized
+    per page inside the kernel (plain version: dequantize, then attend).
+    """
     if _use_kernel(impl, q):
+        if k_scales is not None:
+            return _pda8(q, k_pages, v_pages, block_tables, lengths,
+                         k_scales, v_scales, scale=scale)
         return _pda(q, k_pages, v_pages, block_tables, lengths, scale=scale)
     return _ref.paged_decode_attention_ref(
-        q, k_pages, v_pages, block_tables, lengths, scale=scale
+        q, k_pages, v_pages, block_tables, lengths, scale=scale,
+        k_scales=k_scales, v_scales=v_scales,
     )
 
 
@@ -125,18 +141,36 @@ def paged_prefill_attention(
     block_table: torch.Tensor,
     past: int,
     scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Fused chunked-prefill attention over one request's block table.
 
     The chunk's K/V must already be scattered into the pools; queries
-    attend causally to paged history + the in-chunk segment.
+    attend causally to paged history + the in-chunk segment.  With
+    ``k_scales``/``v_scales`` the pools are int8 (see decode).
     """
     if _use_kernel(impl, q):
+        if k_scales is not None:
+            return _ppa8(q, k_pages, v_pages, block_table, past,
+                         k_scales, v_scales, scale=scale)
         return _ppa(q, k_pages, v_pages, block_table, past, scale=scale)
     return _ref.paged_prefill_attention_ref(
-        q, k_pages, v_pages, block_table, past, scale=scale
+        q, k_pages, v_pages, block_table, past, scale=scale,
+        k_scales=k_scales, v_scales=v_scales,
     )
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 KV quantization (per token, per kv head).
+
+    Plain elementwise PyTorch on every device, as in the JAX package:
+    one spec shared by the paged engine's quantize-on-scatter, the int8
+    slot cache and the plain versions; see
+    :func:`repro_torch.kernels.ref.quantize_kv_ref`.
+    """
+    return _ref.quantize_kv_ref(x)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,

@@ -1,24 +1,32 @@
 """Paged GQA attention: wrappers of the hand-written CUDA kernels.
 
 Replaces the JAX package's Pallas kernels in
-``repro/kernels/paged_attention.py``:
+``repro/kernels/paged_attention.py``, in both of their forms:
 
 - :func:`paged_decode_attention` (``csrc/paged_decode.cu``): one new
   query token per request attends to its paged history;
 - :func:`paged_prefill_attention` (``csrc/paged_prefill.cu``): a chunk of
   C query tokens of one request attends causally to its paged history
-  plus the chunk itself (the chunk's K/V are already in the pool).
+  plus the chunk itself (the chunk's K/V are already in the pool);
+- :func:`paged_decode_attention_int8` and
+  :func:`paged_prefill_attention_int8`: the same kernels over int8 pools
+  with float32 per-page scale pools ``(P, page_size, K)`` (the TPU
+  kernels' ``quantized=True`` form), dequantized per page row inside the
+  kernel.  An int8 page costs half the bytes of a bf16 page plus 4 bytes
+  of scale per token slot and kv head for K and for V (1.88x fewer bytes
+  a token than bf16 at hd = 64, 3.76x fewer than float32).
 
 Pools keep the JAX layout, token-major ``(P, page_size, K, hd)``.  The
-kernels read them through their strides, so a per-layer view of a
-stacked pool goes in as it is and no call copies or transposes a pool.
+kernels read them (and the scale pools) through their strides, so a
+per-layer view of a stacked pool goes in as it is and no call copies or
+transposes a pool.
 
 The wrappers take CUDA tensors only: they check what the kernels accept,
-allocate the output, launch on the current stream, raise if the launch
-was refused, and count their launches in ``<wrapper>.launches``.  The
-plain versions live in :mod:`repro_torch.kernels.ref` and serve the CPU
-through :mod:`repro_torch.kernels.ops`.  int8 pages (``k_scales`` /
-``v_scales``) are not ported yet.
+allocate the output (in q's dtype), launch on the current stream, raise
+if the launch was refused, and count their launches in
+``<wrapper>.launches``.  The plain versions live in
+:mod:`repro_torch.kernels.ref` and serve the CPU through
+:mod:`repro_torch.kernels.ops`.
 
 The host-side checks :func:`check_block_table_bounds` and
 :func:`check_scale_pool_finite` are numpy copies of the JAX package's.
@@ -26,7 +34,7 @@ The host-side checks :func:`check_block_table_bounds` and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,16 +45,20 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: query rows per prefill block (the f32 accumulator is BM x hd)
 PREFILL_BLOCK_ROWS = 64
 
+Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
 
 def _check_pools(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                 what: str) -> None:
-    tensors = (q, k_pages, v_pages)
+                 what: str, scales: Scales = None) -> None:
+    tensors = (q, k_pages, v_pages) + (scales or ())
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{what} kernel takes CUDA tensors on one device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if q.dtype not in _SUFFIX or any(t.dtype != q.dtype for t in tensors):
-        raise ValueError(f"{what} kernel takes f32/bf16 q and pages of one dtype, "
-                         f"got {[t.dtype for t in tensors]}")
+    page_dtype = torch.int8 if scales is not None else q.dtype
+    if q.dtype not in _SUFFIX or k_pages.dtype != page_dtype \
+            or v_pages.dtype != page_dtype:
+        raise ValueError(f"{what} kernel takes f32/bf16 q and {page_dtype} pages, "
+                         f"got {[t.dtype for t in (q, k_pages, v_pages)]}")
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"{what} kernel takes (P, ps, K, hd) pools with hd_v == hd, "
                          f"got {tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
@@ -55,6 +67,10 @@ def _check_pools(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     if k_pages.shape[3] != hd or H % K:
         raise ValueError(f"{what} kernel: q heads {H} x {hd} do not group over "
                          f"pool heads {K} x {k_pages.shape[3]}")
+    if scales is not None and not all(
+            s.dtype == torch.float32 and s.shape == k_pages.shape[:3] for s in scales):
+        raise ValueError(f"{what} kernel takes float32 (P, ps, K) scale pools, got "
+                         f"{[(s.dtype, tuple(s.shape)) for s in scales]}")
 
 
 def _index(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
@@ -62,6 +78,66 @@ def _index(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
         raise ValueError(f"{what} must be a contiguous int32 tensor on {device}, "
                          f"got {t.dtype} on {t.device}")
     return t
+
+
+def _scale_args(scales: Scales) -> Tuple[tuple, tuple]:
+    """The scale pools' pointers and (P, ps, K) strides, or nothing for fp pools."""
+    if scales is None:
+        return (), ()
+    ks, vs = scales
+    return (ks.data_ptr(), vs.data_ptr()), (*ks.stride(), *vs.stride())
+
+
+def _decode(q, k_pages, v_pages, block_tables, lengths, scale, scales: Scales):
+    what = "paged decode" if scales is None else "int8 paged decode"
+    _check_pools(q, k_pages, v_pages, what, scales)
+    B, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or lengths.shape != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {B}")
+    bt = _index(block_tables, q.device, "block_tables")
+    lens = _index(lengths, q.device, "lengths")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    scale = scale if scale is not None else hd ** -0.5
+    ptrs, strides = _scale_args(scales)
+    name = f"paged_decode_{'' if scales is None else 'q8_'}{_SUFFIX[q.dtype]}"
+    code = getattr(_build.library(), name)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs, bt.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), B, H, K, hd, ps, bt.shape[1], P,
+        *k_pages.stride(), *v_pages.stride(), *strides, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(code, name)
+    return out
+
+
+def _prefill(q, k_pages, v_pages, block_table, past, scale, scales: Scales):
+    what = "paged prefill" if scales is None else "int8 paged prefill"
+    _check_pools(q, k_pages, v_pages, what, scales)
+    C, H, hd = q.shape
+    P, ps, K, _ = k_pages.shape
+    past = int(past)
+    n_ctx_pages = -(-(past + C) // ps)
+    if block_table.dim() != 1 or block_table.shape[0] < n_ctx_pages or past < 0:
+        raise ValueError(f"block_table {tuple(block_table.shape)} cannot cover "
+                         f"past={past} + C={C} at page size {ps}")
+    bt = _index(block_table, q.device, "block_table")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    scale = scale if scale is not None else hd ** -0.5
+    ptrs, strides = _scale_args(scales)
+    name = f"paged_prefill_{'' if scales is None else 'q8_'}{_SUFFIX[q.dtype]}"
+    code = getattr(_build.library(), name)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs, bt.data_ptr(),
+        out.data_ptr(), C, H, K, hd, ps, P, past, PREFILL_BLOCK_ROWS,
+        *k_pages.stride(), *v_pages.stride(), *strides, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(code, name)
+    return out
 
 
 def paged_decode_attention(
@@ -84,31 +160,43 @@ def paged_decode_attention(
     torch.Tensor
         ``(B, H, hd)`` in ``q.dtype``.
     """
-    _check_pools(q, k_pages, v_pages, "paged decode")
-    B, H, hd = q.shape
-    P, ps, K, _ = k_pages.shape
-    if block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or lengths.shape != (B,):
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
-                         f"{tuple(lengths.shape)} do not match batch {B}")
-    bt = _index(block_tables, q.device, "block_tables")
-    lens = _index(lengths, q.device, "lengths")
-    q = q.contiguous()
-    out = torch.empty_like(q)
-    scale = scale if scale is not None else hd ** -0.5
-    name = f"paged_decode_{_SUFFIX[q.dtype]}"
-    code = getattr(_build.library(), name)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, H, K, hd, ps, bt.shape[1], P,
-        *k_pages.stride(), *v_pages.stride(), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(code, name)
+    out = _decode(q, k_pages, v_pages, block_tables, lengths, scale, None)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_int8(
+    q: torch.Tensor,             # (B, H, hd) f32 or bf16
+    k_pages: torch.Tensor,       # (P, page_size, K, hd) int8
+    v_pages: torch.Tensor,       # (P, page_size, K, hd) int8
+    block_tables: torch.Tensor,  # (B, pages_per_seq) int32 page ids
+    lengths: torch.Tensor,       # (B,) int32 — valid tokens (incl. current)
+    k_scales: torch.Tensor,      # (P, page_size, K) f32
+    v_scales: torch.Tensor,      # (P, page_size, K) f32
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`paged_decode_attention` over int8 pools and their scale pools.
+
+    Each staged page row is dequantized as ``float(int8) * scale`` before
+    the products.  The masking is the fp kernel's, applied after
+    dequantizing, so a NaN or Inf scale of a slot past the length (an
+    unwritten or recycled slot) cannot reach the output.
+
+    Returns
+    -------
+    torch.Tensor
+        ``(B, H, hd)`` in ``q.dtype`` (f32 accumulation, one rounding).
+    """
+    out = _decode(q, k_pages, v_pages, block_tables, lengths, scale,
+                  (k_scales, v_scales))
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention_int8.launches = 0
 
 
 def paged_prefill_attention(
@@ -132,31 +220,38 @@ def paged_prefill_attention(
     torch.Tensor
         ``(C, H, hd)`` in ``q.dtype``.
     """
-    _check_pools(q, k_pages, v_pages, "paged prefill")
-    C, H, hd = q.shape
-    P, ps, K, _ = k_pages.shape
-    past = int(past)
-    n_ctx_pages = -(-(past + C) // ps)
-    if block_table.dim() != 1 or block_table.shape[0] < n_ctx_pages or past < 0:
-        raise ValueError(f"block_table {tuple(block_table.shape)} cannot cover "
-                         f"past={past} + C={C} at page size {ps}")
-    bt = _index(block_table, q.device, "block_table")
-    q = q.contiguous()
-    out = torch.empty_like(q)
-    scale = scale if scale is not None else hd ** -0.5
-    name = f"paged_prefill_{_SUFFIX[q.dtype]}"
-    code = getattr(_build.library(), name)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-        out.data_ptr(), C, H, K, hd, ps, P, past, PREFILL_BLOCK_ROWS,
-        *k_pages.stride(), *v_pages.stride(), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(code, name)
+    out = _prefill(q, k_pages, v_pages, block_table, past, scale, None)
     paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+
+
+def paged_prefill_attention_int8(
+    q: torch.Tensor,            # (C, H, hd) f32 or bf16
+    k_pages: torch.Tensor,      # (P, page_size, K, hd) int8
+    v_pages: torch.Tensor,      # (P, page_size, K, hd) int8
+    block_table: torch.Tensor,  # (pages_per_seq,) int32 page ids
+    past: int,                  # prompt tokens already prefilled (chunk offset)
+    k_scales: torch.Tensor,     # (P, page_size, K) f32
+    v_scales: torch.Tensor,     # (P, page_size, K) f32
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`paged_prefill_attention` over int8 pools and their scale pools.
+
+    Returns
+    -------
+    torch.Tensor
+        ``(C, H, hd)`` in ``q.dtype`` (f32 accumulation, one rounding).
+    """
+    out = _prefill(q, k_pages, v_pages, block_table, past, scale,
+                   (k_scales, v_scales))
+    paged_prefill_attention_int8.launches += 1
+    return out
+
+
+paged_prefill_attention_int8.launches = 0
 
 
 def check_block_table_bounds(

@@ -15,7 +15,7 @@ poisoned pages, never with these functions.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -111,7 +111,12 @@ def paged_decode_attention_ref(
     block_tables: torch.Tensor,  # (B, pages_per_seq) int
     lengths: torch.Tensor,       # (B,) int — valid tokens (incl. current)
     scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (P, page_size, K) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    if k_scales is not None:
+        k_pages = dequantize_pages_ref(k_pages, k_scales)
+        v_pages = dequantize_pages_ref(v_pages, v_scales)
     k_dense = gather_pages(k_pages, block_tables)
     v_dense = gather_pages(v_pages, block_tables)
     return decode_attention_ref(q, k_dense, v_dense, lengths, scale=scale)
@@ -129,7 +134,12 @@ def paged_prefill_attention_ref(
     block_table: torch.Tensor,  # (pages_per_seq,) int
     past: int,                  # prompt tokens already prefilled (chunk offset)
     scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (P, page_size, K) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    if k_scales is not None:
+        k_pages = dequantize_pages_ref(k_pages, k_scales)
+        v_pages = dequantize_pages_ref(v_pages, v_scales)
     C = q.shape[0]
     ps = k_pages.shape[1]
     ctx = past + C
@@ -143,6 +153,36 @@ def paged_prefill_attention_ref(
         q_offset=past, kv_len=kv_len,
     )
     return out[0]
+
+
+# ---------------------------------------------------------------------------
+# int8 KV-page quantization: symmetric per (token-slot, kv-head) scales,
+# stored page-major alongside the pools ("per-page scale pools")
+# ---------------------------------------------------------------------------
+def quantize_kv_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize K/V values to int8 with per (..., kv-head) symmetric scales.
+
+    ``x`` is ``(..., K, hd)`` (float32 or bfloat16, upcast to float32
+    first); returns ``(q int8 (..., K, hd), scales float32 (..., K))``
+    with ``scale = max(amax, 1e-8) / 127`` over the head dim, then
+    round-half-to-even of ``x / scale``, clipped to +-127: bit for bit
+    the JAX package's spec.  Each token is quantized once, at write time,
+    from its exact value, so page contents are a pure function of the
+    tokens they hold.
+    """
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.maximum(amax, amax.new_tensor(1e-8)) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_pages_ref(
+    pages: torch.Tensor,    # (P, page_size, K, hd) int8
+    scales: torch.Tensor,   # (P, page_size, K) f32
+) -> torch.Tensor:
+    """Reconstruct float32 pages from an int8 pool and its scale pool."""
+    return pages.float() * scales[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,11 @@
 The subset of ``repro/models/layers.py`` the dense family's serving
 paths run: ``embed``, ``rmsnorm``, ``rope``, ``_proj_qkv``,
 ``attention_full`` and ``attention_decode`` (the slot engine's prefill
-and decode), ``mlp`` and ``unembed``, with the ``init_*`` functions of
-their weights.  Parameters are plain nested dicts of tensors with the
+and decode), ``attention_decode_q8`` with ``_dq8_kv`` (decode over the
+int8 slot cache; JAX's ``_q8_kv`` is the paged pools' spec, so the port
+quantizes with :func:`repro_torch.kernels.ops.quantize_kv`), ``mlp`` and
+``unembed``, with the ``init_*`` functions of their weights.
+Parameters are plain nested dicts of tensors with the
 JAX package's names, shapes and dtypes; the matrix products stay
 ``x @ w`` (outside any kernel, as the JAX package left them to XLA),
 and RMSNorm and attention go through :mod:`repro_torch.kernels.ops`
@@ -181,6 +184,48 @@ def attention_decode(
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, (lengths + 1).to(torch.int32))
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, cache_k, cache_v
+
+
+def _dq8_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def attention_decode_q8(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                    # (B, 1, d)
+    cache: Dict[str, torch.Tensor],     # {k,v: int8 (B,S,K,hd); k_s,v_s: (B,S,K)}
+    lengths: torch.Tensor,              # (B,) int32 tokens already in cache
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode over an int8-quantized slot cache; returns (out, cache).
+
+    The new K/V are quantized at write and stored **in place** with their
+    scales at position ``lengths[b]`` (nothing for a row at ``S_max``, as
+    JAX's out-of-range one-hot).  The whole cache is then dequantized to
+    the compute dtype and goes through the slot decode-attention kernel.
+    """
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    q, k, v = _proj_qkv(p, cfg, x, x)
+    if use_rope:
+        pos = lengths[:, None]
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    kq, ks = ops.quantize_kv(k[:, 0])     # (B, K, hd), (B, K)
+    vq, vs = ops.quantize_kv(v[:, 0])
+    rows = torch.arange(B, device=x.device)
+    at = lengths.long().clamp(max=S - 1)
+    keep = lengths >= S
+    for name, new in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
+        arr = cache[name]
+        mask = keep.view((B,) + (1,) * (new.dim() - 1))
+        arr[rows, at] = torch.where(mask, arr[rows, at], new)
+    k_deq = _dq8_kv(cache["k"], cache["k_s"], cfg.tdtype)
+    v_deq = _dq8_kv(cache["v"], cache["v_s"], cfg.tdtype)
+    out = ops.decode_attention(q[:, 0], k_deq, v_deq, (lengths + 1).to(torch.int32))
+    out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,11 @@ Differences from the JAX original, in PyTorch's idiom:
 - the ``lax.scan`` over superblocks is a Python loop over layers, on
   per-layer views ``pool[s]`` and ``param[s]``.
 
-Only ``kv_dtype="fp32"`` pages (the model's compute dtype) are ported;
-int8 pages raise ``NotImplementedError``.
+``kv_dtype="fp32"`` pages hold the model's compute dtype;
+``kv_dtype="int8"`` pages hold int8 K/V beside float32 per-page scale
+pools ``k_s``/``v_s`` ``(n_sb, P, page_size, K)``: each token is
+quantized once, on scatter, and the int8 kernels dequantize the pages
+they read.
 """
 
 from __future__ import annotations
@@ -44,10 +47,6 @@ Params = Dict[str, Any]
 Pools = Dict[str, Any]
 
 KV_DTYPES = ("fp32", "int8")
-INT8_TODO = (
-    "int8 KV pages are not ported yet (ROADMAP.md, open items, queue 1 "
-    "item 5: int8 KV pages)"
-)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -74,7 +73,10 @@ def init_paged_pools(
 
     ``pools["blocks"][j]`` is ``{"k","v": (n_sb, P, page_size, K, hd)}``
     in the model's compute dtype, zero-filled, on ``device`` (``None``
-    means the CUDA device).
+    means the CUDA device).  With ``kv_dtype="int8"`` the K/V leaves are
+    int8 zeros and the scale pools ``{"k_s","v_s": (n_sb, P, page_size,
+    K)}`` float32 ones (a neutral scale: never-written slots dequantize
+    to finite values the kernels' masking then discards).
     """
     if not supports_paged(cfg):
         raise ValueError(
@@ -83,35 +85,39 @@ def init_paged_pools(
         )
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
-    if kv_dtype == "int8":
-        raise NotImplementedError(INT8_TODO)
     dev = resolve_device(device)
     _, pat, n_sb = _scan_layout(cfg)
     kv_shape = (n_sb, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
-    return {
-        "blocks": {
-            str(j): {
-                "k": torch.zeros(kv_shape, dtype=cfg.tdtype, device=dev),
-                "v": torch.zeros(kv_shape, dtype=cfg.tdtype, device=dev),
+
+    def one_pool() -> Dict[str, torch.Tensor]:
+        if kv_dtype == "int8":
+            return {
+                "k": torch.zeros(kv_shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(kv_shape, dtype=torch.int8, device=dev),
+                "k_s": torch.ones(kv_shape[:-1], dtype=torch.float32, device=dev),
+                "v_s": torch.ones(kv_shape[:-1], dtype=torch.float32, device=dev),
             }
-            for j in range(pat)
-        }
-    }
+        return {"k": torch.zeros(kv_shape, dtype=cfg.tdtype, device=dev),
+                "v": torch.zeros(kv_shape, dtype=cfg.tdtype, device=dev)}
+
+    return {"blocks": {str(j): one_pool() for j in range(pat)}}
 
 
 def _write_kv(pool: Dict[str, torch.Tensor], flat_idx: torch.Tensor,
               k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Scatter one batch of K/V tokens into one layer's pool, in place.
+    """Scatter one batch of K/V tokens into one layer's pool, in place,
+    quantizing when the pool is int8.
 
-    ``pool`` holds ``(P, ps, K, hd)`` views; ``k``/``v`` are
-    ``(T, K, hd)`` and ``flat_idx`` the ``(T,)`` slots ``page*ps + off``.
-    Returns ``pool``.
+    ``pool`` holds ``(P, ps, K, hd)`` views (and ``(P, ps, K)`` scale
+    views on int8 pools); ``k``/``v`` are ``(T, K, hd)`` and
+    ``flat_idx`` the ``(T,)`` slots ``page*ps + off``.  Returns ``pool``.
     """
-    if "k_s" in pool:
-        raise NotImplementedError(INT8_TODO)
     for name, val in (("k", k), ("v", v)):
         arr = pool[name]
         P, ps, K, hd = arr.shape
+        if name + "_s" in pool:
+            val, sc = ops.quantize_kv(val)
+            pool[name + "_s"].view(P * ps, K).index_copy_(0, flat_idx, sc)
         arr.view(P * ps, K, hd).index_copy_(0, flat_idx, val.to(arr.dtype))
     return pool
 
@@ -155,7 +161,8 @@ def paged_decode_step(
             k = L.rope(k, pos, cfg.rope_theta)
             _write_kv(pool, write_flat, k[:, 0], v[:, 0])
             out = ops.paged_decode_attention(
-                q[:, 0], pool["k"], pool["v"], block_tables, attn_lens
+                q[:, 0], pool["k"], pool["v"], block_tables, attn_lens,
+                k_scales=pool.get("k_s"), v_scales=pool.get("v_s"),
             )
             x = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
             x = _apply_ffn(p, cfg, kinds[j], x)
@@ -202,7 +209,8 @@ def paged_prefill_chunk(
             k = L.rope(k, positions, cfg.rope_theta)
             _write_kv(pool, write_flat, k[0], v[0])
             out = ops.paged_prefill_attention(
-                q[0], pool["k"], pool["v"], block_table, past
+                q[0], pool["k"], pool["v"], block_table, past,
+                k_scales=pool.get("k_s"), v_scales=pool.get("v_s"),
             )[None]
             x = x + out.reshape(1, C, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
             x = _apply_ffn(p, cfg, kinds[j], x)

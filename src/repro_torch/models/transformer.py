@@ -9,13 +9,14 @@ engine's cache functions ``init_cache``, ``prefill`` and
 ``decode_step``.  Parameters and caches form the same trees as the JAX
 package's: ``embedding``, ``lm_head``, ``final_norm`` and
 ``blocks[str(j)]`` with every leaf stacked over superblocks on axis 0.
+With ``kv_cache_dtype="int8"`` the slot cache holds int8 K/V and float32
+scales ``k_s``/``v_s`` ``(n_sb, B, max_len, K)``, as in the JAX package.
 
 In PyTorch's idiom, the ``lax.scan`` over superblocks is a Python loop
 over per-layer views, and ``decode_step`` writes the new K/V into the
 cache **in place** (it still returns the cache, with ``lengths`` a new
 tensor).  The other families and mixers (MLA, Mamba, xLSTM, cross
-attention) and the int8 slot cache (``kv_cache_dtype="int8"``) are not
-ported yet and raise ``NotImplementedError``.
+attention) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,16 +27,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..kernels import ops
 from . import layers as L
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 NOT_PORTED = "is not ported yet (ROADMAP queue 1, remaining architectures)"
-INT8_SLOT_TODO = (
-    "the int8 slot KV cache (kv_cache_dtype='int8') is not ported yet "
-    "(ROADMAP.md, open items, queue 1 item 5, with the int8 KV pages)"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -165,12 +163,10 @@ def _check_slot_path(cfg: ModelConfig) -> Tuple[int, int]:
     """(pattern length, superblocks) of a config the slot path supports.
 
     Every slot-path entry point calls this first, so the layer functions
-    below may assume dense attention layers and a float cache.
+    below may assume dense attention layers.
     """
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(INT8_SLOT_TODO)
     n_prefix, pat, n_sb = _scan_layout(cfg)
     if n_prefix or n_sb == 0:
         raise NotImplementedError("unstacked prefix layers are not ported yet")
@@ -206,9 +202,14 @@ def _apply_layer_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token attention + FFN layer over a slot cache (written in place)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, ck, cv = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"], lengths)
+    if cfg.kv_cache_dtype == "int8":
+        out, new_cache = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
+    else:
+        out, ck, cv = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"],
+                                         lengths)
+        new_cache = {"k": ck, "v": cv}
     x = _apply_ffn(p, cfg, kind, x + out)
-    return x, {"k": ck, "v": cv}
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -260,20 +261,28 @@ def init_cache(
 
     Each ``k``/``v`` is ``(n_sb, B, max_len, K, hd)`` in the model's
     compute dtype, zero-filled, on ``device`` (``None`` means the CUDA
-    device).
+    device).  With ``kv_cache_dtype="int8"`` they are int8 zeros, beside
+    float32 scales ``k_s``/``v_s`` ``(n_sb, B, max_len, K)`` that start
+    at **zero** (the paged pools' scales start at one).
     """
     pat, n_sb = _check_slot_path(cfg)
     dev = resolve_device(device)
     shape = (n_sb, batch, max_len, cfg.n_kv_heads, cfg.hd)
+
+    def attn_cache() -> Dict[str, torch.Tensor]:
+        if cfg.kv_cache_dtype == "int8":
+            return {
+                "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            }
+        return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
+
     return {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "blocks": {
-            str(j): {
-                "k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
-                "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
-            }
-            for j in range(pat)
-        },
+        "blocks": {str(j): attn_cache() for j in range(pat)},
     }
 
 
@@ -283,15 +292,23 @@ def prefill(
     tokens: torch.Tensor,                    # (B, S) int
     max_len: int,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt, build the decode cache.  Returns (last_logits, cache)."""
+    """Run the prompt, build the decode cache.  Returns (last_logits, cache).
+
+    On an int8 cache the prompt's K/V are quantized as they are placed
+    (JAX's ``place_attn_q8``).
+    """
     B, Sq = tokens.shape
     logits, run_cache = forward(params, cfg, tokens, collect_cache=True)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     cache["lengths"].fill_(Sq)
     for j, blk in run_cache["blocks"].items():
+        dst = cache["blocks"][j]
         for name in ("k", "v"):
-            dst = cache["blocks"][j][name]
-            dst[:, :, :Sq] = blk[name].to(dst.dtype)
+            src = blk[name]
+            if cfg.kv_cache_dtype == "int8":
+                src, sc = ops.quantize_kv(src)
+                dst[name + "_s"][:, :, :Sq] = sc
+            dst[name][:, :, :Sq] = src.to(dst[name].dtype)
     return logits[:, -1], cache
 
 

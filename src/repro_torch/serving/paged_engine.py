@@ -42,8 +42,8 @@ a pooled page store + per-request block tables:
 Port of ``repro/serving/paged_engine.py``: the host logic is the JAX
 engine's, line for line.  What changes is the device side: the model
 runs eagerly on ``device`` (the CUDA device unless the caller passes
-``device="cpu"``), the KV pools are updated in place instead of through
-donated jitted updaters, and ``kv_dtype="int8"`` is not ported yet.
+``device="cpu"``), and the KV pools (int8 pools with their scale pools
+too) are updated in place instead of through donated jitted updaters.
 """
 
 from __future__ import annotations
@@ -62,7 +62,10 @@ import torch
 from ..bridge import params_to, tensor_from_numpy, tensor_to_numpy
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
-from ..kernels.paged_attention import check_block_table_bounds
+from ..kernels.paged_attention import (
+    check_block_table_bounds,
+    check_scale_pool_finite,
+)
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..models.paged import (
@@ -189,9 +192,10 @@ class PagedLLMEngine(LatencyProfileMixin):
         byte-exact historical behaviour.
     kv_dtype : str, optional
         Page storage dtype: ``"fp32"`` (the model's compute dtype —
-        byte-identical to the historical engine).  ``"int8"`` pages are
-        not ported yet and raise ``NotImplementedError``.  Defaults to
-        the ``REPRO_KV_DTYPE`` environment variable, else ``"fp32"``.
+        byte-identical to the historical engine) or ``"int8"``
+        (quantized pages with per-page scale pools, dequantized inside
+        the int8 paged-attention kernels).  Defaults to the
+        ``REPRO_KV_DTYPE`` environment variable, else ``"fp32"``.
     sanitize : bool, optional
         Run the KV-page sanitizer: the allocator mirrors every page
         transition in shadow state, every kernel-bound write and block
@@ -367,9 +371,13 @@ class PagedLLMEngine(LatencyProfileMixin):
         """Pool size (pages, incl. the trash page) fitting a byte budget.
 
         The equal-byte-budget counterpart of picking ``num_pages``
-        directly: int8 pages cost ~4× fewer bytes each (1-byte payload
-        plus 4-byte-per-(slot, kv-head) scales versus the compute
-        dtype), so the same budget buys proportionally more pages.
+        directly: an int8 page costs a 1-byte payload plus 4 bytes of
+        scale per (slot, kv-head), for K and for V, against the compute
+        dtype's bytes per element — ``2 (hd + 4)`` against ``4 hd``
+        bytes a slot and kv head in bf16 (1.88× fewer at hd = 64:
+        104,448 against 196,608 bytes a token for stablelm-1.6b's 24
+        layers), ``8 hd`` in float32 (3.76× fewer) — so the same budget
+        buys that many times the pages.
 
         Parameters
         ----------
@@ -564,12 +572,15 @@ class PagedLLMEngine(LatencyProfileMixin):
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one physical page's K/V across every layer pool.
 
-        One indexed in-place copy per pool leaf, covering every
-        superblock at once — O(page) work, never an O(pool) rebuild.
+        One indexed in-place copy per pool leaf (the scale pools of int8
+        engines included), covering every superblock at once — O(page)
+        work, never an O(pool) rebuild.
         """
         for pool in self.pools["blocks"].values():
             for arr in pool.values():
                 arr[:, dst] = arr[:, src]
+        if self._san is not None and self.kv_dtype == "int8":
+            self._san.note_scale_copy(src, dst)
         self.cow_copies += 1
 
     def _ensure_exclusive(self, row: int, pi: int) -> bool:
@@ -835,6 +846,15 @@ class PagedLLMEngine(LatencyProfileMixin):
             check_block_table_bounds(
                 bt, lens, self.num_pages, self.page_size, TRASH_PAGE
             )
+            if self.kv_dtype == "int8":
+                # spot-check one layer's scale pools: a NaN/non-positive
+                # scale would multiply *valid* history, not masked slots
+                pool0 = self.pools["blocks"]["0"]
+                check_scale_pool_finite(
+                    tensor_to_numpy(pool0["k_s"][0]),
+                    tensor_to_numpy(pool0["v_s"][0]),
+                    bt, lens, self.page_size,
+                )
             for row in rows:
                 pi = int(self.lengths[row]) // self.page_size
                 self._san.note_write(
@@ -946,7 +966,9 @@ class PagedLLMEngine(LatencyProfileMixin):
         req = self.active.pop(row)
         pages = list(self.seq_pages[row])
         idx = self._to_device(np.asarray(pages)).long()
-        # every pool leaf travels (bf16 pages as exact float32 arrays)
+        # every pool leaf travels: K/V payload (bf16 pages as exact float32
+        # arrays, int8 pages as int8) plus, on int8 engines, the per-page
+        # scale pools the payload dequantizes through
         kv: Dict[str, Dict[str, np.ndarray]] = {
             j: {
                 name: tensor_to_numpy(arr[:, idx])
@@ -971,6 +993,8 @@ class PagedLLMEngine(LatencyProfileMixin):
         )
         if self._san is not None:
             self._san.validate_ticket(pages, ticket.page_refcounts)
+            if self.kv_dtype == "int8":
+                self._san.validate_scale_export(pages)
         self._release_row(row)
         self.migrations_out += 1
         return ticket

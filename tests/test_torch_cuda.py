@@ -22,7 +22,9 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention,
+    paged_decode_attention_int8,
     paged_prefill_attention,
+    paged_prefill_attention_int8,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import init_params
@@ -270,3 +272,189 @@ def test_slot_engine_on_card_matches_cpu_tokens(dev, arch):
     assert counts["flash_attention"] == n * eng.admissions
     assert counts["decode_attention"] == n * eng.decode_steps
     assert counts["rmsnorm"] == (2 * n + 1) * (eng.admissions + eng.decode_steps)
+
+
+# ---------------------------------------------------------------------------
+# int8 pages: the quantized forms of both paged kernels
+# ---------------------------------------------------------------------------
+# what an unwritten or recycled slot's scale may hold
+GARBAGE_SCALES = [float("nan"), float("inf"), 1e30]
+
+
+def _int8_case(rng, P, ps, K, hd, live, dev):
+    """int8 pools and f32 scale pools quantized from normal K/V; every slot
+    outside ``live`` holds a +-99 payload with a clean scale of 1."""
+    kq, ks = ops.quantize_kv(_randn(rng, (P, ps, K, hd), torch.float32, dev))
+    vq, vs = ops.quantize_kv(_randn(rng, (P, ps, K, hd), torch.float32, dev))
+    dead = ~live.to(dev)
+    kq[dead], vq[dead] = 99, -99
+    ks[dead], vs[dead] = 1.0, 1.0
+    return kq, vq, ks, vs, dead
+
+
+def _garbage_scales(ks, vs, dead, value):
+    k2, v2 = ks.clone(), vs.clone()
+    k2[dead], v2[dead] = value, value
+    return k2, v2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K,hd,ps", WIDTHS)
+def test_int8_decode_kernel_matches_plain_and_ignores_garbage_scales(
+        dev, H, K, hd, ps, dtype):
+    rng = np.random.default_rng(41)
+    npp = 8
+    lens = np.array([1, ps, ps + 1, npp * ps], np.int32)
+    B, P = len(lens), len(lens) * npp + 2
+    bt = rng.permutation(np.arange(1, P))[: B * npp].reshape(B, npp).astype(np.int32)
+    live = torch.zeros(P, ps, dtype=torch.bool)
+    for b in range(B):
+        for t in range(int(lens[b])):
+            live[bt[b, t // ps], t % ps] = True
+    kq, vq, ks, vs, dead = _int8_case(rng, P, ps, K, hd, live, dev)
+    q = _randn(rng, (B, H, hd), dtype, dev)
+    bt_t, ln = torch.from_numpy(bt).to(dev), torch.from_numpy(lens).to(dev)
+    before = paged_decode_attention_int8.launches
+    got = paged_decode_attention_int8(q, kq, vq, bt_t, ln, ks, vs)
+    assert paged_decode_attention_int8.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, hd)
+    _close(got, R.paged_decode_attention_ref(q, kq, vq, bt_t, ln, k_scales=ks,
+                                             v_scales=vs), dtype)
+    for value in GARBAGE_SCALES:
+        k2, v2 = _garbage_scales(ks, vs, dead, value)
+        assert torch.equal(paged_decode_attention_int8(q, kq, vq, bt_t, ln, k2, v2), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K,hd,ps", WIDTHS)
+@pytest.mark.parametrize("past,C", [(0, 16), (5, 23), (64, 64)])
+def test_int8_prefill_kernel_matches_plain_and_ignores_garbage_scales(
+        dev, H, K, hd, ps, past, C, dtype):
+    rng = np.random.default_rng(42)
+    ctx = past + C
+    npp = -(-ctx // ps) + 1
+    P = npp + 3
+    bt = rng.permutation(np.arange(1, P))[:npp].astype(np.int32)
+    live = torch.zeros(P, ps, dtype=torch.bool)
+    for t in range(ctx):
+        live[bt[t // ps], t % ps] = True
+    kq, vq, ks, vs, dead = _int8_case(rng, P, ps, K, hd, live, dev)
+    q = _randn(rng, (C, H, hd), dtype, dev)
+    bt_t = torch.from_numpy(bt).to(dev)
+    got = paged_prefill_attention_int8(q, kq, vq, bt_t, past, ks, vs)
+    assert got.dtype == dtype and got.shape == (C, H, hd)
+    _close(got, R.paged_prefill_attention_ref(q, kq, vq, bt_t, past, k_scales=ks,
+                                              v_scales=vs), dtype)
+    for value in GARBAGE_SCALES:
+        k2, v2 = _garbage_scales(ks, vs, dead, value)
+        assert torch.equal(paged_prefill_attention_int8(q, kq, vq, bt_t, past, k2, v2),
+                           got)
+
+
+@pytest.mark.gpu
+def test_int8_kernels_read_strided_stacked_pools(dev):
+    """Per-layer views of stacked (n_sb, P, ps, K[, hd]) pools go in as they
+    are; ops sends int8 pools with scales to the int8 kernels."""
+    rng = np.random.default_rng(43)
+    kq, ks = ops.quantize_kv(_randn(rng, (3, 9, 8, 2, 32), torch.float32, dev))
+    vq, vs = ops.quantize_kv(_randn(rng, (3, 9, 8, 2, 32), torch.float32, dev))
+    q = _randn(rng, (2, 4, 32), torch.bfloat16, dev)
+    bt = torch.tensor([[3, 5, 1], [2, 7, 8]], dtype=torch.int32, device=dev)
+    ln = torch.tensor([17, 9], dtype=torch.int32, device=dev)
+    before = ops.launch_counts()
+    got = ops.paged_decode_attention(q, kq[1], vq[1], bt, ln, k_scales=ks[1],
+                                     v_scales=vs[1])
+    want = paged_decode_attention_int8(q, kq[1].contiguous(), vq[1].contiguous(), bt,
+                                       ln, ks[1].contiguous(), vs[1].contiguous())
+    assert torch.equal(got, want)
+    after = ops.launch_counts()
+    assert after["paged_decode_attention_int8"] == before["paged_decode_attention_int8"] + 2
+    assert after["paged_decode_attention"] == before["paged_decode_attention"]
+    out = ops.paged_prefill_attention(q, kq[2], vq[2], bt[0], 10, k_scales=ks[2],
+                                      v_scales=vs[2])
+    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.gpu
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(2, 4, 16, device=dev)
+    pool = torch.zeros(5, 8, 4, 16, dtype=torch.int8, device=dev)
+    sc = torch.ones(5, 8, 4, device=dev)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=dev)
+    ln = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int8 pages"):
+        paged_decode_attention_int8(q, pool.float(), pool.float(), bt, ln, sc, sc)
+    with pytest.raises(ValueError, match="scale pools"):
+        paged_decode_attention_int8(q, pool, pool, bt, ln, sc.double(), sc.double())
+    with pytest.raises(ValueError, match="scale pools"):
+        paged_prefill_attention_int8(q, pool, pool, bt[0], 0, sc[:, :4], sc[:, :4])
+    with pytest.raises(ValueError, match="f32/bf16"):
+        paged_decode_attention(q, pool, pool, bt, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "internlm2_20b"])
+def test_int8_engines_on_card_match_cpu_tokens(dev, arch):
+    """float32 smoke models: the int8 paged engine and the int8 slot engine
+    give the same greedy tokens on the card as on the CPU, and the paged
+    one launches the int8 kernels once a layer per chunk and step."""
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    params = init_params(cfg, seed=3, device="cpu")
+    prompts = [[1, 2, 3], list(range(4, 30)), [7] * 9, list(range(40, 57))]
+
+    def drive(eng):
+        out = {}
+        for i, p in enumerate(prompts):
+            assert eng.admit(Request(
+                rid=i, prompt=p, max_new_tokens=10,
+                on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens))))
+        while eng.batch_size or getattr(eng, "waiting", None):  # paged evicts
+            eng.step()
+        return out
+
+    paged, slot = {}, {}
+    for d in ("cpu", dev):
+        ops.reset_launch_counts()
+        eng = PagedLLMEngine(cfg, max_seqs=4, max_len=64, page_size=8, prefill_chunk=8,
+                             params=params, kv_dtype="int8", device=d)
+        paged[str(d)] = drive(eng)
+        slot[str(d)] = drive(LLMEngine(cfg.with_(kv_cache_dtype="int8"), max_batch=4,
+                                       max_len=64, params=params, device=d))
+    torch.cuda.synchronize()
+    assert paged["cpu"] == paged[str(dev)] and slot["cpu"] == slot[str(dev)]
+    counts = ops.launch_counts()
+    n = cfg.n_layers
+    assert counts["paged_decode_attention_int8"] == n * eng.decode_steps
+    assert counts["paged_prefill_attention_int8"] == n * eng.prefill_chunks
+    assert counts["paged_decode_attention"] == counts["paged_prefill_attention"] == 0
+
+
+@pytest.mark.gpu
+def test_int8_prefix_cache_copy_on_write_on_card_matches_cpu(dev):
+    """Copy-on-write of int8 pages (payload and scale pools) on the card:
+    the same tokens, hits and copies as on the CPU."""
+    cfg = get_smoke_config("stablelm_1_6b").with_(dtype="float32")
+    params = init_params(cfg, seed=4, device="cpu")
+    shared = [3 + (7 * i) % 29 for i in range(32)]      # 4 pages at ps 8
+    prompts = [shared + [50 + i] for i in range(3)] + [shared, shared]
+    runs = {}
+    for d in ("cpu", dev):
+        eng = PagedLLMEngine(cfg, max_seqs=4, max_len=64, page_size=8, prefill_chunk=8,
+                             params=params, prefix_cache=True, kv_dtype="int8",
+                             sanitize=True, device=d)
+        out, pending, steps = {}, list(enumerate(prompts)), 0
+        while pending or eng.batch_size or eng.waiting:
+            if pending and steps % 2 == 0 and eng.can_admit():
+                i, p = pending[0]
+                if eng.admit(Request(rid=i, prompt=p, max_new_tokens=6,
+                                     on_finish=lambda r, out=out: out.__setitem__(
+                                         r.rid, list(r.out_tokens)))):
+                    pending.pop(0)
+            eng.step()
+            steps += 1
+        runs[str(d)] = (out, eng.prefix_index.hits, eng.cow_copies)
+    torch.cuda.synchronize()
+    assert runs["cpu"] == runs[str(dev)]
+    assert runs["cpu"][1] > 0 and runs["cpu"][2] > 0

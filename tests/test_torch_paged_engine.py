@@ -185,5 +185,10 @@ def test_engine_without_device_needs_cuda(pair, monkeypatch):
         PagedLLMEngine(tcfg, params=tparams)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedLLMEngine(tcfg, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedLLMEngine(tcfg, params=tparams, device="cpu", kv_dtype="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedLLMEngine(tcfg, params=tparams, kv_dtype="int8")
+    # asked for the CPU, an int8 engine builds there (int8 pools + scales)
+    eng = PagedLLMEngine(tcfg, params=tparams, device="cpu", kv_dtype="int8")
+    pool = eng.pools["blocks"]["0"]
+    assert pool["k"].dtype == torch.int8 and pool["k_s"].dtype == torch.float32
+    assert pool["k"].device.type == "cpu"

@@ -99,8 +99,16 @@ def test_pools_are_updated_in_place(setup):
     assert k0[:, 2, 3:].abs().sum() == 0 and k0[:, :2].abs().sum() == 0
 
 
-def test_int8_pages_raise_not_implemented(setup):
-    _, tcfg, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.init_paged_pools(tcfg, 4, 4, kv_dtype="int8", device="cpu")
+def test_int8_pools_match_jax_layout(setup):
+    """int8 pools: int8 zero K/V beside float32 scale pools of ones, the
+    JAX package's leaves, shapes and values."""
+    jcfg, tcfg, _, _ = setup
+    jpools = JP.init_paged_pools(jcfg, 5, 4, kv_dtype="int8")
+    tpools = TP.init_paged_pools(tcfg, 5, 4, kv_dtype="int8", device="cpu")
+    for j, pool in jpools["blocks"].items():
+        assert set(tpools["blocks"][j]) == set(pool) == {"k", "v", "k_s", "v_s"}
+        for name, arr in pool.items():
+            got = tpools["blocks"][j][name]
+            assert str(got.dtype).split(".")[-1] == str(arr.dtype)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(arr))
     assert TP.supports_paged(tcfg)

@@ -206,10 +206,21 @@ def test_decode_past_the_slot_writes_nothing(pair):
     _close(tl, jl, MODEL_TOL)
 
 
-def test_unported_slot_caches_raise():
-    cfg = get_smoke_config("stablelm_1_6b")
-    with pytest.raises(NotImplementedError, match="int8 slot KV cache"):
-        init_cache(cfg.with_(kv_cache_dtype="int8"), 2, 16, device="cpu")
+def test_int8_slot_cache_matches_jax_layout():
+    """The int8 slot cache: int8 zero K/V beside float32 scales of zeros
+    (not the paged pools' ones), the JAX package's leaves and shapes."""
+    from repro.models import init_cache as jax_init_cache
+
+    jcfg = jax_smoke_config("stablelm_1_6b").with_(kv_cache_dtype="int8")
+    tcfg = get_smoke_config("stablelm_1_6b").with_(kv_cache_dtype="int8")
+    jc = jax_init_cache(jcfg, 2, 16)
+    tc = init_cache(tcfg, 2, 16, device="cpu")
+    for j, blk in jc["blocks"].items():
+        assert set(tc["blocks"][j]) == set(blk) == {"k", "v", "k_s", "v_s"}
+        for name, arr in blk.items():
+            got = tc["blocks"][j][name]
+            assert str(got.dtype).split(".")[-1] == str(arr.dtype)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(arr))
 
 
 # ---------------------------------------------------------------------------

@@ -105,7 +105,7 @@ def test_serving_cluster_matches_jax_under_fcfs():
     assert got.preemptions == want.preemptions == 0
 
 
-def test_build_engines_on_cpu_shares_weights_and_raises_on_unported():
+def test_build_engines_on_cpu_shares_weights_and_builds_int8_fleets():
     cfg = get_smoke_config("stablelm_1_6b")
     paged = build_engines(cfg, ServeConfig(engine="paged", replicas=2,
                                            kv_pages=(13, 49)), device="cpu")
@@ -114,9 +114,13 @@ def test_build_engines_on_cpu_shares_weights_and_raises_on_unported():
     assert all(e.device.type == "cpu" for e in paged)
     slot = build_engines(cfg, ServeConfig(replicas=2), device="cpu")
     assert [type(e) for e in slot] == [LLMEngine, LLMEngine]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_engines(cfg, ServeConfig(engine="paged", kv_dtype="int8"),
-                      device="cpu")
+    int8 = build_engines(cfg, ServeConfig(engine="paged", replicas=2,
+                                          kv_pages=(13, 49), kv_dtype="int8"),
+                         device="cpu")
+    assert [e.num_pages for e in int8] == [13, 49]
+    assert all(e.kv_dtype == "int8" for e in int8)
+    assert int8[0].pools["blocks"]["0"]["k"].dtype == torch.int8
+    assert int8[0].params["embedding"] is int8[1].params["embedding"]
 
 
 LAUNCH = ["--jobs", "3", "--token-scale", "40", "--device", "cpu"]
@@ -134,6 +138,7 @@ def test_launcher_serves_on_cpu(capsys, engine, scheduler):
     assert " jobs=3 " in line
 
 
-def test_launcher_int8_pages_raise_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.main(["--engine", "paged", "--kv-dtype", "int8"] + LAUNCH)
+def test_launcher_serves_int8_pages_on_cpu(capsys):
+    assert serve.main(["--engine", "paged", "--kv-dtype", "int8"] + LAUNCH) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[serve] scheduler=llmsched ") and " jobs=3 " in line
