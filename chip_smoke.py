@@ -18,8 +18,10 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    each length poisoned with finite values; the attention kernels also
    with those regions set to NaN, which must not change their output.
    The slot path's kernels (flash attention, slot decode attention) are
-   held the same way at stablelm-1.6b's and internlm2-20b's widths and,
-   for flash, MLA's head dims (192 / 128), causal and not.  The int8
+   held the same way at stablelm-1.6b's, internlm2-20b's and
+   Jamba-1.5-Large's widths (H = 64, K = 8, hd = 128) and, for flash,
+   MLA's head dims (192 / 128), causal and not; RMSNorm at d = 2048 and
+   at Jamba's d = 8192.  The int8
    forms of both paged kernels are held against their plain versions at
    those widths with f32 and bf16 queries, with +-99 payloads in every
    unreferenced slot, whose scales set to NaN, Inf or 1e30 must leave the
@@ -48,7 +50,29 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    kernels, exact launch accounting), then under LLMSched on two paged
    replicas with a small and a large page pool, live migration and the
    prefix cache, once with bf16 pages and once with int8 pages at the
-   same pool bytes.
+   same pool bytes;
+7. ``held_hybrid`` — Jamba-1.5-Large at its published widths in float32,
+   cut to its first 2 layers (mamba+moe, mamba+mlp) and 4 of its 16
+   experts (~20 GB, so the host holds it too): the same weights and
+   requests through ``LLMEngine`` on the card and on the CPU must give the
+   same greedy tokens;
+8. ``hybrid``  — Jamba-1.5-Large in bf16 at its published widths (d_model
+   8192, 64/8 heads of 128, d_ff 24576, 16 experts top-2 of width 24576
+   every other layer, Mamba d_state 16, d_conv 4, expand 2, dt_rank 512,
+   vocab 65536), cut in depth only, to its first 5 layers (mamba+moe,
+   mamba+mlp, mamba+moe, mamba+mlp, attn+moe: every layer kind of the
+   period, 66.2 GB of weights; a whole 8-layer period needs ~90 GB), run
+   after the earlier phases' models are freed.  Four requests of 128-512
+   prompt tokens and 16 new tokens through ``LLMEngine.admit``/``step``
+   with every launch counted and matched (the ``ssm_scan`` kernel once a
+   Mamba layer per admission and decode step), a profiled decode window,
+   then LLMSched over one hybrid slot replica (6 planning jobs).
+
+The ``kernels`` phase also holds the Mamba selective-scan kernel against
+its plain version at the hybrid path's shapes (D = 16384, N = 16; T = 1 at
+B = 4, T = 17 and 512 at B = 1) and the smoke config's, with B and C read
+as strided slices, and times it beside its bound (bytes against the exps
+on the special-function units at the card's maximum clock).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line,
 and a last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -71,6 +95,7 @@ from collections import deque
 from pathlib import Path
 
 import numpy as np
+
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -80,7 +105,13 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
-PHASES = ("kernels", "held", "held_slot", "engine", "testbed")
+# the selective scan against its plain version: f32 state math in both, in
+# another summation order over N and with expf's last bit, compounding over
+# T (the JAX package's 2e-4); bf16 adds one rounding of y
+SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# the special-function units' exp rate: 16 a clock per SM (Hopper)
+SFU_EXP_PER_CLOCK_PER_SM = 16
+PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid")
 KERNEL_META = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                                "src/repro/kernels/paged_attention.py:119"),
@@ -97,6 +128,8 @@ KERNEL_META = {
                                     "src/repro/kernels/paged_attention.py:86"),
     "paged_prefill_attention_int8": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
                                      "src/repro/kernels/paged_attention.py:220"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:70"),
 }
 # the kernels of the paged engine's path (by page dtype) and of the
 # testbed's slot path
@@ -112,6 +145,14 @@ GARBAGE_SCALES = (float("nan"), float("inf"), 1e30)
 # later layers.  Tokens must still agree; if they do not, the card's int8
 # logits must lie closer to the CPU's than int8 quantization itself moves
 # the CPU's logits (int8 against fp caches, same weights and input).
+
+
+def _free_card() -> None:
+    """Return what earlier phases left in PyTorch's cache to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def emit(phase: str, **fields) -> None:
@@ -237,13 +278,30 @@ def _prefill_case(rng, C, H, K, hd, ps, past, dtype, dev):
     return q, kp, vp, torch.from_numpy(bt).to(dev), torch.from_numpy(garbage).to(dev)
 
 
-def _err(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def _err(got: torch.Tensor, want: torch.Tensor, dtype, tol=TOL) -> float:
     check(bool(torch.isfinite(got).all()), "kernel output is not finite")
     g, w = got.float(), want.float()
-    excess = (g - w).abs() - (TOL[dtype] + TOL[dtype] * w.abs())
-    check(float(excess.max()) <= 0, f"kernel outside tolerance {TOL[dtype]}: "
+    excess = (g - w).abs() - (tol[dtype] + tol[dtype] * w.abs())
+    check(float(excess.max()) <= 0, f"kernel outside tolerance {tol[dtype]}: "
           f"max |err| {float((g - w).abs().max())}")
     return float((g - w).abs().max())
+
+
+def _check_rmsnorm(rng, dev, errs, cases, d, row_counts) -> None:
+    """RMSNorm against its plain version at width ``d``, f32 and bf16:
+    stablelm's 2048 at 1, 8 and 64 rows, Jamba's 8192 at its decode
+    (4) and prefill (up to 512) rows."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in row_counts:
+            x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32) * 3)
+            g = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32))
+            x, g = x.to(dev, dtype), g.to(dev, dtype)
+            errs["rmsnorm"] = max(errs["rmsnorm"],
+                                  _err(rmsnorm(x, g), R.rmsnorm_ref(x, g), dtype))
+            cases.append(("rmsnorm", d, str(dtype), rows))
 
 
 def _check_slot_kernels(rng, dev, errs, cases) -> None:
@@ -258,7 +316,8 @@ def _check_slot_kernels(rng, dev, errs, cases) -> None:
     def randn(*shape):
         return rng.normal(size=shape).astype(np.float32)
 
-    widths = {"stablelm-1.6b": (32, 32, 64, 64), "internlm2-20b GQA": (48, 8, 128, 128)}
+    widths = {"stablelm-1.6b": (32, 32, 64, 64), "internlm2-20b GQA": (48, 8, 128, 128),
+              "jamba-1.5-large": (64, 8, 128, 128)}
     B, S = 4, 1024
     lens = np.array([1, 17, 511, 1024], np.int32)
     tail = torch.from_numpy(np.arange(S)[None, :] >= lens[:, None]).to(dev)
@@ -356,6 +415,92 @@ def _check_int8_kernels(dev, errs, cases) -> None:
                 cases.append(("int8 prefill", label, str(dtype), past))
 
 
+def _scan_inputs(rng, B, T, D, N, dtype, dev, r=512):
+    """Selective-scan inputs in the Mamba layer's layout: x, dt (B, T, D),
+    A (D, N) f32, B and C as strided column slices of one (B, T, r + 2N)
+    projection, D (D,), h0 (B, D, N) f32; the JAX package's test ranges."""
+    def on(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    proj = on(rng.normal(size=(B, T, r + 2 * N)) * 0.3)
+    return (on(rng.normal(size=(B, T, D)) * 0.5),
+            on(np.abs(rng.normal(size=(B, T, D))) * 0.1),
+            on(-(np.abs(rng.normal(size=(D, N))) + 0.1), torch.float32),
+            proj[..., r:r + N], proj[..., r + N:], on(rng.normal(size=(D,))),
+            on(rng.normal(size=(B, D, N)) * 0.2, torch.float32))
+
+
+def _check_ssm_scan(dev, errs, cases) -> None:
+    """ssm_scan against its plain version, f32 and bf16, with B and C read
+    as strided column slices: the main path's shapes (D = 16384, N = 16;
+    T = 1 at B = 4, T = 17 and 512 at B = 1), the smoke config's (D = 128,
+    N = 8) and ragged T and D, each with h0 given and none; then two halves
+    with the state carried must equal the whole, bit for bit."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    rng = np.random.default_rng(9)
+    shapes = [(4, 1, 16384, 16), (1, 17, 16384, 16), (1, 512, 16384, 16),
+              (2, 13, 128, 8), (3, 37, 100, 16)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T, D, N in shapes:
+            x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(rng, B, T, D, N, dtype, dev)
+            check(not Bm.is_contiguous(), "the scan's B should be a strided view")
+            for h in (h0, None):
+                y, hT = ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h)
+                yr, hr = R.ssm_scan_ref(x, dt, A, Bm, Cm, Dk, h0=h)
+                errs["ssm_scan"] = max(errs["ssm_scan"], _err(y, yr, dtype, SSM_TOL),
+                                       _err(hT, hr, torch.float32, SSM_TOL))
+                cases.append(("ssm_scan", str(dtype), B, T, D, N, h is not None))
+        x, dt, A, Bm, Cm, Dk, _ = _scan_inputs(rng, 1, 512, 16384, 16, dtype, dev)
+        y, hT = ssm_scan(x, dt, A, Bm, Cm, Dk)
+        ya, ha = ssm_scan(x[:, :200], dt[:, :200], A, Bm[:, :200], Cm[:, :200], Dk)
+        yb, hb = ssm_scan(x[:, 200:], dt[:, 200:], A, Bm[:, 200:], Cm[:, 200:], Dk, h0=ha)
+        check(torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(hb, hT),
+              f"ssm_scan: two halves with the state carried differ from the whole ({dtype})")
+        cases.append(("ssm_scan carry", str(dtype)))
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), for the exp bound."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _ssm_timing(dev, rng, B, T, D, N, with_h0: bool) -> dict:
+    """Kernel and plain times of one scan (bf16, CUDA events) and its bound:
+    bytes (x, dt, y; B, C; A, D; h0 and h_T, each once) over the HBM rate
+    against the exps (one a (t, d, n)) over the SFUs' rate at the card's
+    maximum clock, or the f32 operations (7 a (t, d, n)) over the f32 peak."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    dt_ = torch.bfloat16
+    x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(rng, B, T, D, N, dt_, dev)
+    h0 = h0 if with_h0 else None
+    es = 2
+    nbytes = (3 * B * T * D * es + 2 * B * T * N * es + D * N * 4 + D * es
+              + B * D * N * 4 * (2 if with_h0 else 1))
+    clock = _sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_exp = B * T * D * N / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock) * 1e3
+    t_flops = 7 * B * T * D * N / PEAK_FLOPS[torch.float32] * 1e3
+    bound_ms = max(t_bytes, t_exp, t_flops)
+    return dict(
+        ms=time_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)),
+        plain_ms=time_ms(lambda: R.ssm_scan_ref(x, dt, A, Bm, Cm, Dk, h0=h0),
+                         groups=5 if T > 64 else 15),
+        library_ms=None, library="no single PyTorch call computes a selective scan",
+        bound_ms=bound_ms, bound_by="bytes" if t_bytes >= max(t_exp, t_flops) else "operations",
+        bound_parts_ms={"bytes": t_bytes, "sfu_exp": t_exp, "f32_ops": t_flops},
+        sm_clock_mhz=clock / 1e6, sms=sms, bytes=nbytes,
+        shape=f"B={B} T={T} D={D} N={N} h0={'given' if with_h0 else 'none'}, B/C strided")
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.paged_attention import (
@@ -406,18 +551,14 @@ def phase_kernels(dev) -> dict:
                                   paged_prefill_attention(q, knan, vnan, bt, past)),
                       f"prefill output changed under NaN garbage ({label}, {dtype})")
                 cases.append(("prefill", label, str(dtype), past))
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in (1, 8, 64):
-            x = torch.from_numpy(rng.normal(size=(rows, 2048)).astype(np.float32) * 3)
-            g = torch.from_numpy(rng.normal(size=(2048,)).astype(np.float32))
-            x, g = x.to(dev, dtype), g.to(dev, dtype)
-            errs["rmsnorm"] = max(errs["rmsnorm"],
-                                  _err(rmsnorm(x, g), R.rmsnorm_ref(x, g), dtype))
+    _check_rmsnorm(rng, dev, errs, cases, 2048, (1, 8, 64))
     # the timing inputs draw from the generator as it stands here, so the
     # timed shapes stay those of the first slice (3160 decode tokens)
     timing_rng = copy.deepcopy(rng)
+    _check_rmsnorm(rng, dev, errs, cases, 8192, (1, 4, 512))
     _check_slot_kernels(rng, dev, errs, cases)
     _check_int8_kernels(dev, errs, cases)
+    _check_ssm_scan(dev, errs, cases)
     torch.cuda.synchronize()
     rng = timing_rng
 
@@ -549,7 +690,14 @@ def phase_kernels(dev) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         bound_ms=nb, bound_by=fl, shape=f"B=1 Sq=Sk={Sq} causal H=K={H} hd={hd}")
+    # the Jamba-1.5-Large scan: a 512-token prefill (the summary's row), a
+    # 17-token one and a decode step at B = 4 over carried states
+    srng = np.random.default_rng(10)
+    timing["ssm_scan"] = _ssm_timing(dev, srng, 1, 512, 16384, 16, with_h0=False)
+    ssm_more = {"prefill T=17": _ssm_timing(dev, srng, 1, 17, 16384, 16, with_h0=False),
+                "decode B=4": _ssm_timing(dev, srng, 4, 1, 16384, 16, with_h0=True)}
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
+           "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, "timing_ssm_scan": ssm_more,
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
            "peaks": "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"}
     emit("kernels", **out)
@@ -905,6 +1053,20 @@ TESTBED_TIME_SCALE = 4.0
 TESTBED_LIMIT_S = 300            # a run that has not finished by then stalled
 
 
+TESTBED_COMMON = dict(max_batch=4, n_regular=4, shared_prompt_tokens=TESTBED_SHARED_PROMPT,
+                      token_scale=TESTBED_TOKEN_SCALE, time_scale=TESTBED_TIME_SCALE, seed=0)
+
+
+def _profile_store():
+    """Bayesian-network profiles fitted from 300 seeded planning traces."""
+    from repro_torch.core import ProfileStore
+    from repro_torch.sim import generate_traces, get_generators
+
+    gens = get_generators()
+    return ProfileStore().fit([g.template for g in gens.values()],
+                              generate_traces("planning", 300, seed=7))
+
+
 class Stalled(RuntimeError):
     """A testbed run did not finish within TESTBED_LIMIT_S."""
 
@@ -913,13 +1075,38 @@ def _stalled(signum, frame):
     raise Stalled(f"testbed run did not finish within {TESTBED_LIMIT_S} s")
 
 
-def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
+def _check_slot_launches(counts, cfg, adm: int, steps: int, what: str) -> None:
+    """Exact launch accounting of slot engines: per admission, flash
+    attention once an attention layer and the scan once a Mamba layer; per
+    decode step, slot decode attention once an attention layer and the scan
+    once a Mamba layer; RMSNorm twice a layer plus once for both; the paged
+    kernels never."""
+    from repro_torch.models import layer_kind
+
+    mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
+    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
+    check(counts["flash_attention"] == n_attn * adm,
+          f"{what}: flash launches {counts} vs {adm} admissions")
+    check(counts["decode_attention"] == n_attn * steps,
+          f"{what}: slot decode launches {counts} vs {steps} decode steps")
+    check(counts["ssm_scan"] == n_mamba * (adm + steps),
+          f"{what}: ssm_scan launches {counts} vs {adm + steps} admissions and steps")
+    check(counts["rmsnorm"] == (2 * cfg.n_layers + 1) * (adm + steps),
+          f"{what}: rmsnorm launches {counts} vs {adm + steps} admissions and steps")
+    used = SLOT_KERNELS + (("ssm_scan",) if n_mamba else ())
+    check(all(counts[k] > 0 for k in used), f"{what}: a kernel never ran: {counts}")
+    check(all(v == 0 for k, v in counts.items() if k not in used),
+          f"{what}: a kernel off the slot path ran: {counts}")
+
+
+def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
+                 jobs: int = TESTBED_JOBS) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_scheduler
     from repro_torch.serving import ServingCluster
     from repro_torch.sim import generate_workload
 
-    wl = generate_workload("planning", TESTBED_JOBS, arrival_rate=0.9, seed=seed)
+    wl = generate_workload("planning", jobs, arrival_rate=0.9, seed=seed)
     sched = build_scheduler(name, store, epsilon=0.2, seed=seed,
                             plan_ahead_s=serve_cfg.plan_ahead_s)
     cluster = ServingCluster(sched, engines, serve_cfg)
@@ -935,8 +1122,9 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
     counts = ops.launch_counts()
     profiles = [e.latency_profile() for e in engines]
     out = {
+        "model": engines[0].cfg.name, "layers": engines[0].cfg.n_layers,
         "scheduler": name, "engine": serve_cfg.engine, "replicas": len(engines),
-        "jobs": TESTBED_JOBS, "finished": len(res.jct_by_job),
+        "jobs": jobs, "finished": len(res.jct_by_job),
         "avg_jct_s": res.avg_jct, "makespan_s": res.makespan,
         "tokens": res.tokens_generated, "sched_overhead_ms": res.avg_overhead_ms,
         "preemptions": res.preemptions, "migrations": res.migrations,
@@ -946,20 +1134,12 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts,
     }
-    check(out["finished"] == TESTBED_JOBS, f"{name}: {out['finished']} of "
-          f"{TESTBED_JOBS} jobs finished")
-    layers = engines[0].cfg.n_layers
+    check(out["finished"] == jobs, f"{name}: {out['finished']} of {jobs} jobs finished")
     if serve_cfg.engine == "slot":
         adm = sum(e.admissions for e in engines)
         steps = sum(e.decode_steps for e in engines)
         out.update(admissions=adm, decode_steps=steps)
-        check(counts["flash_attention"] == layers * adm,
-              f"flash launches {counts} vs {adm} admissions")
-        check(counts["decode_attention"] == layers * steps,
-              f"slot decode launches {counts} vs {steps} decode steps")
-        check(counts["rmsnorm"] == (2 * layers + 1) * (adm + steps),
-              f"rmsnorm launches {counts} vs {adm + steps} admissions and steps")
-        check(all(counts[k] > 0 for k in SLOT_KERNELS), f"a kernel never ran: {counts}")
+        _check_slot_launches(counts, engines[0].cfg, adm, steps, f"testbed {name}")
     else:
         out.update(decode_steps=sum(e.decode_steps for e in engines),
                    prefill_chunks=sum(e.prefill_chunks for e in engines),
@@ -973,18 +1153,12 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0) -> dict:
 
 
 def phase_testbed(dev, cfg) -> dict:
-    from repro_torch.core import ProfileStore
     from repro_torch.models import init_params
     from repro_torch.serving import PagedLLMEngine, Request, ServeConfig, build_engines
-    from repro_torch.sim import generate_traces, get_generators
 
-    gens = get_generators()
-    store = ProfileStore().fit([g.template for g in gens.values()],
-                               generate_traces("planning", 300, seed=7))
+    store = _profile_store()
     params = init_params(cfg, seed=0, device=dev)
-    common = dict(max_batch=4, n_regular=4, shared_prompt_tokens=TESTBED_SHARED_PROMPT,
-                  token_scale=TESTBED_TOKEN_SCALE, time_scale=TESTBED_TIME_SCALE, seed=0)
-    slot_cfg = ServeConfig(engine="slot", replicas=1, max_len=1024, **common)
+    slot_cfg = ServeConfig(engine="slot", replicas=1, max_len=1024, **TESTBED_COMMON)
     runs = {}
     for name in ("llmsched", "fcfs"):
         engines = build_engines(cfg, slot_cfg, params=params, device=dev)
@@ -993,7 +1167,7 @@ def phase_testbed(dev, cfg) -> dict:
         del engines
     # two paged replicas: a pool that holds one request and a large one
     fleet_cfg = ServeConfig(engine="paged", replicas=2, max_len=512, kv_pages=(33, 129),
-                            migrate=True, prefix_cache=True, **common)
+                            migrate=True, prefix_cache=True, **TESTBED_COMMON)
     engines = build_engines(cfg, fleet_cfg, params=params, device=dev)
     runs["fleet"] = _testbed_run("llmsched", store, engines, fleet_cfg)
     emit("testbed", **runs["fleet"])
@@ -1003,7 +1177,7 @@ def phase_testbed(dev, cfg) -> dict:
     q8_pages = tuple(PagedLLMEngine.pages_for_byte_budget(cfg, fleet_cfg.page_size, b, "int8")
                      for b in budgets)
     q8_cfg = ServeConfig(engine="paged", replicas=2, max_len=512, kv_pages=q8_pages,
-                         kv_dtype="int8", migrate=True, prefix_cache=True, **common)
+                         kv_dtype="int8", migrate=True, prefix_cache=True, **TESTBED_COMMON)
     engines = build_engines(cfg, q8_cfg, params=params, device=dev)
     runs["fleet_int8"] = _testbed_run("llmsched", store, engines, q8_cfg)
     runs["fleet_int8"]["budget_bytes"] = budgets
@@ -1016,6 +1190,179 @@ def phase_testbed(dev, cfg) -> dict:
         [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=386).tolist(),
                  max_new_tokens=64) for i in range(4)]))
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phases: held_hybrid and hybrid (Jamba-1.5-Large through the slot engine)
+# ---------------------------------------------------------------------------
+HYBRID_ARCH = "jamba_1_5_large_398b"
+HYBRID_LAYERS = 5          # every layer kind of the period; 66.2 GB of bf16
+HYBRID_JOBS = 6
+
+
+def _hybrid_cfg():
+    """Jamba-1.5-Large at its published widths, cut to the first 5 layers:
+    mamba+moe, mamba+mlp, mamba+moe, mamba+mlp, attn+moe (the prefix
+    layout, as 5 does not tile the 8-layer period)."""
+    from repro_torch.configs import get_config
+
+    return get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS)
+
+
+def phase_held_hybrid(dev) -> dict:
+    """Jamba-1.5-Large at full width in float32, cut to its first 2 layers
+    (mamba+moe, mamba+mlp) and 4 experts (~20 GB, which the host holds
+    too): the same weights and requests through ``LLMEngine`` on the card
+    and on the CPU must give the same greedy tokens, with a freed slot
+    re-used mid-stream."""
+    import dataclasses
+
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import LLMEngine, Request
+
+    full = get_config(HYBRID_ARCH)
+    cfg = full.with_(n_layers=2, dtype="float32",
+                     moe=dataclasses.replace(full.moe, n_experts=4))
+    t0 = time.perf_counter()
+    gpu_params = init_params(cfg, seed=1, device=dev)
+    cpu_params = params_to(gpu_params, "cpu")
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (24, 41, 57)]
+    logits, states = {}, {}
+    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+        toks = torch.tensor([prompts[1]], dtype=torch.int32, device=d)
+        lg, cache = prefill(params, cfg, toks, max_len=128)
+        lg2, cache = decode_step(params, cfg, cache, torch.tensor([prompts[1][0]], device=d))
+        logits[name] = torch.cat([lg.float().cpu(), lg2.float().cpu()])
+        states[name] = cache["prefix_0"]["ssm"].cpu()
+    outs, secs = {}, {}
+    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+        eng = LLMEngine(cfg, max_batch=2, max_len=128, params=params, device=d)
+        out, pending = {}, list(enumerate(prompts))
+        t1 = time.perf_counter()
+        while pending or eng.batch_size:
+            while pending and eng.can_admit():     # the third re-uses a freed slot
+                i, p = pending.pop(0)
+                check(eng.admit(Request(
+                    rid=i, prompt=p, max_new_tokens=(8, 5, 8)[i],
+                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens)))),
+                    "held_hybrid: admission refused")
+            eng.step()
+        secs[name] = time.perf_counter() - t1
+        outs[name] = out
+    torch.cuda.synchronize()
+    res = {"model": "jamba-1.5-large-398b widths, 2 layers (mamba+moe, mamba+mlp), "
+                    "4 of 16 experts, float32, TF32 off, slot engine",
+           "tokens_equal": outs["cuda"] == outs["cpu"],
+           "n_tokens": sum(len(v) for v in outs["cuda"].values()),
+           "max_logit_gap": float((logits["cuda"] - logits["cpu"]).abs().max()),
+           "max_ssm_state_gap": float((states["cuda"] - states["cpu"]).abs().max()),
+           "logits": "41-token prefill and one decode step", "init_s": init_s,
+           "seconds": secs}
+    emit("held_hybrid", **res)
+    check(len(outs["cuda"]) == len(prompts), "held_hybrid: requests missing")
+    check(res["tokens_equal"], "held_hybrid: card and CPU engines disagree")
+    return res
+
+
+def _serve_slot(eng, reqs) -> dict:
+    """Admit every request (prefill) and step until all finished, each
+    admission and step ending in ``torch.cuda.synchronize()``; the launch
+    counts are set to 0 just before and read just after."""
+    from repro_torch.kernels import ops
+
+    check(len(reqs) <= eng.max_batch, "more requests than slots")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    pre_s, step_ms, dec_tok, finished = 0.0, [], 0, []
+    for r in reqs:
+        t0 = time.perf_counter()
+        check(eng.admit(r), "admission refused")
+        torch.cuda.synchronize()
+        pre_s += time.perf_counter() - t0
+    while eng.batch_size:
+        rows = eng.batch_size
+        t0 = time.perf_counter()
+        finished.extend(eng.step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        dec_tok += rows
+    wall = time.perf_counter() - t_start
+    counts = ops.launch_counts()
+    prof = eng.latency_profile()
+    check(len(finished) == len(reqs), "not every request finished")
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
+          "a request finished with the wrong token count")
+    _check_slot_launches(counts, eng.cfg, eng.admissions, eng.decode_steps, "hybrid")
+    return {
+        "requests": len(reqs), "finished": len(finished),
+        "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "new_tokens": sum(len(r.out_tokens) for r in finished),
+        "admissions": eng.admissions, "decode_steps": eng.decode_steps,
+        "launches": counts, "wall_s": wall,
+        "prefill_tok_s": sum(len(r.prompt) for r in reqs) / pre_s,
+        "decode_tok_s": dec_tok / (sum(step_ms) / 1e3),
+        "p50_step_ms": statistics.median(step_ms),
+        "l_b_ms": ({int(b): float(v) * 1e3 for b, v in
+                    zip(prof.batch_sizes, prof.latency)} if prof else {}),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def phase_hybrid(dev) -> dict:
+    """The 5-layer full-width Jamba-1.5-Large in bf16 (66.2 GB) through
+    ``LLMEngine.admit``/``step``, a profiled decode window, then LLMSched
+    over one hybrid slot replica."""
+    from repro_torch.models import decode_step, init_params, layer_kind, prefill
+    from repro_torch.serving import LLMEngine, Request, ServeConfig, build_engines
+
+    cfg = _hybrid_cfg()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    rng = np.random.default_rng(12)
+    lens = rng.integers(128, 513, size=4)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+    # the logits are finite and of the vocabulary's width
+    toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+    lg, cache = prefill(params, cfg, toks, max_len=1024)
+    lg2, _ = decode_step(params, cfg, cache, lg.argmax(-1))
+    check(lg.shape == lg2.shape == (1, cfg.vocab) and bool(torch.isfinite(lg).all())
+          and bool(torch.isfinite(lg2).all()), "hybrid: logits not finite")
+    del cache
+    eng = LLMEngine(cfg, max_batch=4, max_len=1024, params=params, device=dev)
+    run = _serve_slot(eng, [Request(rid=i, prompt=p, max_new_tokens=16)
+                            for i, p in enumerate(prompts)])
+    run.update(model=f"{cfg.name}, published widths, first {cfg.n_layers} layers, bf16",
+               layer_kinds=[layer_kind(cfg, i) for i in range(cfg.n_layers)],
+               weights_gb=weights_gb, init_s=init_s)
+    emit("hybrid", **run)
+    del eng
+    prof = _profile_decode(
+        LLMEngine(cfg, max_batch=4, max_len=1024, params=params, device=dev),
+        [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=386).tolist(),
+                 max_new_tokens=64) for i in range(4)])
+    emit("profile", model=cfg.name, **prof)
+    slot_cfg = ServeConfig(engine="slot", replicas=1, max_len=1024, **TESTBED_COMMON)
+    engines = build_engines(cfg, slot_cfg, params=params, device=dev)
+    tb = _testbed_run("llmsched", _profile_store(), engines, slot_cfg, jobs=HYBRID_JOBS)
+    emit("testbed", **tb)
+    return {"launches": run["launches"], "run": run, "profile": prof, "testbed": tb}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def main(argv=None) -> int:
@@ -1048,14 +1395,23 @@ def main(argv=None) -> int:
         eng = phase_engine(dev, get_config("stablelm_1_6b"))
     if "testbed" in phases:
         tb = phase_testbed(dev, get_config("stablelm_1_6b"))
-    if kern is not None and eng is not None and tb is not None:
+    if "held_hybrid" in phases:
+        _free_card()
+        phase_held_hybrid(dev)
+    hyb = None
+    if "hybrid" in phases:
+        _free_card()     # the 66 GB model must not stack on earlier phases'
+        hyb = phase_hybrid(dev)
+    if kern is not None and eng is not None and tb is not None and hyb is not None:
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot
-        # kernels' from the testbed's LLMSched slot run
+        # kernels' from the testbed's LLMSched slot run, the scan's from the
+        # hybrid phase's LLMEngine run
         launches = dict(eng["launches"])
         launches.update({k: tb["llmsched"]["launches"][k]
                          for k in ("flash_attention", "decode_attention")})
         launches.update({k: eng["launches_int8"][k] for k in PAGED_KERNELS["int8"][:2]})
+        launches["ssm_scan"] = hyb["launches"]["ssm_scan"]
         summary = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name],

@@ -25,6 +25,8 @@ import torch
 from .device import DeviceLike, resolve_device
 
 Tree = Dict[str, Any]
+#: leaves a model keeps in float32 in a tree of any dtype (Mamba's A_log)
+FLOAT32_LEAVES = frozenset({"A_log"})
 
 
 def tensor_from_numpy(arr, device: DeviceLike = None,
@@ -75,7 +77,9 @@ def params_from_numpy(tree: Tree, device: DeviceLike = None,
     device : str or torch.device, optional
         Target device; ``None`` means the CUDA device.
     dtype : torch.dtype, optional
-        Cast every leaf to this dtype (after the exact read).
+        Cast every leaf to this dtype (after the exact read), except the
+        leaves the models keep in float32 whatever their dtype
+        (:data:`FLOAT32_LEAVES`).
 
     Returns
     -------
@@ -85,7 +89,7 @@ def params_from_numpy(tree: Tree, device: DeviceLike = None,
     dev = resolve_device(device)
     return {
         k: params_from_numpy(v, dev, dtype) if isinstance(v, dict)
-        else tensor_from_numpy(v, dev, dtype)
+        else tensor_from_numpy(v, dev, torch.float32 if k in FLOAT32_LEAVES else dtype)
         for k, v in tree.items()
     }
 

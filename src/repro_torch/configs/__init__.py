@@ -3,7 +3,7 @@
 ``get_config(name)`` returns the exact published config;
 ``get_smoke_config(name)`` returns a same-family reduced config that runs
 on the CPU in seconds.  The values are copies of the JAX package's
-registry; the remaining eight architectures arrive with their model
+registry; the remaining seven architectures arrive with their model
 families.
 """
 
@@ -17,12 +17,14 @@ from ..models.config import ModelConfig, SHAPES, ShapeConfig, shape_applicable
 ARCH_IDS: List[str] = [
     "stablelm_1_6b",
     "internlm2_20b",
+    "jamba_1_5_large_398b",
 ]
 
 # CLI aliases (assignment spelling -> module name)
 ALIASES: Dict[str, str] = {
     "stablelm-1.6b": "stablelm_1_6b",
     "internlm2-20b": "internlm2_20b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

@@ -11,8 +11,8 @@ Each ported kernel has:
   tensors, plain version for CPU tensors).
 
 Kernels: paged decode attention and paged chunked-prefill attention (over
-fp or int8 pages), RMSNorm, slot-cache decode attention and flash
-attention.
+fp or int8 pages), RMSNorm, slot-cache decode attention, flash attention
+and the Mamba selective scan.
 """
 
 from . import ops, ref

@@ -54,6 +54,8 @@ SIGNATURES: Dict[str, List] = {
     "decode_attention_bf16": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
     "flash_attention_f32": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
     "flash_attention_bf16": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
+    "ssm_scan_f32": [P] * 9 + [I] * 4 + [L] * 12 + [P],
+    "ssm_scan_bf16": [P] * 9 + [I] * 4 + [L] * 12 + [P],
 }
 
 

@@ -29,6 +29,7 @@ from .paged_attention import paged_decode_attention_int8 as _pda8
 from .paged_attention import paged_prefill_attention as _ppa
 from .paged_attention import paged_prefill_attention_int8 as _ppa8
 from .rmsnorm import rmsnorm as _rn
+from .ssm_scan import ssm_scan as _ss
 
 IMPLS = ("ref", "cuda", "auto")
 #: the kernel wrappers, by the name their launch counts are reported under
@@ -40,6 +41,7 @@ KERNELS = {
     "flash_attention": _fa,
     "paged_decode_attention_int8": _pda8,
     "paged_prefill_attention_int8": _ppa8,
+    "ssm_scan": _ss,
 }
 
 
@@ -178,3 +180,19 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
     if _use_kernel(impl, x):
         return _rn(x, gamma, eps=eps)
     return _ref.rmsnorm_ref(x, gamma, eps=eps)
+
+
+def ssm_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba selective scan; returns ``(y, h_T)`` (see ``ref.ssm_scan_ref``)."""
+    if _use_kernel(impl, x):
+        return _ss(x, dt, A, Bm, Cm, D, h0=h0)
+    return _ref.ssm_scan_ref(x, dt, A, Bm, Cm, D, h0=h0)

@@ -194,3 +194,36 @@ def rmsnorm_ref(
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective scan (SSM):  h_t = dA_t * h_{t-1} + dB_t x_t ;  y = C_t . h
+# ---------------------------------------------------------------------------
+def ssm_scan_ref(
+    x: torch.Tensor,            # (B, T, D)  post-conv activations
+    dt: torch.Tensor,           # (B, T, D)  softplus'd step sizes
+    A: torch.Tensor,            # (D, N)     negative decay matrix
+    Bm: torch.Tensor,           # (B, T, N)  input matrix
+    Cm: torch.Tensor,           # (B, T, N)  output matrix
+    D: torch.Tensor,            # (D,)       skip
+    h0: Optional[torch.Tensor] = None,  # (B, D, N) initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, T, D) in x's dtype, h_T (B, D, N) float32).
+
+    float32 state math, one step of T at a time (JAX's ``lax.scan``).
+    """
+    Bsz, T, Dd = x.shape
+    N = A.shape[1]
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    Af = A.float()
+    h = (torch.zeros((Bsz, Dd, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(T):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])              # (B, D, N)
+        dBx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D.float()[None, None, :]
+    return y.to(x.dtype), h

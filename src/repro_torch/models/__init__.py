@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense family's slot and paged serving paths."""
+"""Model zoo of the port: the dense family's slot and paged serving paths, and
+the hybrid (Jamba) family's slot path."""
 
 from .config import (
     SHAPES,

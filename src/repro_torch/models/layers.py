@@ -33,6 +33,8 @@ from .config import ModelConfig
 
 Params = Dict[str, Any]
 Shape = Tuple[int, ...]
+#: most elements :meth:`Init.dense` draws at once (1 GiB of float32)
+WHOLE_DRAW = 1 << 28
 
 
 # ---------------------------------------------------------------------------
@@ -61,10 +63,21 @@ class Init:
             self.gen.manual_seed(seed)
 
     def dense(self, shape: Shape, fan_in: int) -> torch.Tensor:
+        """Normal with ``std = 1/sqrt(fan_in)``, drawn in float32 and cast.
+
+        A tensor of more than :data:`WHOLE_DRAW` elements is drawn in
+        slabs along its first axis, so the float32 temporary stays near
+        1 GiB (a full-width MoE expert stack would need 12.9 GB).
+        """
         std = 1.0 / math.sqrt(max(1, fan_in))
-        w = torch.randn(shape, generator=self.gen, device=self.device,
-                        dtype=torch.float32)
-        return (w * std).to(self.dtype)
+        rows = max(1, WHOLE_DRAW // math.prod(shape[1:]))
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for i in range(0, shape[0], rows):
+            n = min(rows, shape[0] - i)
+            w = torch.randn((n,) + tuple(shape[1:]), generator=self.gen,
+                            device=self.device, dtype=torch.float32)
+            out[i:i + n] = w * std
+        return out
 
     def ones(self, shape: Shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)

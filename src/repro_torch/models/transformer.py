@@ -1,22 +1,29 @@
-"""Decoder layout, weights and slot-cache forward passes of the dense family.
+"""Decoder layout, weights and slot-cache forward passes (dense and hybrid).
 
 From ``repro/models/transformer.py``: the layer-kind and superblock
 layout (``layer_kind``, ``superblock_len``, ``_scan_layout``),
-``init_params`` for the dense family, the attention + MLP layer in its
-full-sequence and decode forms (``_apply_layer_full``,
-``_apply_layer_decode``, ``_apply_ffn``), ``forward``, and the slot
-engine's cache functions ``init_cache``, ``prefill`` and
-``decode_step``.  Parameters and caches form the same trees as the JAX
-package's: ``embedding``, ``lm_head``, ``final_norm`` and
-``blocks[str(j)]`` with every leaf stacked over superblocks on axis 0.
-With ``kv_cache_dtype="int8"`` the slot cache holds int8 K/V and float32
-scales ``k_s``/``v_s`` ``(n_sb, B, max_len, K)``, as in the JAX package.
+``init_params``, the layer in its full-sequence and decode forms
+(``_apply_layer_full``, ``_apply_layer_decode``, ``_apply_ffn``),
+``forward``, and the slot engine's cache functions ``init_cache``,
+``prefill`` and ``decode_step``.  A layer's mixer is GQA attention or
+Mamba (:mod:`.ssm`), its FFN a gated MLP or a mixture of experts
+(:mod:`.moe`): the dense family and the hybrid (Jamba) family.
+
+Parameters and caches form the same trees as the JAX package's:
+``embedding``, ``lm_head``, ``final_norm``, unstacked prefix layers
+``prefix_{i}`` (every layer, when the pattern does not tile the depth)
+and ``blocks[str(j)]`` with every leaf stacked over superblocks on axis
+0.  An attention layer's slot cache is ``{"k", "v"}`` ``(B, max_len, K,
+hd)`` (int8 K/V beside float32 scales ``k_s``/``v_s`` with
+``kv_cache_dtype="int8"``), a Mamba layer's ``{"conv", "ssm"}``; in
+``blocks`` each gains a leading superblock axis.
 
 In PyTorch's idiom, the ``lax.scan`` over superblocks is a Python loop
-over per-layer views, and ``decode_step`` writes the new K/V into the
-cache **in place** (it still returns the cache, with ``lengths`` a new
-tensor).  The other families and mixers (MLA, Mamba, xLSTM, cross
-attention) are not ported yet and raise ``NotImplementedError``.
+over per-layer views, and ``decode_step`` writes the new K/V and Mamba
+states into the cache **in place** (it still returns the cache, with
+``lengths`` a new tensor).  The other mixers (MLA, cross attention,
+mLSTM, sLSTM) and the encoder are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -90,25 +99,52 @@ def _scan_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+MIXERS = ("attn", "mamba")
+FFNS = ("mlp", "moe", "none")
+
+
+def _check_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """The scan layout of a config whose every layer the port runs.
+
+    Every entry point calls this first, so the layer functions below may
+    assume attention or Mamba mixers and MLP or MoE FFNs (without shared
+    experts or leading dense layers).
+    """
+    if cfg.encoder is not None or cfg.family == "audio":
+        raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
+    if cfg.moe is not None and cfg.moe.n_shared:
+        raise NotImplementedError(f"shared experts {NOT_PORTED}")
+    for i in range(cfg.n_layers):
+        mixer, ffn = layer_kind(cfg, i).split("+")
+        if mixer not in MIXERS or ffn not in FFNS:
+            raise NotImplementedError(f"layer kind {layer_kind(cfg, i)!r} {NOT_PORTED}")
+    return _scan_layout(cfg)
+
+
 def _init_layer(init: L.Init, cfg: ModelConfig, kind: str, lead: Tuple[int, ...]) -> Params:
     mixer, ffn = kind.split("+")
-    if mixer != "attn" or ffn not in ("mlp", "none"):
-        raise NotImplementedError(f"layer kind {kind!r} {NOT_PORTED}")
-    p: Params = {"norm1": L.init_rmsnorm(init, cfg.d_model, lead),
-                 "attn": L.init_attention(init, cfg, lead)}
-    if ffn == "mlp":
+    p: Params = {"norm1": L.init_rmsnorm(init, cfg.d_model, lead)}
+    if mixer == "attn":
+        p["attn"] = L.init_attention(init, cfg, lead)
+    else:
+        p["mamba"] = S.init_mamba(init, cfg, lead)
+    if ffn != "none":
         p["norm2"] = L.init_rmsnorm(init, cfg.d_model, lead)
+    if ffn == "mlp":
         p["mlp"] = L.init_mlp(init, cfg.d_model, cfg.d_ff, lead)
+    elif ffn == "moe":
+        p["moe"] = M.init_moe(init, cfg, lead)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Params:
-    """Random weights of a dense decoder, drawn on ``device``.
+    """Random weights of a dense or hybrid decoder, drawn on ``device``.
 
     Parameters
     ----------
     cfg : ModelConfig
-        A ``family="dense"`` config.
+        A config whose layers are attention or Mamba mixers with MLP or
+        MoE FFNs.
     seed : int
         Seed of the ``torch.Generator`` the weights are drawn from.
     device : str or torch.device, optional
@@ -121,18 +157,17 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
         The parameter tree (the JAX package also returns sharding specs;
         the port has none yet).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
+    n_prefix, pat, n_sb = _check_layers(cfg)
     init = L.Init(seed, cfg.tdtype, resolve_device(device))
     params: Params = L.init_embed(init, cfg)
     params["final_norm"] = L.init_rmsnorm(init, cfg.d_model)
-    n_prefix, pat, n_sb = _scan_layout(cfg)
-    if n_prefix or n_sb == 0:
-        raise NotImplementedError("unstacked prefix layers are not ported yet")
-    params["blocks"] = {
-        str(j): _init_layer(init, cfg, layer_kind(cfg, j), (n_sb,))
-        for j in range(pat)
-    }
+    for i in range(n_prefix):
+        params[f"prefix_{i}"] = _init_layer(init, cfg, layer_kind(cfg, i), ())
+    if n_sb > 0:
+        params["blocks"] = {
+            str(j): _init_layer(init, cfg, layer_kind(cfg, n_prefix + j), (n_sb,))
+            for j in range(pat)
+        }
     return params
 
 
@@ -145,9 +180,9 @@ def _apply_ffn(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor) -> torch
     _, ffn = kind.split("+")
     if ffn == "none":
         return x
-    if ffn not in ("mlp", "dense_mlp"):
-        raise NotImplementedError(f"ffn {ffn!r} is not ported yet")
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if ffn == "moe":
+        return x + M.moe_block(p["moe"], cfg, h)
     return x + L.mlp(p["mlp"], h)
 
 
@@ -159,22 +194,21 @@ def _layer_views(tree: Dict[str, Any], s: int) -> Dict[str, Any]:
     }
 
 
-def _check_slot_path(cfg: ModelConfig) -> Tuple[int, int]:
-    """(pattern length, superblocks) of a config the slot path supports.
+def _layers(params: Params, cfg: ModelConfig, cache: Optional[Dict[str, Any]] = None):
+    """Every layer in order: ``(name, kind, weights, cache)``.
 
-    Every slot-path entry point calls this first, so the layer functions
-    below may assume dense attention layers.
+    ``name`` is ``prefix_{i}`` or ``blocks/{j}`` and the weights and
+    cache are the layer's own (views into the stacked trees).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
     n_prefix, pat, n_sb = _scan_layout(cfg)
-    if n_prefix or n_sb == 0:
-        raise NotImplementedError("unstacked prefix layers are not ported yet")
-    for j in range(pat):
-        kind = layer_kind(cfg, j)
-        if kind.split("+")[0] != "attn":
-            raise NotImplementedError(f"layer kind {kind!r} {NOT_PORTED}")
-    return pat, n_sb
+    for i in range(n_prefix):
+        key = f"prefix_{i}"
+        yield key, layer_kind(cfg, i), params[key], None if cache is None else cache[key]
+    kinds = [layer_kind(cfg, n_prefix + j) for j in range(pat)]
+    for s in range(n_sb):
+        for j in range(pat):
+            c = None if cache is None else _layer_views(cache["blocks"][str(j)], s)
+            yield (f"blocks/{j}", kinds[j], _layer_views(params["blocks"][str(j)], s), c)
 
 
 def _apply_layer_full(
@@ -185,11 +219,16 @@ def _apply_layer_full(
     positions: torch.Tensor,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence attention + FFN layer; returns (x, {"k", "v"})."""
+    """Full-sequence layer; returns (x, cache contribution): ``{"k", "v"}``
+    of an attention layer, the final ``{"conv", "ssm"}`` of a Mamba one."""
+    mixer, _ = kind.split("+")
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, kv = L.attention_full(p["attn"], cfg, h, positions, causal=causal)
+    if mixer == "attn":
+        out, cache = L.attention_full(p["attn"], cfg, h, positions, causal=causal)
+    else:
+        out, cache = S.mamba_full(p["mamba"], cfg, h)
     x = _apply_ffn(p, cfg, kind, x + out)
-    return x, kv
+    return x, cache
 
 
 def _apply_layer_decode(
@@ -200,16 +239,21 @@ def _apply_layer_decode(
     cache: Dict[str, torch.Tensor],
     lengths: torch.Tensor,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token attention + FFN layer over a slot cache (written in place)."""
+    """One-token layer over its slot cache, which is written in place."""
+    mixer, _ = kind.split("+")
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if cfg.kv_cache_dtype == "int8":
-        out, new_cache = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
+    if mixer == "mamba":
+        out, st = S.mamba_decode(p["mamba"], cfg, h, cache)
+        cache["conv"].copy_(st["conv"])
+        cache["ssm"].copy_(st["ssm"])
+    elif cfg.kv_cache_dtype == "int8":
+        out, cache = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
     else:
         out, ck, cv = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"],
                                          lengths)
-        new_cache = {"k": ck, "v": cv}
+        cache = {"k": ck, "v": cv}
     x = _apply_ffn(p, cfg, kind, x + out)
-    return x, new_cache
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -223,33 +267,37 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits (B, S, V), cache or None).
 
-    With ``collect_cache`` the cache is ``{"blocks": {j: {"k", "v"}}}``,
-    each ``(n_sb, B, S, K, hd)``: the K/V of every layer, stacked over
-    superblocks as the JAX scan stacks them.
+    With ``collect_cache`` the cache holds each layer's contribution:
+    ``prefix_{i}`` as it is, and ``blocks[j]`` stacked over superblocks
+    as the JAX scan stacks them (K/V ``(n_sb, B, S, K, hd)``, Mamba
+    states ``(n_sb, B, ...)``).
     """
-    pat, n_sb = _check_slot_path(cfg)
+    _check_layers(cfg)
     B, Sq = tokens.shape
     x = L.embed(params, tokens).to(cfg.tdtype)
     positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
-    kinds = [layer_kind(cfg, j) for j in range(pat)]
-    kvs: Dict[str, Dict[str, list]] = {str(j): {"k": [], "v": []} for j in range(pat)}
-    for s in range(n_sb):
-        for j in range(pat):
-            p = _layer_views(params["blocks"][str(j)], s)
-            x, kv = _apply_layer_full(p, cfg, kinds[j], x, positions)
-            if collect_cache:
-                kvs[str(j)]["k"].append(kv["k"])
-                kvs[str(j)]["v"].append(kv["v"])
+    caches: Dict[str, Any] = {}
+    stacked: Dict[str, list] = {}
+    for name, kind, p, _ in _layers(params, cfg):
+        x, c = _apply_layer_full(p, cfg, kind, x, positions)
+        if not collect_cache:
+            continue
+        if name.startswith("prefix_"):
+            caches[name] = c
+        else:
+            stacked.setdefault(name.split("/")[1], []).append(c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params, x, cfg.tie_embeddings)
     if not collect_cache:
         return logits, None
-    blocks = {j: {n: torch.stack(c[n]) for n in ("k", "v")} for j, c in kvs.items()}
-    return logits, {"blocks": blocks}
+    if stacked:
+        caches["blocks"] = {j: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+                            for j, cs in stacked.items()}
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
-# slot KV cache: allocation, prefill, decode
+# slot caches: allocation, prefill, decode
 # ---------------------------------------------------------------------------
 def init_cache(
     cfg: ModelConfig,
@@ -257,19 +305,23 @@ def init_cache(
     max_len: int,
     device: DeviceLike = None,
 ) -> Dict[str, Any]:
-    """Empty slot caches: ``{"lengths": (B,) int32, "blocks": {j: {"k", "v"}}}``.
+    """Empty slot caches: ``{"lengths": (B,) int32, "prefix_{i}": ...,
+    "blocks": {j: ...}}``, on ``device`` (``None`` means the CUDA device).
 
-    Each ``k``/``v`` is ``(n_sb, B, max_len, K, hd)`` in the model's
-    compute dtype, zero-filled, on ``device`` (``None`` means the CUDA
-    device).  With ``kv_cache_dtype="int8"`` they are int8 zeros, beside
-    float32 scales ``k_s``/``v_s`` ``(n_sb, B, max_len, K)`` that start
-    at **zero** (the paged pools' scales start at one).
+    An attention layer's ``k``/``v`` are ``(B, max_len, K, hd)`` zeros in
+    the model's compute dtype, or int8 zeros beside float32 scales
+    ``k_s``/``v_s`` ``(B, max_len, K)`` that start at **zero** (the paged
+    pools' scales start at one) with ``kv_cache_dtype="int8"``.  A Mamba
+    layer's state is zeros (:func:`repro_torch.models.ssm.mamba_init_state`).
+    Leaves under ``blocks`` gain a leading superblock axis.
     """
-    pat, n_sb = _check_slot_path(cfg)
+    n_prefix, pat, n_sb = _check_layers(cfg)
     dev = resolve_device(device)
-    shape = (n_sb, batch, max_len, cfg.n_kv_heads, cfg.hd)
 
-    def attn_cache() -> Dict[str, torch.Tensor]:
+    def layer_cache(kind: str, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+        if kind.startswith("mamba"):
+            return S.mamba_init_state(cfg, batch, cfg.tdtype, dev, lead)
+        shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.hd)
         if cfg.kv_cache_dtype == "int8":
             return {
                 "k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -280,10 +332,32 @@ def init_cache(
         return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
                 "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
 
-    return {
-        "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "blocks": {str(j): attn_cache() for j in range(pat)},
-    }
+    cache: Dict[str, Any] = {"lengths": torch.zeros((batch,), dtype=torch.int32,
+                                                    device=dev)}
+    for i in range(n_prefix):
+        cache[f"prefix_{i}"] = layer_cache(layer_kind(cfg, i), ())
+    if n_sb > 0:
+        cache["blocks"] = {str(j): layer_cache(layer_kind(cfg, n_prefix + j), (n_sb,))
+                           for j in range(pat)}
+    return cache
+
+
+def _place(cfg: ModelConfig, dst: Dict[str, torch.Tensor],
+           src: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A prefill contribution in a fresh layer cache: the prompt's K/V in
+    its first positions (quantized on an int8 cache, JAX's
+    ``place_attn_q8``), or a Mamba layer's final state in place of the
+    initial one."""
+    if "k" not in src:
+        return src
+    Sq = src["k"].shape[-3]
+    for name in ("k", "v"):
+        kv = src[name]
+        if cfg.kv_cache_dtype == "int8":
+            kv, sc = ops.quantize_kv(kv)
+            dst[name + "_s"].narrow(-2, 0, Sq).copy_(sc)
+        dst[name].narrow(-3, 0, Sq).copy_(kv)
+    return dst
 
 
 def prefill(
@@ -292,23 +366,17 @@ def prefill(
     tokens: torch.Tensor,                    # (B, S) int
     max_len: int,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt, build the decode cache.  Returns (last_logits, cache).
-
-    On an int8 cache the prompt's K/V are quantized as they are placed
-    (JAX's ``place_attn_q8``).
-    """
+    """Run the prompt, build the decode cache.  Returns (last_logits, cache)."""
     B, Sq = tokens.shape
     logits, run_cache = forward(params, cfg, tokens, collect_cache=True)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     cache["lengths"].fill_(Sq)
-    for j, blk in run_cache["blocks"].items():
-        dst = cache["blocks"][j]
-        for name in ("k", "v"):
-            src = blk[name]
-            if cfg.kv_cache_dtype == "int8":
-                src, sc = ops.quantize_kv(src)
-                dst[name + "_s"][:, :, :Sq] = sc
-            dst[name][:, :, :Sq] = src.to(dst[name].dtype)
+    for key, c in run_cache.items():
+        if key == "blocks":
+            for j, blk in c.items():
+                cache["blocks"][j] = _place(cfg, cache["blocks"][j], blk)
+        else:
+            cache[key] = _place(cfg, cache[key], c)
     return logits[:, -1], cache
 
 
@@ -320,20 +388,16 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step for the whole batch; returns (logits (B, V), cache).
 
-    The K/V caches are written in place; the returned dict is ``cache``
-    with ``lengths`` replaced by ``lengths + 1``.
+    The K/V caches and Mamba states are written in place; the returned
+    dict is ``cache`` with ``lengths`` replaced by ``lengths + 1``.
     """
-    pat, n_sb = _check_slot_path(cfg)
+    _check_layers(cfg)
     if tokens.dim() == 1:
         tokens = tokens[:, None]
     lengths = cache["lengths"]
     x = L.embed(params, tokens).to(cfg.tdtype)
-    kinds = [layer_kind(cfg, j) for j in range(pat)]
-    for s in range(n_sb):
-        for j in range(pat):
-            p = _layer_views(params["blocks"][str(j)], s)
-            c = _layer_views(cache["blocks"][str(j)], s)
-            x, _ = _apply_layer_decode(p, cfg, kinds[j], x, c, lengths)
+    for _, kind, p, c in _layers(params, cfg, cache):
+        x, _ = _apply_layer_decode(p, cfg, kind, x, c, lengths)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params, x, cfg.tie_embeddings)
     cache["lengths"] = lengths + 1

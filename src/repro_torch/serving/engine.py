@@ -15,8 +15,9 @@ Eq. 2, and the slot engine :class:`LLMEngine`:
 The host logic is the JAX engine's, line for line.  The model runs
 eagerly on ``device`` (the CUDA device unless the caller passes
 ``device="cpu"``): prefill through the flash-attention kernel, decode
-through the slot decode-attention kernel, and the caches are written in
-place.
+through the slot decode-attention kernel, Mamba layers (the hybrid
+family) through the selective-scan kernel in both, and the caches and
+Mamba states are written in place.
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ class LLMEngine(LatencyProfileMixin):
     Parameters
     ----------
     cfg : ModelConfig
-        A dense-family model config.
+        A dense- or hybrid-family model config.
     max_batch : int, optional
         Slots: the most requests held at once.
     max_len : int, optional
@@ -199,13 +200,23 @@ class LLMEngine(LatencyProfileMixin):
     def _merge_slot(self, slot: int, req_cache: Dict[str, Any], plen: int) -> None:
         """Copy a single-request prefill cache into the engine's slot.
 
-        Every leaf of the dense cache is ``(n_sb, B, ...)``, so the slot
-        is axis 1; the whole slot row is replaced, which leaves zeros
-        past the prompt.
+        A leaf under ``blocks`` is ``(n_sb, B, ...)`` (the slot is axis
+        1), a ``prefix_{i}`` leaf ``(B, ...)`` (axis 0), as the JAX
+        engine's ``merge_by_path`` reads them.  The whole slot row is
+        replaced: the K/V past the prompt become zeros and a Mamba
+        layer's state becomes the prompt's, whatever the slot's previous
+        request (or the decode steps run over the free slot) left there.
         """
-        for j, blk in req_cache["blocks"].items():
-            for name, src in blk.items():
-                self.cache["blocks"][j][name][:, slot] = src[:, 0]
+        def merge(dst: Dict[str, Any], src: Dict[str, Any], axis: int) -> None:
+            for name, s in src.items():
+                if isinstance(s, dict):
+                    merge(dst[name], s, axis)
+                else:
+                    dst[name].select(axis, slot).copy_(s.select(axis, 0))
+
+        for key, sub in req_cache.items():
+            if key != "lengths":
+                merge(self.cache[key], sub, 1 if key == "blocks" else 0)
         self.cache["lengths"][slot] = plen
         self._lengths[slot] = plen
 

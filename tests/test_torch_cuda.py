@@ -26,7 +26,9 @@ from repro_torch.kernels.paged_attention import (
     paged_prefill_attention,
     paged_prefill_attention_int8,
 )
+from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import init_params
 from repro_torch.serving import LLMEngine, PagedLLMEngine, Request
 
@@ -37,6 +39,14 @@ DTYPES = [torch.float32, torch.bfloat16]
 WIDTHS = [(4, 4, 16, 8), (6, 2, 16, 8), (32, 32, 64, 16), (48, 8, 128, 16)]
 # (H, K, hd, hd_v) of the slot kernels: stablelm-1.6b, internlm2-20b, MLA
 SLOT_WIDTHS = [(32, 32, 64, 64), (48, 8, 128, 128), (16, 16, 192, 128)]
+# the selective scan against its plain version: f32 state math in both, in
+# another summation order over N and with expf's last bit, compounding over
+# T (tests/test_kernels.py's 2e-4); bf16 adds one rounding of y
+SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# (B, T, D, N): Jamba-1.5-Large decode at B = 4 and prefill of 17 and 512
+# tokens (D = 16384, N = 16), the smoke config's widths, ragged T and D
+SSM_SHAPES = [(4, 1, 16384, 16), (1, 17, 16384, 16), (1, 512, 16384, 16),
+              (2, 13, 128, 8), (3, 37, 100, 16)]
 
 
 @pytest.fixture
@@ -458,3 +468,114 @@ def test_int8_prefix_cache_copy_on_write_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert runs["cpu"] == runs[str(dev)]
     assert runs["cpu"][1] > 0 and runs["cpu"][2] > 0
+
+
+def _scan_inputs(rng, B, T, D, N, dtype, dev):
+    """tests/test_kernels.py's value ranges; A and h0 float32."""
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+    return (t(rng.normal(size=(B, T, D)) * 0.5), t(np.abs(rng.normal(size=(B, T, D))) * 0.1),
+            t(-(np.abs(rng.normal(size=(D, N))) + 0.1), torch.float32),
+            t(rng.normal(size=(B, T, N)) * 0.3), t(rng.normal(size=(B, T, N)) * 0.3),
+            t(rng.normal(size=(D,))), t(rng.normal(size=(B, D, N)) * 0.2, torch.float32))
+
+
+def _ssm_close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), atol=SSM_TOL[dtype],
+                               rtol=SSM_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("B,T,D,N", SSM_SHAPES)
+def test_ssm_scan_kernel_matches_plain(dev, B, T, D, N, with_h0, dtype):
+    rng = np.random.default_rng(60)
+    x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(rng, B, T, D, N, dtype, dev)
+    h0 = h0 if with_h0 else None
+    before = ssm_scan.launches
+    y, h = ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)
+    assert ssm_scan.launches == before + 1
+    assert y.shape == (B, T, D) and y.dtype == dtype
+    assert h.shape == (B, D, N) and h.dtype == torch.float32
+    yr, hr = R.ssm_scan_ref(x, dt, A, Bm, Cm, Dk, h0=h0)
+    _ssm_close(y, yr, dtype)
+    _ssm_close(h, hr, torch.float32 if dtype == torch.float32 else dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssm_scan_kernel_reads_strided_views_and_carries_state(dev, dtype):
+    """B and C as column slices of one projection (the Mamba layer's
+    layout) give the contiguous result, and two halves with the state
+    carried give the whole."""
+    rng = np.random.default_rng(61)
+    B, T, D, N, r = 2, 70, 300, 16, 24
+    x, dt, A, _, _, Dk, _ = _scan_inputs(rng, B, T, D, N, dtype, dev)
+    proj = torch.from_numpy(rng.normal(size=(B, T, r + 2 * N)).astype(np.float32) * 0.3)
+    proj = proj.to(dev, dtype)
+    Bm, Cm = proj[..., r:r + N], proj[..., r + N:]
+    xt = x.transpose(0, 1).contiguous().transpose(0, 1)     # strided x as well
+    assert not Bm.is_contiguous() and not xt.is_contiguous()
+    y, h = ssm_scan(xt, dt, A, Bm, Cm, Dk)
+    y2, h2 = ssm_scan(x, dt, A, Bm.contiguous(), Cm.contiguous(), Dk)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    ya, ha = ssm_scan(x[:, :33], dt[:, :33], A, Bm[:, :33], Cm[:, :33], Dk)
+    yb, hb = ssm_scan(x[:, 33:], dt[:, 33:], A, Bm[:, 33:], Cm[:, 33:], Dk, h0=ha)
+    assert torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(hb, h)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 4, 8, device=dev)
+    Bm, D = torch.zeros(1, 4, 17, device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="N <= 16"):
+        ssm_scan(x, x, torch.zeros(8, 17, device=dev), Bm, Bm, D)
+    with pytest.raises(ValueError, match="float32 A"):
+        ssm_scan(x, x, torch.zeros(8, 4, device=dev, dtype=torch.bfloat16),
+                 Bm[..., :4], Bm[..., :4], D)
+    with pytest.raises(ValueError, match="one dtype"):
+        ssm_scan(x, x.bfloat16(), torch.zeros(8, 4, device=dev), Bm[..., :4], Bm[..., :4], D)
+    # a launch the kernel refuses (N past its registers) raises, never runs
+    y, h = torch.empty_like(x), torch.empty(1, 8, 17, device=dev)
+    A = torch.zeros(8, 17, device=dev)
+    code = _build.library().ssm_scan_f32(
+        x.data_ptr(), x.data_ptr(), A.data_ptr(), Bm.data_ptr(), Bm.data_ptr(),
+        D.data_ptr(), None, y.data_ptr(), h.data_ptr(), 1, 4, 8, 17, *x.stride(),
+        *x.stride(), *Bm.stride(), *Bm.stride(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    with pytest.raises(_build.KernelError, match="ssm_scan_f32"):
+        _build.check(code, "ssm_scan_f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers", [8, 5])
+def test_hybrid_engine_on_card_matches_cpu_tokens(dev, n_layers):
+    """float32 jamba-smoke (stacked and prefix layouts): the slot engine on
+    the card and on the CPU give the same greedy tokens, with mid-stream
+    slot re-use, and each Mamba layer launches the scan once per
+    admission and decode step."""
+    cfg = get_smoke_config("jamba_1_5_large_398b").with_(dtype="float32",
+                                                         n_layers=n_layers)
+    params = init_params(cfg, seed=3, device="cpu")
+    prompts = [[1, 2, 3], list(range(4, 30)), [7] * 9, list(range(40, 57)), [5, 6]]
+    outs = {}
+    for d in ("cpu", dev):
+        ops.reset_launch_counts()
+        eng = LLMEngine(cfg, max_batch=2, max_len=64, params=params, device=d)
+        out, pending = {}, list(enumerate(prompts))
+        while pending or eng.batch_size:
+            while pending and eng.can_admit():
+                i, p = pending.pop(0)
+                assert eng.admit(Request(
+                    rid=i, prompt=p, max_new_tokens=6 + i,
+                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens))))
+            eng.step()
+        outs[str(d)] = out
+    torch.cuda.synchronize()
+    assert outs["cpu"] == outs[str(dev)]
+    counts = ops.launch_counts()
+    n_mamba = sum(1 for i in range(n_layers) if not cfg.is_attn_layer(i))
+    assert counts["ssm_scan"] == n_mamba * (eng.admissions + eng.decode_steps)
+    assert counts["flash_attention"] == (n_layers - n_mamba) * eng.admissions
+    assert counts["decode_attention"] == (n_layers - n_mamba) * eng.decode_steps

@@ -18,7 +18,8 @@ REQUIRED = (
     "core/scheduler.py", "core/profiler.py", "core/baselines.py",
     "sim/simulator.py", "sim/workloads.py", "launch/serve.py",
     "models/zoo.py", "serving/cluster.py", "kernels/flash_attention.py",
-    "kernels/decode_attention.py",
+    "kernels/decode_attention.py", "kernels/ssm_scan.py", "models/ssm.py",
+    "models/moe.py", "configs/jamba_1_5_large_398b.py",
 )
 
 

@@ -46,7 +46,7 @@ from repro.serving import LLMEngine as JaxSlotEngine
 from repro.serving import PagedLLMEngine as JaxEngine
 from repro.serving import Request as JaxRequest
 from repro_torch.analysis.kvsan import KVSanError, KVSanitizer
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import params_from_numpy, tensor_from_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as TR
@@ -251,13 +251,18 @@ def pair(request):
     return jcfg, tcfg, jparams, tparams
 
 
-def _assert_int8_pools_match(jpools, tpools):
+def _assert_int8_pools_match(jpools, tpools, only=None):
     """Payloads equal, except where the frameworks' float32 K/V straddle a
-    rounding boundary (then one step apart); scales within f32 rounding."""
+    rounding boundary (then one step apart); scales within f32 rounding.
+    ``only=(j, s)`` compares superblock ``s`` of pattern position ``j`` alone."""
     steps = 0
     for j, pool in jpools["blocks"].items():
+        if only is not None and j != only[0]:
+            continue
         for name, arr in pool.items():
             got, want = tpools["blocks"][j][name].numpy(), np.asarray(arr)
+            if only is not None:
+                got, want = got[only[1]], want[only[1]]
             assert got.dtype == want.dtype
             if name in ("k", "v"):
                 diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
@@ -268,7 +273,66 @@ def _assert_int8_pools_match(jpools, tpools):
     assert steps <= 2, f"{steps} int8 entries one step apart"
 
 
-def test_int8_paged_model_matches_jax(pair):
+def _load_from_jax(ttree, jtree):
+    """Overwrite the port's pools or slot cache with JAX's, in place (bridged)."""
+    for j, blk in jtree["blocks"].items():
+        for name, arr in blk.items():
+            ttree["blocks"][j][name].copy_(tensor_from_numpy(arr, "cpu"))
+    if "lengths" in jtree:
+        ttree["lengths"].copy_(tensor_from_numpy(jtree["lengths"], "cpu"))
+
+
+def _jax_writes(jtree, rows):
+    """The int8 K/V and scales JAX's call wrote, in the order the port's call
+    quantizes them (layer by layer, K then V).  ``rows(arr)`` picks the
+    written entries of one layer's ``(..., K[, hd])`` array."""
+    blocks = [{n: np.asarray(a) for n, a in blk.items()}
+              for _, blk in sorted(jtree["blocks"].items(), key=lambda kv: int(kv[0]))]
+    n_sb = blocks[0]["k"].shape[0]
+    return [(tensor_from_numpy(rows(blk[n][s]), "cpu"),
+             tensor_from_numpy(rows(blk[n + "_s"][s]), "cpu"))
+            for s in range(n_sb) for blk in blocks for n in ("k", "v")]
+
+
+def _held_on_jax_inputs(monkeypatch, port_call, jax_before, jax_after, tstate, rows):
+    """Run one int8 model call of the port from JAX's state before it.
+
+    The frameworks' float32 K/V differ in the last bits, so at a rounding
+    boundary one int8 entry quantizes a step apart; that step moves the
+    layers above it and the logits by up to ~1e-3.  So the call runs once
+    for each layer, writing JAX's quantized K/V in the layers below it and
+    its own from it up, and that layer's own write is held against JAX's
+    (one step at most, scales within f32 rounding) on identical inputs.
+    A last run writes JAX's K/V in every layer; its logits, returned, can
+    be held against JAX's at ``MODEL_TOL``.
+    """
+    writes = _jax_writes(jax_after, rows)
+    pat = len(jax_after["blocks"])
+    quantize = ops.quantize_kv
+    for layer in range(len(writes) // 2 + 1):
+        _load_from_jax(tstate, jax_before)
+        feed, own = iter(writes[:2 * layer]), []
+
+        def fake(x, feed=feed, own=own):
+            w = next(feed, None)
+            if w is None:
+                own.append(x)
+                return quantize(x)
+            return w
+
+        with monkeypatch.context() as m:
+            m.setattr(ops, "quantize_kv", fake)
+            logits, tstate = port_call(tstate)
+        assert len(own) == len(writes) - 2 * layer
+        if layer < len(writes) // 2:
+            sb, j = divmod(layer, pat)
+            _assert_int8_pools_match(jax_after, tstate, only=(str(j), sb))
+    return logits, tstate
+
+
+def test_int8_paged_model_matches_jax(pair, monkeypatch):
+    """Each chunk and decode step held on JAX's pools (see
+    ``_held_on_jax_inputs``); the last pools within one int8 step."""
     jcfg, tcfg, jparams, tparams = pair
     ps, P, npp = 8, 16, 6
     rng = np.random.default_rng(45)
@@ -276,23 +340,35 @@ def test_int8_paged_model_matches_jax(pair):
     tpools = TP.init_paged_pools(tcfg, P, ps, kv_dtype="int8", device="cpu")
     prompt = rng.integers(0, tcfg.vocab, size=21).astype(np.int32)
     bt0 = np.array([3, 9, 4, 12, 0, 0], np.int32)
+
+    def slots(flat):
+        return lambda arr: arr.reshape((P * ps,) + arr.shape[2:])[flat]
+
     for past, C in [(0, 8), (8, 8), (16, 5)]:
         toks = prompt[None, past:past + C]
-        jl, jpools = JP.paged_prefill_chunk(
+        jl, jnext = JP.paged_prefill_chunk(
             jparams, jcfg, jpools, jnp.asarray(toks), jnp.asarray(bt0), past)
-        tl, tpools = TP.paged_prefill_chunk(
-            tparams, tcfg, tpools, torch.from_numpy(toks), torch.from_numpy(bt0), past)
+        pos = np.arange(past, past + C)
+        tl, tpools = _held_on_jax_inputs(
+            monkeypatch, lambda pools: TP.paged_prefill_chunk(
+                tparams, tcfg, pools, torch.from_numpy(toks), torch.from_numpy(bt0), past),
+            jpools, jnext, tpools, slots(bt0[pos // ps] * ps + pos % ps))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=MODEL_TOL)
+        jpools = jnext
     bt = np.array([bt0, [7, 0, 0, 0, 0, 0], [0] * npp, [0] * npp], np.int32)
     lens = np.array([21, 3, 0, 0], np.int32)
     for _ in range(3):
         toks = rng.integers(0, tcfg.vocab, size=4).astype(np.int32)
-        jl, jpools = JP.paged_decode_step(
+        jl, jnext = JP.paged_decode_step(
             jparams, jcfg, jpools, jnp.asarray(toks), jnp.asarray(bt), jnp.asarray(lens))
-        tl, tpools = TP.paged_decode_step(
-            tparams, tcfg, tpools, torch.from_numpy(toks), torch.from_numpy(bt),
-            torch.from_numpy(lens))
+        flat = bt[np.arange(4), lens // ps] * ps + lens % ps
+        tl, tpools = _held_on_jax_inputs(
+            monkeypatch, lambda pools: TP.paged_decode_step(
+                tparams, tcfg, pools, torch.from_numpy(toks), torch.from_numpy(bt),
+                torch.from_numpy(lens)),
+            jpools, jnext, tpools, slots(flat))
         np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl)[:2], atol=MODEL_TOL)
+        jpools = jnext
         lens[:2] += 1
     _assert_int8_pools_match(jpools, tpools)
 
@@ -501,20 +577,26 @@ def q8pair(request):
     return jcfg, tcfg, jparams, tparams
 
 
-def test_int8_slot_prefill_and_decode_match_jax(q8pair):
+def test_int8_slot_prefill_and_decode_match_jax(q8pair, monkeypatch):
+    """Each decode step held on JAX's cache (see ``_held_on_jax_inputs``)."""
     jcfg, tcfg, jparams, tparams = q8pair
     toks = np.arange(1, 10, dtype=np.int32)[None].repeat(2, 0)
     jl, jc = jax_prefill(jparams, jcfg, jnp.asarray(toks), max_len=16)
     tl, tc = prefill(tparams, tcfg, torch.from_numpy(toks), max_len=16)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=MODEL_TOL)
     assert tc["blocks"]["0"]["k"].dtype == torch.int8
+    _assert_int8_pools_match(jc, tc)
     nxt = np.array([3, 4], np.int32)
     for _ in range(3):
-        jl, jc = jax_decode_step(jparams, jcfg, jc, jnp.asarray(nxt))
-        tl, tc = decode_step(tparams, tcfg, tc, torch.from_numpy(nxt))
+        at = np.asarray(jc["lengths"])
+        jl, jc_next = jax_decode_step(jparams, jcfg, jc, jnp.asarray(nxt))
+        tl, tc = _held_on_jax_inputs(
+            monkeypatch, lambda cache: decode_step(tparams, tcfg, cache,
+                                                   torch.from_numpy(nxt)),
+            jc, jc_next, tc, lambda arr: arr[np.arange(len(at)), at])
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=MODEL_TOL)
-    np.testing.assert_array_equal(tc["lengths"].numpy(), np.asarray(jc["lengths"]))
-    _assert_int8_pools_match(jc, tc)
+        np.testing.assert_array_equal(tc["lengths"].numpy(), np.asarray(jc_next["lengths"]))
+        jc = jc_next
 
 
 def test_int8_slot_row_at_max_len_writes_nothing(q8pair):
@@ -522,6 +604,8 @@ def test_int8_slot_row_at_max_len_writes_nothing(q8pair):
     toks = np.arange(1, 9, dtype=np.int32)[None].repeat(2, 0)
     _, jc = jax_prefill(jparams, jcfg, jnp.asarray(toks), max_len=8)
     _, tc = prefill(tparams, tcfg, torch.from_numpy(toks), max_len=8)
+    _assert_int8_pools_match(jc, tc)
+    _load_from_jax(tc, jc)
     before = {n: t.clone() for n, t in tc["blocks"]["0"].items()}
     nxt = np.array([3, 4], np.int32)
     jl, _ = jax_decode_step(jparams, jcfg, jc, jnp.asarray(nxt))
