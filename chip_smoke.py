@@ -10,7 +10,10 @@ It builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
 
 1. ``env``     — the card (``nvidia-smi`` name and power limit), torch,
-   CUDA, nvcc and triton versions, and the kernels' build time;
+   CUDA, nvcc and triton versions, the kernels' build time, ``ptxas``'s
+   registers and spills, and (where the toolkit has ``cuobjdump``) the
+   ``HMMA``/``HGMMA`` instructions in each kernel's SASS: every
+   tensor-core body must hold some;
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, in bf16 and f32, at the main path's shapes (stablelm-1.6b:
    H = K = 32, hd = 64, page 16) and at internlm2-20b's GQA widths
@@ -28,7 +31,12 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    output unchanged to the bit.
    Times (CUDA events, median) of the kernel, its plain version and one
    PyTorch library call for the same function (a yardstick the port
-   never calls), beside the least time the card could take;
+   never calls), beside the least time the card could take, and the
+   device time of one call of the kernel and of the library call
+   (``device_ms``, ``library_device_ms``: ``torch.profiler`` over 20
+   calls).  Flash and paged prefill (fp and int8 pages) are also timed at
+   Jamba-1.5-Large's and internlm2-20b's widths (``timing_bf16_wide``), and
+   every bf16 call of theirs timed must take the tensor-core body;
 3. ``held``    — stablelm-1.6b at full width cut to 2 layers, float32:
    the same weights and requests through the paged engine on the card
    and on the CPU must give the same greedy tokens, with fp pages and
@@ -47,7 +55,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    ``ProfileStore`` and ``build_scheduler``.  One seeded planning workload
    of 12 jobs, each LLM task prefilling a ~386-token prompt, runs under
    LLMSched and then FCFS on one slot replica (flash and slot decode
-   kernels, exact launch accounting), then under LLMSched on two paged
+   kernels, exact launch accounting; every bf16 flash and paged prefill
+   call of every serving run must take the tensor-core body, counted in
+   ``tc_launches``), then under LLMSched on two paged
    replicas with a small and a large page pool, live migration and the
    prefix cache, once with bf16 pages and once with int8 pages at the
    same pool bytes;
@@ -190,6 +200,66 @@ def time_ms(fn, groups: int = 15, per_group: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) / per_group for s, e in spans)
 
 
+def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
+    """Device time of one call from ``torch.profiler``: every kernel that
+    ``calls`` back-to-back calls launch (after a warm-up), summed by kernel
+    name and divided by ``calls``.  ``device_ms`` is their sum.  A window
+    whose trace lost events (a kernel seen other than a whole number of
+    times a call) is measured again, up to ``windows`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                name = evt.name if len(evt.name) < 90 else evt.name[:87] + "..."
+                t, n = by_kernel.get(name, (0.0, 0))
+                by_kernel[name] = (t + evt.time_range.elapsed_us() / 1e3, n + 1)
+        if by_kernel and all(n >= calls and n % calls == 0 for _, n in by_kernel.values()):
+            break
+    check(bool(by_kernel) and all(n >= calls and n % calls == 0 for _, n in by_kernel.values()),
+          f"the profiler lost kernel events in {windows} windows: {by_kernel}")
+    per_call = {k: t / calls for k, (t, _) in by_kernel.items()}
+    return {"device_ms": sum(per_call.values()), "device_kernels": per_call}
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """The host's time for one call: ``calls`` back-to-back calls on the
+    host clock, without a synchronize between them (each kernel here takes
+    the device less time than its call takes the host)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def _times(kernel, plain, library=None) -> dict:
+    """A kernel's and its yardsticks' times: ``ms``/``plain_ms``/
+    ``library_ms`` by CUDA events over back-to-back calls, the device time
+    of one call of the kernel and of the library call (profiler), and the
+    host's time for one call of the kernel's wrapper."""
+    out = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           "library_ms": time_ms(library) if library else None,
+           "host_ms": host_ms(kernel)}
+    out.update(device_ms(kernel))
+    lib = device_ms(library) if library else {}
+    out["library_device_ms"] = lib.get("device_ms")
+    out["library_device_kernels"] = lib.get("device_kernels")
+    return out
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -212,8 +282,10 @@ def phase_env(build_mod) -> dict:
     info = build_mod.build()
     build_mod.library()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln or "error" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln
+             or "error" in ln]
     env = {
+        "sass_mma": _sass_mma(build_mod, info["path"]),
         "nvidia_smi": smi_line(),
         "device": torch.cuda.get_device_name(0),
         "device_count": torch.cuda.device_count(),
@@ -227,6 +299,37 @@ def phase_env(build_mod) -> dict:
     }
     emit("env", **env)
     return env
+
+
+def _sass_mma(build_mod, lib_path: str):
+    """Tensor-core instructions in each kernel's SASS (``cuobjdump -sass``),
+    where the toolkit has ``cuobjdump``: ``{kernel: {"HMMA": n, "HGMMA":
+    m, "instructions": all}}``.  Every tensor-core body must hold ``HMMA``
+    or ``HGMMA``."""
+    bin_dir = Path(build_mod.nvcc_path()).parent
+    if not (bin_dir / "cuobjdump").exists():
+        return None
+    sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "instructions": 0}
+        elif name is not None and line.strip().startswith("/*") and ";" in line:
+            counts[name]["instructions"] += 1
+            op = "HGMMA" if "HGMMA" in line else "HMMA" if "HMMA" in line else None
+            if op:
+                counts[name][op] += 1
+    filt = bin_dir / "cu++filt"
+    if filt.exists() and counts:
+        names = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    tc = {k: v for k, v in counts.items() if "attention_tc_kernel" in k}
+    check(len(tc) == 9 and all(v["HMMA"] + v["HGMMA"] > 0 for v in tc.values()),
+          f"a tensor-core body without tensor-core instructions: {tc}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -494,11 +597,131 @@ def _ssm_timing(dev, rng, B, T, D, N, with_h0: bool) -> dict:
         ms=time_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)),
         plain_ms=time_ms(lambda: R.ssm_scan_ref(x, dt, A, Bm, Cm, Dk, h0=h0),
                          groups=5 if T > 64 else 15),
-        library_ms=None, library="no single PyTorch call computes a selective scan",
+        host_ms=host_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)),
+        **device_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)),
+        library_ms=None, library_device_ms=None,
+        library="no single PyTorch call computes a selective scan",
         bound_ms=bound_ms, bound_by="bytes" if t_bytes >= max(t_exp, t_flops) else "operations",
         bound_parts_ms={"bytes": t_bytes, "sfu_exp": t_exp, "f32_ops": t_flops},
         sm_clock_mhz=clock / 1e6, sms=sms, bytes=nbytes,
         shape=f"B={B} T={T} D={D} N={N} h0={'given' if with_h0 else 'none'}, B/C strided")
+
+
+def _wide_timing(dev, errs) -> dict:
+    """The tensor-core bodies timed at the main path's other widths, bf16,
+    with inputs from a generator of their own (the first slices' timed
+    inputs stay as they were): flash at Jamba-1.5-Large's (B = 1, Sq = Sk
+    = 512, causal, H = 64, K = 8, hd = 128) and paged prefill over fp and
+    int8 pages at internlm2-20b's (C = 64 at past = 448, H = 48, K = 8, hd
+    = 128, page 16); each also held against its plain version.  SDPA runs
+    with ``enable_gqa`` over the same K/V heads (gathered, and for int8
+    dequantized, untimed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_prefill_attention, paged_prefill_attention_int8,
+    )
+
+    rng = np.random.default_rng(13)
+    dt, es = torch.bfloat16, 2
+    wide = {}
+    Sq, H, K, hd = 512, 64, 8, 128
+    q, k, v = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
+                             for sh in ((1, Sq, H, hd), (1, Sq, K, hd), (1, Sq, K, hd))))
+    errs["flash_attention"] = max(errs["flash_attention"], _err(
+        flash_attention(q, k, v), R.attention_ref(q, k, v), dt))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = Sq * (Sq + 1) // 2
+    nb, fl = bound(2 * Sq * H * hd * es + 2 * Sq * K * hd * es, 4 * H * hd * pairs, dt)
+    wide["flash_attention"] = dict(
+        **_times(lambda: flash_attention(q, k, v, causal=True),
+                 lambda: R.attention_ref(q, k, v, causal=True),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                        enable_gqa=True)),
+        bound_ms=nb, bound_by=fl,
+        shape=f"jamba-1.5-large: B=1 Sq=Sk={Sq} causal H={H} K={K} hd={hd}")
+    past, C, H, K, hd, ps = 448, 64, 48, 8, 128, 16
+    q, kp, vp, bt, _ = _prefill_case(rng, C, H, K, hd, ps, past, dt, dev)
+    ctx = past + C
+    n_ctx = -(-ctx // ps)
+    pairs = sum(past + c + 1 for c in range(C))
+    qc = q.transpose(0, 1)[None].contiguous()
+    cmask = (torch.arange(ctx, device=dev)[None, :]
+             <= past + torch.arange(C, device=dev)[:, None])
+
+    def dense(pool):
+        return R.gather_pages(pool, bt[None, :n_ctx])[:, :ctx].transpose(1, 2).contiguous()
+
+    kc, vc = dense(kp), dense(vp)
+    errs["paged_prefill_attention"] = max(errs["paged_prefill_attention"], _err(
+        paged_prefill_attention(q, kp, vp, bt, past),
+        R.paged_prefill_attention_ref(q, kp, vp, bt, past), dt))
+    nb, fl = bound(2 * C * H * hd * es + 2 * ctx * K * hd * es + 4 * n_ctx,
+                   4 * H * hd * pairs, dt)
+    wide["paged_prefill_attention"] = dict(
+        **_times(lambda: paged_prefill_attention(q, kp, vp, bt, past),
+                 lambda: R.paged_prefill_attention_ref(q, kp, vp, bt, past),
+                 lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=cmask,
+                                                        enable_gqa=True)),
+        bound_ms=nb, bound_by=fl,
+        shape=f"internlm2-20b: C={C} past={past} H={H} K={K} hd={hd} ps={ps}")
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    k8 = dense(R.dequantize_pages_ref(kq, ks).to(dt))
+    v8 = dense(R.dequantize_pages_ref(vq, vs).to(dt))
+    errs["paged_prefill_attention_int8"] = max(errs["paged_prefill_attention_int8"], _err(
+        paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs),
+        R.paged_prefill_attention_ref(q, kq, vq, bt, past, k_scales=ks, v_scales=vs), dt))
+    nb, fl = bound(2 * C * H * hd * es + 2 * ctx * K * hd + 2 * ctx * K * 4 + 4 * n_ctx,
+                   4 * H * hd * pairs + 2 * ctx * K * hd, dt)
+    wide["paged_prefill_attention_int8"] = dict(
+        **_times(lambda: paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs),
+                 lambda: R.paged_prefill_attention_ref(q, kq, vq, bt, past, k_scales=ks,
+                                                       v_scales=vs),
+                 lambda: F.scaled_dot_product_attention(qc, k8, v8, attn_mask=cmask,
+                                                        enable_gqa=True)),
+        bound_ms=nb, bound_by=fl,
+        shape=f"internlm2-20b: C={C} past={past} H={H} K={K} hd={hd} ps={ps}, int8 pages")
+    return wide
+
+
+def _tc_scaling(dev) -> dict:
+    """What sets the tensor-core bodies' times, bf16, device time by the
+    profiler: flash over one kv head (H = K = 1, hd = 64, causal), where
+    the longest row block's lone CTA walks Sq / 64 key tiles, so the slope
+    over Sq is the time of one key tile; and paged prefill at the timed
+    chunk (C = 64 at past = 448) with 1, 2, 4 and 8 context splits against
+    the splits ``prefill_splits`` picks, at stablelm-1.6b's and
+    internlm2-20b's widths."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(14)
+    dt = torch.bfloat16
+    lone = {}
+    for Sq in (64, 128, 256, 512, 1024):
+        q, k, v = _on(dev, dt, *(rng.normal(size=(1, Sq, 1, 64)).astype(np.float32)
+                                 for _ in range(3)))
+        lone[Sq] = device_ms(lambda: flash_attention(q, k, v, causal=True))["device_ms"]
+    splits = {}
+    pick = PA.prefill_splits
+    for label, (H, K, hd) in {"stablelm-1.6b": (32, 32, 64),
+                              "internlm2-20b": (48, 8, 128)}.items():
+        q, kp, vp, bt, _ = _prefill_case(rng, 64, H, K, hd, 16, 448, dt, dev)
+        row = {"picked": pick(K, 64 * (H // K), 8, torch.cuda.get_device_properties(
+            dev).multi_processor_count)}
+        try:
+            for n in (1, 2, 4, 8):
+                PA.prefill_splits = lambda *a, n=n: n
+                row[n] = device_ms(lambda: PA.paged_prefill_attention(q, kp, vp, bt, 448))[
+                    "device_ms"]
+        finally:
+            PA.prefill_splits = pick
+        splits[label] = row
+    return {"flash_lone_cta_device_ms": lone,
+            "flash_ms_per_key_tile": (lone[1024] - lone[64]) / 15,
+            "paged_prefill_splits_device_ms": splits}
 
 
 def phase_kernels(dev) -> dict:
@@ -566,10 +789,13 @@ def phase_kernels(dev) -> dict:
     # tokens, a prefill chunk C = 64 at past = 448, RMSNorm of a chunk
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ops
+
     dt = torch.bfloat16
     es = 2
     H, K, hd = widths["stablelm-1.6b"]
     timing = {}
+    launches0, tc0 = ops.launch_counts(), ops.tc_launch_counts()
     lens = rng.integers(96, 801, size=8)
     q, kp, vp, bt, ln, _ = _decode_case(rng, 8, H, K, hd, ps, npp, lens, dt, dev)
     kd, vd = R.gather_pages(kp, bt), R.gather_pages(vp, bt)       # (B, S, K, hd)
@@ -582,9 +808,9 @@ def phase_kernels(dev) -> dict:
         + 4 * int(sum(-(-int(n) // ps) for n in lens)) + 4 * 8,
         4 * H * hd * tokens, dt)
     timing["paged_decode_attention"] = dict(
-        ms=time_ms(lambda: paged_decode_attention(q, kp, vp, bt, ln)),
-        plain_ms=time_ms(lambda: R.paged_decode_attention_ref(q, kp, vp, bt, ln)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        **_times(lambda: paged_decode_attention(q, kp, vp, bt, ln),
+                 lambda: R.paged_decode_attention_ref(q, kp, vp, bt, ln),
+                 lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask[:, None, None, :])),
         bound_ms=nb, bound_by=fl, shape=f"B=8 H=K={H} hd={hd} ps={ps} "
         f"tokens={tokens}")
@@ -602,10 +828,10 @@ def phase_kernels(dev) -> dict:
         + 4 * int(sum(-(-int(n) // ps) for n in lens)) + 4 * 8,
         4 * H * hd * tokens + 2 * tokens * K * hd, dt)
     timing["paged_decode_attention_int8"] = dict(
-        ms=time_ms(lambda: paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs)),
-        plain_ms=time_ms(lambda: R.paged_decode_attention_ref(
-            q, kq, vq, bt, ln, k_scales=ks, v_scales=vs)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        **_times(lambda: paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs),
+                 lambda: R.paged_decode_attention_ref(
+            q, kq, vq, bt, ln, k_scales=ks, v_scales=vs),
+                 lambda: F.scaled_dot_product_attention(
             q4, k8, v8, attn_mask=mask[:, None, None, :])),
         bound_ms=nb, bound_by=fl, shape=f"B=8 H=K={H} hd={hd} ps={ps} "
         f"tokens={tokens}, int8 pages, bf16 q")
@@ -623,9 +849,9 @@ def phase_kernels(dev) -> dict:
     nb, fl = bound(2 * C * H * hd * es + 2 * ctx * K * hd * es + 4 * n_ctx,
                    4 * H * hd * pairs, dt)
     timing["paged_prefill_attention"] = dict(
-        ms=time_ms(lambda: paged_prefill_attention(q, kp, vp, bt, past)),
-        plain_ms=time_ms(lambda: R.paged_prefill_attention_ref(q, kp, vp, bt, past)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        **_times(lambda: paged_prefill_attention(q, kp, vp, bt, past),
+                 lambda: R.paged_prefill_attention_ref(q, kp, vp, bt, past),
+                 lambda: F.scaled_dot_product_attention(
             qc, kc, vc, attn_mask=cmask)),
         bound_ms=nb, bound_by=fl, shape=f"C={C} past={past} H=K={H} hd={hd} ps={ps}")
     kq, vq, ks, vs = _int8_pools(kp, vp)
@@ -641,10 +867,10 @@ def phase_kernels(dev) -> dict:
     nb, fl = bound(2 * C * H * hd * es + 2 * ctx * K * hd + 2 * ctx * K * 4 + 4 * n_ctx,
                    4 * H * hd * pairs + 2 * ctx * K * hd, dt)
     timing["paged_prefill_attention_int8"] = dict(
-        ms=time_ms(lambda: paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs)),
-        plain_ms=time_ms(lambda: R.paged_prefill_attention_ref(
-            q, kq, vq, bt, past, k_scales=ks, v_scales=vs)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        **_times(lambda: paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs),
+                 lambda: R.paged_prefill_attention_ref(
+            q, kq, vq, bt, past, k_scales=ks, v_scales=vs),
+                 lambda: F.scaled_dot_product_attention(
             qc, k8, v8, attn_mask=cmask)),
         bound_ms=nb, bound_by=fl,
         shape=f"C={C} past={past} H=K={H} hd={hd} ps={ps}, int8 pages, bf16 q")
@@ -654,9 +880,9 @@ def phase_kernels(dev) -> dict:
     g = torch.ones(2048, device=dev, dtype=dt)
     nb, fl = bound(2 * 64 * 2048 * es + 2048 * es, 4 * 64 * 2048, dt)
     timing["rmsnorm"] = dict(
-        ms=time_ms(lambda: rmsnorm(x, g)),
-        plain_ms=time_ms(lambda: R.rmsnorm_ref(x, g)),
-        library_ms=time_ms(lambda: F.rms_norm(x, (2048,), g, 1e-5)),
+        **_times(lambda: rmsnorm(x, g),
+                 lambda: R.rmsnorm_ref(x, g),
+                 lambda: F.rms_norm(x, (2048,), g, 1e-5)),
         bound_ms=nb, bound_by=fl, shape="rows=64 d=2048")
     # the testbed's slot decode: b = 4 slots of S_max = 1024 holding a
     # ~386-token prompt plus what they decoded
@@ -671,9 +897,9 @@ def phase_kernels(dev) -> dict:
     nb, fl = bound(2 * B * H * hd * es + 2 * tokens * K * hd * es + 4 * B,
                    4 * H * hd * tokens, dt)
     timing["decode_attention"] = dict(
-        ms=time_ms(lambda: decode_attention(q, kc, vc, ln)),
-        plain_ms=time_ms(lambda: R.decode_attention_ref(q, kc, vc, ln)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        **_times(lambda: decode_attention(q, kc, vc, ln),
+                 lambda: R.decode_attention_ref(q, kc, vc, ln),
+                 lambda: F.scaled_dot_product_attention(
             q[:, :, None], k4, v4, attn_mask=smask[:, None, None, :])),
         bound_ms=nb, bound_by=fl,
         shape=f"B={B} S_max={S} H=K={H} hd={hd} tokens={tokens}")
@@ -685,11 +911,19 @@ def phase_kernels(dev) -> dict:
     pairs = Sq * (Sq + 1) // 2
     nb, fl = bound(2 * Sq * H * hd * es + 2 * Sq * K * hd * es, 4 * H * hd * pairs, dt)
     timing["flash_attention"] = dict(
-        ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: R.attention_ref(q, k, v, causal=True)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        **_times(lambda: flash_attention(q, k, v, causal=True),
+                 lambda: R.attention_ref(q, k, v, causal=True),
+                 lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         bound_ms=nb, bound_by=fl, shape=f"B=1 Sq=Sk={Sq} causal H=K={H} hd={hd}")
+    wide = _wide_timing(dev, errs)
+    scaling = _tc_scaling(dev)
+    # every bf16 call timed above took the tensor-core body
+    launches, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    timed_tc = {k: {"launches": launches[k] - launches0[k], "tc_launches": tcs[k] - tc0[k]}
+                for k in ops.TC_KERNELS}
+    check(all(v["launches"] == v["tc_launches"] > 0 for v in timed_tc.values()),
+          f"a timed bf16 call missed the tensor-core body: {timed_tc}")
     # the Jamba-1.5-Large scan: a 512-token prefill (the summary's row), a
     # 17-token one and a decode step at B = 4 over carried states
     srng = np.random.default_rng(10)
@@ -699,6 +933,7 @@ def phase_kernels(dev) -> dict:
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, "timing_ssm_scan": ssm_more,
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
+           "timing_bf16_wide": wide, "timed_tc": timed_tc, "tc_scaling": scaling,
            "peaks": "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"}
     emit("kernels", **out)
     return out
@@ -893,7 +1128,7 @@ def _serve(eng, reqs) -> dict:
             dec_tok += decoded
             dec_s += dt
     wall = time.perf_counter() - t_start
-    counts = ops.launch_counts()
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
     torch.cuda.synchronize()
     prof = eng.latency_profile()
     res = {
@@ -901,7 +1136,7 @@ def _serve(eng, reqs) -> dict:
         "new_tokens": sum(len(r.out_tokens) for r in finished),
         "prompt_tokens": sum(len(r.prompt) for r in reqs),
         "decode_steps": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
-        "launches": counts, "wall_s": wall,
+        "launches": counts, "tc_launches": tcs, "wall_s": wall,
         "prefill_tok_s": pre_tok / pre_s if pre_s else None,
         "decode_tok_s": dec_tok / dec_s if dec_s else None,
         "p50_step_ms": statistics.median(step_ms),
@@ -915,15 +1150,23 @@ def _serve(eng, reqs) -> dict:
     check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
           "a request finished with the wrong token count")
     res["kv_dtype"] = eng.kv_dtype
-    _check_paged_launches(counts, [eng])
+    _check_paged_launches(counts, tcs, [eng])
     eng.allocator.check_no_leaks()
     return res
 
 
-def _check_paged_launches(counts, engines) -> None:
+def _check_tc(counts, tcs, cfg, what: str) -> None:
+    """Every flash and paged prefill call of a bf16 model took the
+    tensor-core body; of a float32 model, none did."""
+    want = {k: counts[k] if cfg.dtype == "bfloat16" else 0 for k in tcs}
+    check(tcs == want, f"{what}: tensor-core launches {tcs}, expected {want}")
+
+
+def _check_paged_launches(counts, tcs, engines) -> None:
     """Exact launch accounting of paged engines of one page dtype: each
     attention kernel once a layer per decode step or prefill chunk, RMSNorm
-    twice a layer plus once; the other page dtype's kernels never."""
+    twice a layer plus once; the other page dtype's kernels never; the
+    prefill through the tensor-core body in bf16."""
     kv_dtype = engines[0].kv_dtype
     decode, prefill, _ = PAGED_KERNELS[kv_dtype]
     steps = sum(e.decode_steps for e in engines)
@@ -939,6 +1182,7 @@ def _check_paged_launches(counts, engines) -> None:
     other = PAGED_KERNELS["int8" if kv_dtype == "fp32" else "fp32"]
     check(all(counts[k] == 0 for k in other[:2]),
           f"{kv_dtype} pages launched the other page dtype's kernels: {counts}")
+    _check_tc(counts, tcs, engines[0].cfg, f"{kv_dtype} pages")
 
 
 def phase_engine(dev, cfg) -> dict:
@@ -999,6 +1243,7 @@ def phase_engine(dev, cfg) -> dict:
             [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=512).tolist(),
                      max_new_tokens=64) for i in range(8)]))
     return {"launches": main_counts, "launches_int8": run3["launches"],
+            "tc_launches": run1["tc_launches"], "tc_launches_int8": run3["tc_launches"],
             "runs": [run1, run2, run3]}
 
 
@@ -1075,12 +1320,12 @@ def _stalled(signum, frame):
     raise Stalled(f"testbed run did not finish within {TESTBED_LIMIT_S} s")
 
 
-def _check_slot_launches(counts, cfg, adm: int, steps: int, what: str) -> None:
+def _check_slot_launches(counts, tcs, cfg, adm: int, steps: int, what: str) -> None:
     """Exact launch accounting of slot engines: per admission, flash
     attention once an attention layer and the scan once a Mamba layer; per
     decode step, slot decode attention once an attention layer and the scan
     once a Mamba layer; RMSNorm twice a layer plus once for both; the paged
-    kernels never."""
+    kernels never; flash through the tensor-core body in bf16."""
     from repro_torch.models import layer_kind
 
     mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
@@ -1097,6 +1342,7 @@ def _check_slot_launches(counts, cfg, adm: int, steps: int, what: str) -> None:
     check(all(counts[k] > 0 for k in used), f"{what}: a kernel never ran: {counts}")
     check(all(v == 0 for k, v in counts.items() if k not in used),
           f"{what}: a kernel off the slot path ran: {counts}")
+    _check_tc(counts, tcs, cfg, what)
 
 
 def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
@@ -1119,7 +1365,7 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
         torch.cuda.synchronize()
     finally:
         signal.alarm(0)
-    counts = ops.launch_counts()
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
     profiles = [e.latency_profile() for e in engines]
     out = {
         "model": engines[0].cfg.name, "layers": engines[0].cfg.n_layers,
@@ -1132,21 +1378,21 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
         "l_b_ms": [({int(b): float(v) * 1e3 for b, v in zip(p.batch_sizes, p.latency)}
                     if p else {}) for p in profiles],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts,
+        "launches": counts, "tc_launches": tcs,
     }
     check(out["finished"] == jobs, f"{name}: {out['finished']} of {jobs} jobs finished")
     if serve_cfg.engine == "slot":
         adm = sum(e.admissions for e in engines)
         steps = sum(e.decode_steps for e in engines)
         out.update(admissions=adm, decode_steps=steps)
-        _check_slot_launches(counts, engines[0].cfg, adm, steps, f"testbed {name}")
+        _check_slot_launches(counts, tcs, engines[0].cfg, adm, steps, f"testbed {name}")
     else:
         out.update(decode_steps=sum(e.decode_steps for e in engines),
                    prefill_chunks=sum(e.prefill_chunks for e in engines),
                    pool_pages=[e.num_pages for e in engines],
                    pool_bytes=[e.num_pages * e.page_bytes for e in engines],
                    kv_dtype=serve_cfg.kv_dtype)
-        _check_paged_launches(counts, engines)
+        _check_paged_launches(counts, tcs, engines)
         for e in engines:
             e.allocator.check_no_leaks(allow_indexed=True)
     return out
@@ -1293,18 +1539,18 @@ def _serve_slot(eng, reqs) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         dec_tok += rows
     wall = time.perf_counter() - t_start
-    counts = ops.launch_counts()
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
     prof = eng.latency_profile()
     check(len(finished) == len(reqs), "not every request finished")
     check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
           "a request finished with the wrong token count")
-    _check_slot_launches(counts, eng.cfg, eng.admissions, eng.decode_steps, "hybrid")
+    _check_slot_launches(counts, tcs, eng.cfg, eng.admissions, eng.decode_steps, "hybrid")
     return {
         "requests": len(reqs), "finished": len(finished),
         "prompt_tokens": sum(len(r.prompt) for r in reqs),
         "new_tokens": sum(len(r.out_tokens) for r in finished),
         "admissions": eng.admissions, "decode_steps": eng.decode_steps,
-        "launches": counts, "wall_s": wall,
+        "launches": counts, "tc_launches": tcs, "wall_s": wall,
         "prefill_tok_s": sum(len(r.prompt) for r in reqs) / pre_s,
         "decode_tok_s": dec_tok / (sum(step_ms) / 1e3),
         "p50_step_ms": statistics.median(step_ms),
@@ -1412,12 +1658,18 @@ def main(argv=None) -> int:
                          for k in ("flash_attention", "decode_attention")})
         launches.update({k: eng["launches_int8"][k] for k in PAGED_KERNELS["int8"][:2]})
         launches["ssm_scan"] = hyb["launches"]["ssm_scan"]
+        tc_launches = {"flash_attention": tb["llmsched"]["tc_launches"]["flash_attention"],
+                       "paged_prefill_attention": eng["tc_launches"]["paged_prefill_attention"],
+                       "paged_prefill_attention_int8":
+                           eng["tc_launches_int8"]["paged_prefill_attention_int8"]}
         summary = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name],
+             **({"tc_launches": tc_launches[name]} if name in tc_launches else {}),
              "max_abs_err": kern["max_abs_err"][name],
              **{k: kern["timing_bf16"][name][k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                          "device_ms", "library_device_ms", "host_ms")}}
             for name, (src, rep) in KERNEL_META.items()
         ]
         print(json.dumps({"kernels": summary}), flush=True)

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -56,7 +58,19 @@ SIGNATURES: Dict[str, List] = {
     "flash_attention_bf16": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
     "ssm_scan_f32": [P] * 9 + [I] * 4 + [L] * 12 + [P],
     "ssm_scan_bf16": [P] * 9 + [I] * 4 + [L] * 12 + [P],
+    # the tensor-core bodies (csrc/attention_tc.cuh), bf16 only
+    "flash_attention_tc_bf16": [P] * 4 + [I] * 7 + [L] * 9 + [F, P],
+    "paged_prefill_tc_bf16": [P] * 5 + [I] * 8 + [L] * 6 + [F, P],
+    "paged_prefill_q8_tc_bf16": [P] * 7 + [I] * 8 + [L] * 12 + [F, P],
 }
+#: head dims the tensor-core attention body is built for (hd == hd_v)
+TC_HEAD_DIMS = (16, 64, 128)
+#: folded query rows per CTA and key tokens per tile of that body
+TC_ROWS = 64
+TC_TILE = 64
+#: most context splits of one row block (its CTAs form one cluster, and 8
+#: is the largest cluster every Hopper part schedules)
+TC_MAX_SPLITS = 8
 
 
 class KernelError(RuntimeError):
@@ -159,6 +173,45 @@ def library() -> ctypes.CDLL:
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str):
+    """The C entry point ``name``, looked up once per process."""
+    return getattr(library(), name)
+
+
+def rows_16b(shape, strides, misalign: int, itemsize: int) -> bool:
+    """Whether a tensor's rows (its last dim) can be copied 16 bytes at a time.
+
+    Pure Python on what the tensor describes: its ``shape``, ``strides``
+    (in elements), ``data_ptr() % 16`` and element size.  True when the
+    inner stride is 1 and every row starts on a 16-byte boundary: the data
+    pointer is, and every outer stride is a multiple of 16 bytes (a dim of
+    size 1 is never stepped, so its stride is not checked).  It runs on
+    every launch, so it is written for speed.
+    """
+    if misalign or strides[-1] != 1:
+        return False
+    per = 16 // itemsize
+    for i in range(len(shape) - 1):
+        if strides[i] % per and shape[i] != 1:
+            return False
+    return True
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object (a few microseconds less a launch)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(code: int, name: str) -> None:

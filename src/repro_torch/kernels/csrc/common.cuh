@@ -57,13 +57,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
+constexpr int kMaxDevices = 16;
+
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more
-// than the default 48 KB (up to the 227 KB a Hopper block may use).
+// than the default 48 KB (up to the 227 KB a Hopper block may use), once per
+// device and size: `granted` is the launcher's record of what each device
+// already allows this kernel (a function-local static of the launcher, so
+// one record per kernel instantiation), so a steady stream of launches makes
+// no attribute call.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&granted)[kMaxDevices]) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) granted[dev] = bytes;
+  return err;
 }
 
 }  // namespace repro_torch

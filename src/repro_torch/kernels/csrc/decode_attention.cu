@@ -140,7 +140,8 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens, void
   const size_t smem =
       sizeof(float) * static_cast<size_t>(g * (hd + 1) + kTile * (hd + 1) + kTile * hd_v +
                                           g * kTile + g * hd_v + 3 * g);
-  const cudaError_t err = allow_smem(decode_attention_kernel<T>, smem);
+  static size_t granted[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(decode_attention_kernel<T>, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_attention_kernel<T><<<B * K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),

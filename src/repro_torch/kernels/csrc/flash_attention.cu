@@ -2,30 +2,39 @@
 //
 // Replaces: repro/kernels/flash_attention.py::flash_attention
 // (Pallas, _attn_kernel).
-// Bound on the H100: a kv head's Sq*g query rows do ~4*Sq*g flops per K/V
-// element pair (halved by the causal mask), so above Sq*g of a few hundred
-// rows the bf16 tensor-core rate would bind; at the slot engine's prompt
-// lengths it is near the ridge. This kernel does its products on the f32
-// CUDA cores (~67 TFLOP/s), so in practice its operations bind it.
-// Design:
-// - the group is folded into the query rows as on the TPU (row r of kv head
-//   kh is token r / g, head kh*g + r % g: token-major, group-minor), but the
-//   folded rows are cut into blocks of a fixed BM rows, so a block's f32
-//   accumulator is BM x hd_v (32 KB at BM = 64, hd_v = 128) whatever the
-//   group size (block_q x g rows would be ~196 KB at g = 6, hd = 128);
-// - grid (B * K, ceil(Sq * g / BM)); each block walks K/V in tiles of kTile
-//   tokens; with `causal`, only up to its last row's token (tiles past the
-//   block's end are skipped, as the TPU kernel skips kv blocks);
-// - q, k and v are read through their strides ((B, S, heads, d), as the
-//   model produces them), so no call transposes them (the JAX wrapper does);
-// - hd and hd_v are runtime arguments up to 256 (MLA: 192 / 128);
-// - masked scores (causal, and the ragged tail past Sk) are *replaced* by
-//   -1e30, get weight exactly 0, and V rows past the tile's live range are
-//   zeroed before p.V (0 * NaN guard);
-// - online softmax with an f32 accumulator in shared memory; the output is
-//   acc / max(l, 1e-30). Above 48 KB of shared memory the launcher raises
-//   the kernel's cap (hd = 256 needs ~205 KB at BM = 64).
-// No tensor cores, TMA or pipelining yet.
+// Bound on the H100: bytes. At the slot engine's timed admission (B = 1,
+// Sq = Sk = 386, causal, H = K = 32, hd = 64) q, k, v and the output are
+// 6.3 MB, 1.89 us at 3.35 TB/s, against 0.62 us for the causal products at
+// the bf16 tensor-core rate; at Jamba-1.5-Large's (Sq = Sk = 512, H = 64,
+// K = 8, hd = 128) 18.9 MB, 5.6 us, against 4.4 us of products.
+// Two bodies; the wrapper (flash_attention.py) picks one by shape:
+// - bf16 with hd = hd_v in {16, 64, 128}, inner stride 1 and 16-byte rows:
+//   the tensor-core body of attention_tc.cuh (mma.sync m16n8k16, a 3-stage
+//   cp.async ring, swizzled ldmatrix, softmax in registers), entry point
+//   flash_attention_tc_bf16. Grid (B*K, ceil(Sq*g / 64)), 128 threads,
+//   row blocks launched longest first, one launch a call: 32 x 7 = 224 CTAs
+//   at the timed shape (the longest walks 7 key tiles of 64), 8 x 64 = 512
+//   at Jamba's. The context is not split: the cluster merge of the paged
+//   prefill made every split count slower here, as the longest row block's
+//   tiles cost less than the merge;
+// - every f32 call, and bf16 at any other width (MLA's hd = 192 / hd_v =
+//   128, hd = 256) or layout: the CUDA-core body below, entry points
+//   flash_attention_{f32,bf16}. f32 math throughout (the card-vs-CPU float32
+//   checks need exact greedy tokens, and the tensor cores have no full-f32
+//   product):
+//   - the group is folded into the query rows as on the TPU (row r of kv
+//     head kh is token r / g, head kh*g + r % g), cut into blocks of BM
+//     rows, so a block's f32 accumulator is BM x hd_v whatever the group;
+//   - grid (B * K, ceil(Sq * g / BM)); each block walks K/V in tiles of
+//     kTile tokens, with `causal` only up to its last row's token;
+//   - hd and hd_v are runtime arguments up to 256;
+//   - online softmax with an f32 accumulator in shared memory.
+// Both read q, k and v through their strides ((B, S, heads, d), as the
+// model produces them), replace masked scores (causal, and the ragged tail
+// past Sk) by -1e30, give them weight exactly 0, keep V rows past the live
+// range out of p.V (zeroed, or never copied), and return acc / max(l,
+// 1e-30) rounded once to q's dtype.
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace repro_torch {
@@ -158,7 +167,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const size_t smem =
       sizeof(float) * static_cast<size_t>(BM * (hd + 1) + kTile * (hd + 1) + kTile * hd_v +
                                           BM * kTile + BM * hd_v + 3 * BM);
-  const cudaError_t err = allow_smem(flash_attention_kernel<T>, smem);
+  static size_t granted[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(flash_attention_kernel<T>, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * K, (Sq * g + BM - 1) / BM);
   flash_attention_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -185,3 +195,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 REPRO_FLASH_ENTRY(flash_attention_f32, float)
 REPRO_FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
+
+// the tensor-core body (bf16, hd = hd_v in {16, 64, 128}; see attention_tc.cuh)
+extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out,
+                                       int B, int Sq, int Sk, int H, int K, int hd,
+                                       int causal, long long qs0, long long qs1,
+                                       long long qs2, long long ks0, long long ks1,
+                                       long long ks2, long long vs0, long long vs1,
+                                       long long vs2, float scale, void* stream) {
+  repro_torch::tc::Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.K = K;
+  p.causal = causal;
+  p.splits = 1;  // see the note above
+  p.qs0 = qs0;
+  p.qs1 = qs1;
+  p.qs2 = qs2;
+  p.ks0 = ks0;
+  p.ks1 = ks1;
+  p.ks2 = ks2;
+  p.vs0 = vs0;
+  p.vs1 = vs1;
+  p.vs2 = vs2;
+  p.scale_log2 = scale * repro_torch::tc::kLog2e;
+  return repro_torch::tc::launch<false, false>(p, B * K, hd, stream);
+}

@@ -159,7 +159,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksc, const
   const size_t smem =
       sizeof(float) * static_cast<size_t>(g * (hd + 1) + ps * (hd + 1) + ps * hd +
                                           g * ps + g * hd + 3 * g);
-  const cudaError_t err = allow_smem(paged_decode_kernel<T, TP>, smem);
+  static size_t granted[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(paged_decode_kernel<T, TP>, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_decode_kernel<T, TP><<<B * K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const TP*>(kp), static_cast<const TP*>(vp),

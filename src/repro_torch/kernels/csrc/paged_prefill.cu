@@ -4,33 +4,49 @@
 // Replaces: repro/kernels/paged_attention.py::paged_prefill_attention
 // (Pallas, _paged_prefill_kernel), in both forms: fp pages and
 // quantized=True (int8 pools plus f32 scale pools (P, ps, K)).
-// Bound on the H100: a kv head's C*g query rows do ~C*g flops per bf16 K/V
-// byte read, so the card's bf16 rate would bind only above C*g ~ 295 rows;
-// at the serving widths (C = 64, g = 1 for stablelm, g = 6 for internlm2)
-// the bound is bytes or near the ridge. This kernel does its products on the
-// f32 CUDA cores (~67 TFLOP/s), so in practice its operations bind it.
-// Design:
-// - grid (K, ceil(C*g / BM)): the C*g query rows of one kv head (row r is
-//   chunk token r / g, head kh*g + r % g) are cut into blocks of BM rows, so
-//   the f32 accumulator of a block is BM x hd (32 KB at BM = 64, hd = 128)
-//   instead of C*g x hd for the whole chunk;
-// - each block visits only the pages its last row can see, j <= (past +
-//   last_row / g) / ps, reading the block table for those pages only and
-//   range-checking each page id;
-// - `past` is a runtime argument, so one compiled kernel serves every
-//   chunk offset;
-// - the pool is read through its strides, token-major (P, ps, K, hd), and so
-//   are the scale pools; int8 rows are dequantized into the f32 shared-memory
-//   tile as float(int8) * scale[token, kv head], the TPU kernel's product;
-// - the causal mask kpos <= past + r / g *replaces* scores by -1e30 and
-//   sets the weights of masked slots to exactly 0, so a row whose causal
-//   window has not started yet (m still -1e30) adds nothing; V rows at or
-//   past ctx = past + C are zeroed (after dequantizing) before p.V, so NaN
-//   or Inf in a slot's payload or scale cannot reach a live row (0 * NaN
-//   guard);
-// - online softmax across pages with an f32 accumulator in shared memory,
-//   output acc / max(l, 1e-30), rounded once to q's dtype.
-// No tensor cores, TMA or pipelining yet.
+// Bound on the H100: bytes. At the timed chunk (C = 64 at past = 448, H = K
+// = 32, hd = 64, bf16 pages of 16) q, the 512-token context and the output
+// are 4.7 MB, 1.41 us at 3.35 TB/s, against 0.25 us of products at the bf16
+// tensor-core rate (int8 pages: 2.7 MB, 0.82 us); at internlm2-20b's widths
+// (H = 48, K = 8, hd = 128) 3.7 MB, 1.10 us, against 0.76 us of products.
+// Two bodies; the wrapper (paged_attention.py) picks one by shape:
+// - bf16 q over bf16 or int8 pages of a power-of-two page size with hd in
+//   {16, 64, 128}, inner stride 1 and 16-byte page rows: the tensor-core
+//   body of attention_tc.cuh (mma.sync m16n8k16, a 3-stage cp.async ring,
+//   swizzled ldmatrix, softmax in registers), entry points
+//   paged_prefill_tc_bf16 and paged_prefill_q8_tc_bf16. A 64-token key tile
+//   is 64 / ps pages: each 16-byte copy reads its token's block-table entry,
+//   range-checks it (a bad id traps) and copies through the pool's strides;
+//   tokens at or past the block's last visible key are zero-filled, never
+//   read. The grid splits the context so that one chunk fills the card:
+//   (K, ceil(C*g / 64), splits), the fewest power-of-two splits (at most 8)
+//   that give at least one CTA per SM (paged_attention.prefill_splits).
+//   The splits of a row block run as one thread-block cluster and merge
+//   their f32 partials through distributed shared memory: one launch a
+//   call, no scratch. Timed shape: 8 key tiles, 8 splits of one tile,
+//   32 x 1 x 8 = 256 CTAs on 132 SMs; internlm2-20b's: 6 row blocks,
+//   4 splits of 2 tiles, 8 x 6 x 4 = 192 CTAs (chip_smoke.py's split sweep
+//   measures 1, 2, 4 and 8 splits at both). int8 pages: the int8 bytes are
+//   staged as they are, widened to bf16 in shared memory (exact), and the
+//   scales are folded in f32: a score column times k_scale[t, kh] after the
+//   product, a weight times v_scale[t, kh] before it is rounded for P.V (the
+//   row sum takes the unscaled weight);
+// - every f32 call, and bf16 at any other head dim (hd = 256), page size or
+//   layout: the CUDA-core body below, entry points paged_prefill{,_q8}_{f32,bf16}, in
+//   f32 math (the card-vs-CPU float32 checks need exact greedy tokens):
+//   - grid (K, ceil(C*g / BM)), BM = 64 rows a block, an f32 accumulator of
+//     BM x hd in shared memory; one 16-token page an iteration;
+//   - int8 rows are dequantized into the f32 tile as float(int8) *
+//     scale[token, kv head], the TPU kernel's product.
+// Both visit only the pages a block's last row can see, j <= (past +
+// last_row / g) / ps, take `past` as a runtime argument, read the pool (and
+// the scale pools) through their strides, token-major (P, ps, K, hd),
+// *replace* masked scores by -1e30 and give masked slots weight exactly 0
+// after dequantizing, keep V rows at or past ctx = past + C out of p.V
+// (zeroed, or never copied), so NaN or Inf in a dead slot's payload or scale
+// cannot reach a live row, and return acc / max(l, 1e-30) rounded once to
+// q's dtype.
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace repro_torch {
@@ -168,7 +184,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksc, const
   const size_t smem =
       sizeof(float) * static_cast<size_t>(BM * (hd + 1) + ps * (hd + 1) + ps * hd +
                                           BM * ps + BM * hd + 3 * BM);
-  const cudaError_t err = allow_smem(paged_prefill_kernel<T, TP>, smem);
+  static size_t granted[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(paged_prefill_kernel<T, TP>, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(K, (C * g + BM - 1) / BM);
   paged_prefill_kernel<T, TP><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -212,3 +229,78 @@ REPRO_PAGED_PREFILL_ENTRY(paged_prefill_f32, float)
 REPRO_PAGED_PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16)
 REPRO_PAGED_PREFILL_Q8_ENTRY(paged_prefill_q8_f32, float)
 REPRO_PAGED_PREFILL_Q8_ENTRY(paged_prefill_q8_bf16, __nv_bfloat16)
+
+namespace {
+
+repro_torch::tc::Params paged_params(const void* q, const void* kp, const void* vp,
+                                     const void* bt, void* out, int C, int H, int K, int hd,
+                                     int ps, int P, int past, int splits,
+                                     long long ks0, long long ks1, long long ks2,
+                                     long long vs0, long long vs1, long long vs2,
+                                     float scale) {
+  repro_torch::tc::Params p{};
+  p.q = q;
+  p.k = kp;
+  p.v = vp;
+  p.bt = static_cast<const int*>(bt);
+  p.out = out;
+  p.Sq = C;
+  p.Sk = past + C;
+  p.H = H;
+  p.K = K;
+  p.causal = 1;
+  p.q_off = past;
+  p.ps_shift = 0;
+  while ((1 << p.ps_shift) < ps) ++p.ps_shift;  // ps is a power of two here
+  p.P = P;
+  p.splits = splits;
+  p.qs0 = 0;  // q is (C, H, hd) contiguous
+  p.qs1 = static_cast<long long>(H) * hd;
+  p.qs2 = hd;
+  p.ks0 = ks0;
+  p.ks1 = ks1;
+  p.ks2 = ks2;
+  p.vs0 = vs0;
+  p.vs1 = vs1;
+  p.vs2 = vs2;
+  p.scale_log2 = scale * repro_torch::tc::kLog2e;
+  return p;
+}
+
+}  // namespace
+
+// the tensor-core body (bf16 q, hd in {16, 64, 128}; see attention_tc.cuh)
+extern "C" int paged_prefill_tc_bf16(const void* q, const void* kp, const void* vp,
+                                     const void* bt, void* out, int C, int H, int K, int hd,
+                                     int ps, int P, int past, int splits,
+                                     long long ks0, long long ks1, long long ks2,
+                                     long long vs0, long long vs1, long long vs2, float scale,
+                                     void* stream) {
+  const repro_torch::tc::Params p = paged_params(q, kp, vp, bt, out, C, H, K, hd, ps, P, past,
+                                                 splits, ks0, ks1, ks2, vs0, vs1, vs2,
+                                                 scale);
+  return repro_torch::tc::launch<true, false>(p, K, hd, stream);
+}
+
+extern "C" int paged_prefill_q8_tc_bf16(const void* q, const void* kp, const void* vp,
+                                        const void* ksc, const void* vsc, const void* bt,
+                                        void* out, int C, int H, int K, int hd, int ps, int P,
+                                        int past, int splits, long long ks0,
+                                        long long ks1, long long ks2,
+                                        long long vs0, long long vs1, long long vs2,
+                                        long long kss0, long long kss1, long long kss2,
+                                        long long vss0, long long vss1, long long vss2,
+                                        float scale, void* stream) {
+  repro_torch::tc::Params p =
+      paged_params(q, kp, vp, bt, out, C, H, K, hd, ps, P, past, splits,
+                   ks0, ks1, ks2, vs0, vs1, vs2, scale);
+  p.ksc = static_cast<const float*>(ksc);
+  p.vsc = static_cast<const float*>(vsc);
+  p.kss0 = kss0;
+  p.kss1 = kss1;
+  p.kss2 = kss2;
+  p.vss0 = vss0;
+  p.vss1 = vss1;
+  p.vss2 = vss2;
+  return repro_torch::tc::launch<true, true>(p, K, hd, stream);
+}

@@ -76,10 +76,10 @@ def decode_attention(
     out = torch.empty((B, H, hd_v), dtype=q.dtype, device=q.device)
     scale = scale if scale is not None else hd ** -0.5
     name = f"decode_attention_{_SUFFIX[q.dtype]}"
-    code = getattr(_build.library(), name)(
+    code = _build.entry(name)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, H, K, hd, hd_v, S, *k_cache.stride(), *v_cache.stride(),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), _build.current_stream(q.device),
     )
     _build.check(code, name)
     decode_attention.launches += 1

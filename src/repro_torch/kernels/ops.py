@@ -43,6 +43,8 @@ KERNELS = {
     "paged_prefill_attention_int8": _ppa8,
     "ssm_scan": _ss,
 }
+#: the wrappers with a tensor-core body beside their CUDA-core one
+TC_KERNELS = ("flash_attention", "paged_prefill_attention", "paged_prefill_attention_int8")
 
 
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -67,9 +69,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def tc_launch_counts() -> Dict[str, int]:
+    """Of those launches, the ones the tensor-core bodies served."""
+    return {name: KERNELS[name].tc_launches for name in TC_KERNELS}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in TC_KERNELS:
+        KERNELS[name].tc_launches = 0
 
 
 def attention(

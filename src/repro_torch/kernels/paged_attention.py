@@ -16,6 +16,18 @@ Replaces the JAX package's Pallas kernels in
   of scale per token slot and kv head for K and for V (1.88x fewer bytes
   a token than bf16 at hd = 64, 3.76x fewer than float32).
 
+The prefill kernel has two bodies, chosen by shape
+(:func:`prefill_uses_tensor_cores`), never by failure: bf16 queries over
+bf16 or int8 pages with hd in ``TC_HEAD_DIMS`` (16, 64, 128), a
+power-of-two page size and 16-byte-aligned rows go to the tensor-core
+body (``csrc/attention_tc.cuh``: ``mma.sync`` bf16 products with f32
+accumulation, a ``cp.async`` ring of 64-token key tiles, the context
+split over :func:`prefill_splits` CTAs of one cluster so that one chunk
+fills the card); every float32 call, and bf16 at any other shape (hd 256,
+another page size, misaligned rows), to the CUDA-core body in f32 math.
+``paged_prefill_attention.tc_launches`` (and the int8 wrapper's) count
+the calls the tensor-core body served.
+
 Pools keep the JAX layout, token-major ``(P, page_size, K, hd)``.  The
 kernels read them (and the scale pools) through their strides, so a
 per-layer view of a stacked pool goes in as it is and no call copies or
@@ -50,10 +62,11 @@ Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 def _check_pools(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                  what: str, scales: Scales = None) -> None:
-    tensors = (q, k_pages, v_pages) + (scales or ())
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    dev = q.device
+    if not (q.is_cuda and k_pages.device == dev and v_pages.device == dev
+            and (scales is None or scales[0].device == dev and scales[1].device == dev)):
         raise ValueError(f"{what} kernel takes CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
+                         f"{[str(t.device) for t in (q, k_pages, v_pages) + (scales or ())]}")
     page_dtype = torch.int8 if scales is not None else q.dtype
     if q.dtype not in _SUFFIX or k_pages.dtype != page_dtype \
             or v_pages.dtype != page_dtype:
@@ -71,6 +84,45 @@ def _check_pools(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             s.dtype == torch.float32 and s.shape == k_pages.shape[:3] for s in scales):
         raise ValueError(f"{what} kernel takes float32 (P, ps, K) scale pools, got "
                          f"{[(s.dtype, tuple(s.shape)) for s in scales]}")
+
+
+def prefill_uses_tensor_cores(q_dtype: torch.dtype, page_dtype: torch.dtype, shapes,
+                              strides, misalign) -> bool:
+    """Whether the tensor-core body serves a prefill call (else the CUDA-core body).
+
+    Pure Python on what q and the two pools describe: the dtypes, their
+    ``shapes``, ``strides`` (in elements) and ``data_ptr() % 16``, each a
+    triple in the order q, k pages, v pages.  True for bf16 q over bf16 or
+    int8 pages of a power-of-two page size with hd in ``TC_HEAD_DIMS``,
+    whose rows (q's and the page rows) are 16-byte aligned with inner
+    stride 1.
+    """
+    if q_dtype != torch.bfloat16 or page_dtype not in (torch.bfloat16, torch.int8):
+        return False
+    ps = shapes[1][1]
+    if shapes[0][-1] not in _build.TC_HEAD_DIMS or ps & (ps - 1):
+        return False
+    n = page_dtype.itemsize
+    return (_build.rows_16b(shapes[0], strides[0], misalign[0], 2)
+            and _build.rows_16b(shapes[1], strides[1], misalign[1], n)
+            and _build.rows_16b(shapes[2], strides[2], misalign[2], n))
+
+
+def prefill_splits(K: int, rows: int, n_tiles: int, sms: int) -> int:
+    """Context splits of a tensor-core prefill call.
+
+    ``K * ceil(rows / TC_ROWS)`` CTAs hold the ``rows = C * g`` folded
+    query rows of the kv heads, over a context of ``n_tiles`` key tiles:
+    the fewest power-of-two splits (up to ``TC_MAX_SPLITS``, and at most
+    ``n_tiles``) that give at least one CTA per SM of the ``sms``, so that
+    one chunk fills the card.  Each split walks an equal run of whole
+    tiles of its row block's visible keys.
+    """
+    ctas = K * -(-rows // _build.TC_ROWS)
+    splits = 1
+    while splits < _build.TC_MAX_SPLITS and 2 * splits <= n_tiles and ctas * splits < sms:
+        splits *= 2
+    return splits
 
 
 def _index(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
@@ -104,17 +156,18 @@ def _decode(q, k_pages, v_pages, block_tables, lengths, scale, scales: Scales):
     scale = scale if scale is not None else hd ** -0.5
     ptrs, strides = _scale_args(scales)
     name = f"paged_decode_{'' if scales is None else 'q8_'}{_SUFFIX[q.dtype]}"
-    code = getattr(_build.library(), name)(
+    code = _build.entry(name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs, bt.data_ptr(),
         lens.data_ptr(), out.data_ptr(), B, H, K, hd, ps, bt.shape[1], P,
         *k_pages.stride(), *v_pages.stride(), *strides, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.current_stream(q.device),
     )
     _build.check(code, name)
     return out
 
 
 def _prefill(q, k_pages, v_pages, block_table, past, scale, scales: Scales):
+    """Launch one prefill call; returns ``(out, whether the tensor-core body ran)``."""
     what = "paged prefill" if scales is None else "int8 paged prefill"
     _check_pools(q, k_pages, v_pages, what, scales)
     C, H, hd = q.shape
@@ -124,20 +177,35 @@ def _prefill(q, k_pages, v_pages, block_table, past, scale, scales: Scales):
     if block_table.dim() != 1 or block_table.shape[0] < n_ctx_pages or past < 0:
         raise ValueError(f"block_table {tuple(block_table.shape)} cannot cover "
                          f"past={past} + C={C} at page size {ps}")
-    bt = _index(block_table, q.device, "block_table")
+    dev = q.device
+    bt = _index(block_table, dev, "block_table")
     q = q.contiguous()
     out = torch.empty_like(q)
-    scale = scale if scale is not None else hd ** -0.5
+    scale = float(scale if scale is not None else hd ** -0.5)
     ptrs, strides = _scale_args(scales)
-    name = f"paged_prefill_{'' if scales is None else 'q8_'}{_SUFFIX[q.dtype]}"
-    code = getattr(_build.library(), name)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs, bt.data_ptr(),
-        out.data_ptr(), C, H, K, hd, ps, P, past, PREFILL_BLOCK_ROWS,
-        *k_pages.stride(), *v_pages.stride(), *strides, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = _build.current_stream(dev)
+    q8 = "" if scales is None else "q8_"
+    pq, pk, pv = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    ks, vs = k_pages.stride(), v_pages.stride()
+    tc = prefill_uses_tensor_cores(q.dtype, k_pages.dtype,
+                                   (q.shape, k_pages.shape, v_pages.shape),
+                                   (q.stride(), ks, vs), (pq % 16, pk % 16, pv % 16))
+    if tc:
+        splits = prefill_splits(K, C * (H // K), -(-(past + C) // _build.TC_TILE),
+                                _build.sm_count(dev.index))
+        name = f"paged_prefill_{q8}tc_bf16"
+        code = _build.entry(name)(
+            pq, pk, pv, *ptrs, bt.data_ptr(), out.data_ptr(), C, H, K, hd, ps, P, past,
+            splits, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], *strides, scale, stream,
+        )
+    else:
+        name = f"paged_prefill_{q8}{_SUFFIX[q.dtype]}"
+        code = _build.entry(name)(
+            pq, pk, pv, *ptrs, bt.data_ptr(), out.data_ptr(), C, H, K, hd, ps, P, past,
+            PREFILL_BLOCK_ROWS, *ks, *vs, *strides, scale, stream,
+        )
     _build.check(code, name)
-    return out
+    return out, tc
 
 
 def paged_decode_attention(
@@ -220,12 +288,14 @@ def paged_prefill_attention(
     torch.Tensor
         ``(C, H, hd)`` in ``q.dtype``.
     """
-    out = _prefill(q, k_pages, v_pages, block_table, past, scale, None)
+    out, tc = _prefill(q, k_pages, v_pages, block_table, past, scale, None)
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.tc_launches += tc
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.tc_launches = 0
 
 
 def paged_prefill_attention_int8(
@@ -245,13 +315,15 @@ def paged_prefill_attention_int8(
     torch.Tensor
         ``(C, H, hd)`` in ``q.dtype`` (f32 accumulation, one rounding).
     """
-    out = _prefill(q, k_pages, v_pages, block_table, past, scale,
+    out, tc = _prefill(q, k_pages, v_pages, block_table, past, scale,
                    (k_scales, v_scales))
     paged_prefill_attention_int8.launches += 1
+    paged_prefill_attention_int8.tc_launches += tc
     return out
 
 
 paged_prefill_attention_int8.launches = 0
+paged_prefill_attention_int8.tc_launches = 0
 
 
 def check_block_table_bounds(

@@ -49,9 +49,9 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
                          f"{tuple(gamma.shape)}")
     out = torch.empty_like(x)
     name = f"rmsnorm_{_SUFFIX[x.dtype]}"
-    code = getattr(_build.library(), name)(
+    code = _build.entry(name)(
         x.data_ptr(), gamma.data_ptr(), out.data_ptr(), x.numel() // max(d, 1), d,
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        float(eps), _build.current_stream(x.device),
     )
     _build.check(code, name)
     rmsnorm.launches += 1

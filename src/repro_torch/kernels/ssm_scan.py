@@ -95,11 +95,11 @@ def ssm_scan(
     y = torch.empty((B, T, Dd), dtype=x.dtype, device=x.device)
     hT = torch.empty((B, Dd, N), dtype=torch.float32, device=x.device)
     name = f"ssm_scan_{_SUFFIX[x.dtype]}"
-    code = getattr(_build.library(), name)(
+    code = _build.entry(name)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
         hT.data_ptr(), B, T, Dd, N, *x.stride(), *dt.stride(), *Bm.stride(),
-        *Cm.stride(), torch.cuda.current_stream(x.device).cuda_stream,
+        *Cm.stride(), _build.current_stream(x.device),
     )
     _build.check(code, name)
     ssm_scan.launches += 1

@@ -579,3 +579,203 @@ def test_hybrid_engine_on_card_matches_cpu_tokens(dev, n_layers):
     assert counts["ssm_scan"] == n_mamba * (eng.admissions + eng.decode_steps)
     assert counts["flash_attention"] == (n_layers - n_mamba) * eng.admissions
     assert counts["decode_attention"] == (n_layers - n_mamba) * eng.decode_steps
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core bodies of flash and paged prefill attention (bf16)
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+# (H, K): g = 1, 6 and 8; at g = 6 the 64-row blocks end mid-group
+FLASH_GROUPS = [(8, 8), (12, 2), (16, 2)]
+GARBAGE_VALUES = [float("nan"), float("inf")]
+
+
+def _flash_inputs(rng, Sq, Sk, H, K, hd, dev, tail=0):
+    """bf16 q, k, v; k and v are the first Sk rows of buffers ``tail`` rows
+    longer, whose extra rows the kernel must never read."""
+    q = _randn(rng, (1, Sq, H, hd), BF16, dev)
+    kb, vb = _randn(rng, (1, Sk + tail, K, hd), BF16, dev), _randn(rng, (1, Sk + tail, K, hd),
+                                                                 BF16, dev)
+    return q, kb, vb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,K", FLASH_GROUPS)
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 386, 512])
+def test_flash_tensor_core_body_matches_plain_and_ignores_garbage_tails(
+        dev, Sq, H, K, hd, causal):
+    """bf16 at hd 64 and 128 takes the tensor-core body; rows past Sk in the
+    buffers k and v are cut from hold NaN or Inf, which must not change the
+    output by a bit."""
+    rng = np.random.default_rng(70)
+    q, kb, vb = _flash_inputs(rng, Sq, Sq, H, K, hd, dev, tail=37)
+    k, v = kb[:, :Sq], vb[:, :Sq]
+    before, tc0 = flash_attention.launches, flash_attention.tc_launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.tc_launches == tc0 + 1
+    _close(got, R.attention_ref(q, k, v, causal=causal), BF16)
+    for value in GARBAGE_VALUES:
+        kb[:, Sq:], vb[:, Sq:] = value, value
+        assert torch.equal(flash_attention(q, kb[:, :Sq], vb[:, :Sq], causal=causal), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk", [(65, 130), (130, 65), (1, 700)])
+def test_flash_tensor_core_body_bidirectional_other_lengths(dev, Sq, Sk):
+    rng = np.random.default_rng(71)
+    q, k, v = _flash_inputs(rng, Sq, Sk, 12, 2, 128, dev)
+    tc0 = flash_attention.tc_launches
+    _close(flash_attention(q, k, v, causal=False), R.attention_ref(q, k, v, causal=False),
+           BF16)
+    assert flash_attention.tc_launches == tc0 + 1
+
+
+# (past, C): past off the page and the 64-token tile, C = 1, 17 and 64,
+# contexts ending mid-page and mid-tile, and the timed chunk
+PREFILL_TC_CASES = [(0, 1), (0, 17), (0, 64), (5, 1), (37, 17), (100, 64), (130, 17),
+                    (448, 64), (1000, 17)]
+
+
+def _prefill_tc_case(rng, past, C, H, K, hd, ps, dev):
+    """q, a block table and the (P, ps) mask of live slots (every slot
+    before ctx = past + C); spare pages are never referenced."""
+    ctx = past + C
+    npp = -(-ctx // ps) + 1
+    P = npp + 3
+    bt = rng.permutation(np.arange(1, P))[:npp].astype(np.int32)
+    live = torch.zeros(P, ps, dtype=torch.bool)
+    for t in range(ctx):
+        live[bt[t // ps], t % ps] = True
+    return _randn(rng, (C, H, hd), BF16, dev), torch.from_numpy(bt).to(dev), live, P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,hd,ps", WIDTHS)
+@pytest.mark.parametrize("past,C", PREFILL_TC_CASES)
+def test_prefill_tensor_core_body_matches_plain_and_ignores_nan_garbage(
+        dev, H, K, hd, ps, past, C):
+    rng = np.random.default_rng(72)
+    q, bt, live, P = _prefill_tc_case(rng, past, C, H, K, hd, ps, dev)
+    kp, vp = _pools(rng, P, ps, K, hd, BF16, dev)
+    before, tc0 = paged_prefill_attention.launches, paged_prefill_attention.tc_launches
+    got = paged_prefill_attention(q, kp, vp, bt, past)
+    assert paged_prefill_attention.launches == before + 1
+    assert paged_prefill_attention.tc_launches == tc0 + 1
+    _close(got, R.paged_prefill_attention_ref(q, kp, vp, bt, past), BF16)
+    for value in GARBAGE_VALUES:
+        k2, v2 = kp.clone(), vp.clone()
+        k2[~live.to(dev)], v2[~live.to(dev)] = value, value
+        assert torch.equal(paged_prefill_attention(q, k2, v2, bt, past), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,hd,ps", WIDTHS)
+@pytest.mark.parametrize("past,C", PREFILL_TC_CASES)
+def test_int8_prefill_tensor_core_body_matches_plain_and_ignores_garbage_scales(
+        dev, H, K, hd, ps, past, C):
+    rng = np.random.default_rng(73)
+    q, bt, live, P = _prefill_tc_case(rng, past, C, H, K, hd, ps, dev)
+    kq, vq, ks, vs, dead = _int8_case(rng, P, ps, K, hd, live, dev)
+    before = paged_prefill_attention_int8.launches
+    tc0 = paged_prefill_attention_int8.tc_launches
+    got = paged_prefill_attention_int8(q, kq, vq, bt, past, ks, vs)
+    assert paged_prefill_attention_int8.launches == before + 1
+    assert paged_prefill_attention_int8.tc_launches == tc0 + 1
+    _close(got, R.paged_prefill_attention_ref(q, kq, vq, bt, past, k_scales=ks, v_scales=vs),
+           BF16)
+    for value in GARBAGE_SCALES:
+        k2, v2 = _garbage_scales(ks, vs, dead, value)
+        assert torch.equal(paged_prefill_attention_int8(q, kq, vq, bt, past, k2, v2), got)
+
+
+@pytest.mark.gpu
+def test_tensor_core_bodies_read_strided_and_stacked_views(dev):
+    """Transposed q/k/v views and per-layer views of stacked pools take the
+    tensor-core body and give the result of their contiguous copies."""
+    g = torch.Generator(device=dev).manual_seed(74)
+    B, S, H, K, hd = 2, 150, 12, 2, 64
+    q = torch.randn(B, H, S, hd, generator=g, device=dev).to(BF16).transpose(1, 2)
+    k = torch.randn(B, K, S, hd, generator=g, device=dev).to(BF16).transpose(1, 2)
+    v = torch.randn(B, K, S, hd, generator=g, device=dev).to(BF16).transpose(1, 2)
+    tc0 = flash_attention.tc_launches
+    assert torch.equal(flash_attention(q, k, v),
+                       flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+    assert flash_attention.tc_launches == tc0 + 2
+    rng = np.random.default_rng(75)
+    pools = _randn(rng, (3, 2, 12, 16, K, 128), BF16, dev)       # (layers, k/v, P, ps, ...)
+    kq, ks = ops.quantize_kv(_randn(rng, (3, 12, 16, K, 128), torch.float32, dev))
+    vq, vs = ops.quantize_kv(_randn(rng, (3, 12, 16, K, 128), torch.float32, dev))
+    qc = _randn(rng, (40, H, 128), BF16, dev)
+    bt = torch.tensor([4, 9, 2, 7, 11], dtype=torch.int32, device=dev)
+    counts0, tcs0 = ops.launch_counts(), ops.tc_launch_counts()
+    got = ops.paged_prefill_attention(qc, pools[1, 0], pools[1, 1], bt, 27)
+    assert torch.equal(got, paged_prefill_attention(qc, pools[1, 0].contiguous(),
+                                                    pools[1, 1].contiguous(), bt, 27))
+    got = ops.paged_prefill_attention(qc, kq[2], vq[2], bt, 27, k_scales=ks[2],
+                                      v_scales=vs[2])
+    assert torch.equal(got, paged_prefill_attention_int8(
+        qc, kq[2].contiguous(), vq[2].contiguous(), bt, 27, ks[2].contiguous(),
+        vs[2].contiguous()))
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    for name in ("paged_prefill_attention", "paged_prefill_attention_int8"):
+        assert counts[name] - counts0[name] == tcs[name] - tcs0[name] == 2
+
+
+@pytest.mark.gpu
+def test_only_bf16_at_tensor_core_widths_takes_tensor_cores(dev):
+    """bf16 at hd 64 and 128 takes the tensor-core body; f32, MLA's 192/128
+    and a misaligned bf16 view take the CUDA-core body, and still match."""
+    rng = np.random.default_rng(76)
+    for hd in (64, 128):
+        for dtype, tc in ((BF16, 1), (torch.float32, 0)):
+            q, k, v = (_randn(rng, (1, 70, 4, hd), dtype, dev) for _ in range(3))
+            tc0 = flash_attention.tc_launches
+            flash_attention(q, k, v)
+            assert flash_attention.tc_launches == tc0 + tc
+            qc, bt, live, P = _prefill_tc_case(rng, 20, 30, 4, 4, hd, 16, dev)
+            kp, vp = _pools(rng, P, 16, 4, hd, dtype, dev)
+            qc = qc.to(dtype)
+            tc0 = paged_prefill_attention.tc_launches
+            paged_prefill_attention(qc, kp, vp, bt, 20)
+            assert paged_prefill_attention.tc_launches == tc0 + tc
+            kq, vq, ks, vs, _ = _int8_case(rng, P, 16, 4, hd, live, dev)
+            tc0 = paged_prefill_attention_int8.tc_launches
+            paged_prefill_attention_int8(qc, kq, vq, bt, 20, ks, vs)
+            assert paged_prefill_attention_int8.tc_launches == tc0 + tc
+    q = _randn(rng, (1, 70, 16, 192), BF16, dev)
+    k, v = _randn(rng, (1, 70, 16, 192), BF16, dev), _randn(rng, (1, 70, 16, 128), BF16, dev)
+    tc0 = flash_attention.tc_launches
+    _close(flash_attention(q, k, v), R.attention_ref(q, k, v), BF16)
+    qm = _randn(rng, (1, 70, 4, 65), BF16, dev)[..., 1:]          # rows 2 bytes off
+    assert qm.data_ptr() % 16 != 0
+    km, vm = _randn(rng, (1, 70, 4, 64), BF16, dev), _randn(rng, (1, 70, 4, 64), BF16, dev)
+    _close(flash_attention(qm, km, vm), R.attention_ref(qm, km, vm), BF16)
+    assert flash_attention.tc_launches == tc0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "internlm2_20b", "jamba_1_5_large_398b"])
+def test_bf16_engines_take_the_tensor_core_bodies(dev, arch):
+    """bf16 smoke models (hd 16): every flash and paged prefill call of the
+    slot and paged engines, fp and int8 pages, takes the tensor-core body."""
+    cfg = get_smoke_config(arch)
+    assert cfg.dtype == "bfloat16"
+    params = init_params(cfg, seed=3, device=dev)
+    prompts = [[1, 2, 3], list(range(4, 30)), [7] * 9, list(range(40, 57))]
+    engines = [LLMEngine(cfg, max_batch=4, max_len=64, params=params, device=dev)]
+    if arch != "jamba_1_5_large_398b":
+        engines += [PagedLLMEngine(cfg, max_seqs=4, max_len=64, page_size=8, prefill_chunk=8,
+                                   params=params, kv_dtype=kv, device=dev)
+                    for kv in ("fp32", "int8")]
+    for eng in engines:
+        ops.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            assert eng.admit(Request(rid=i, prompt=p, max_new_tokens=4))
+        while eng.batch_size or getattr(eng, "waiting", None):
+            eng.step()
+        counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+        assert sum(tcs.values()) > 0
+        assert all(tcs[name] == counts[name] for name in ops.TC_KERNELS), (counts, tcs)

@@ -1,0 +1,259 @@
+"""Which body serves a kernel call, decided on the host, without a card.
+
+The flash and paged-prefill wrappers choose between a bf16 tensor-core
+body and the f32 CUDA-core body by a pure-Python predicate on shapes,
+strides, dtypes and ``data_ptr() % 16``; the paged prefill also splits a
+chunk's context over a number of CTAs chosen on the host.  Both are held
+here on plain tuples.  The last tests hold that :mod:`repro_torch.kernels.ops`
+sends a CPU tensor to :mod:`repro_torch.kernels.ref` and nowhere else: the
+kernels' library is made to raise if anything reaches for it.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import ref as R
+from repro_torch.kernels.flash_attention import uses_tensor_cores
+from repro_torch.kernels.paged_attention import prefill_splits, prefill_uses_tensor_cores
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _contig(shape):
+    return tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+
+
+def _flash(q_shape, k_shape, v_shape, dtype=BF16, strides=None, misalign=(0, 0, 0)):
+    shapes = (q_shape, k_shape, v_shape)
+    return uses_tensor_cores(dtype, shapes, strides or tuple(map(_contig, shapes)), misalign)
+
+
+# (q, k, v shapes, dtype, expected): the main path's widths and the rest
+FLASH_SHAPES = [
+    ((1, 386, 32, 64), (1, 386, 32, 64), (1, 386, 32, 64), BF16, True),     # stablelm-1.6b
+    ((1, 512, 64, 128), (1, 512, 8, 128), (1, 512, 8, 128), BF16, True),    # Jamba-1.5-Large
+    ((2, 97, 48, 128), (2, 97, 8, 128), (2, 97, 8, 128), BF16, True),       # internlm2-20b
+    ((1, 9, 4, 16), (1, 9, 4, 16), (1, 9, 4, 16), BF16, True),              # smoke widths
+    ((1, 386, 32, 64), (1, 386, 32, 64), (1, 386, 32, 64), F32, False),     # f32: exact tokens
+    ((1, 70, 16, 192), (1, 70, 16, 192), (1, 70, 16, 128), BF16, False),    # MLA 192 / 128
+    ((1, 70, 8, 256), (1, 70, 8, 256), (1, 70, 8, 256), BF16, False),       # hd 256
+    ((1, 70, 8, 96), (1, 70, 8, 96), (1, 70, 8, 96), BF16, False),          # hd 96
+    ((1, 70, 8, 64), (1, 70, 8, 64), (1, 70, 8, 128), BF16, False),         # hd != hd_v
+    ((1, 70, 8, 64), (1, 70, 8, 64), (1, 70, 8, 64), torch.float16, False),
+]
+
+
+@pytest.mark.parametrize("q,k,v,dtype,want", FLASH_SHAPES)
+def test_flash_route_by_dtype_and_head_dim(q, k, v, dtype, want):
+    assert _flash(q, k, v, dtype) is want
+
+
+def test_flash_route_takes_transposed_views_with_aligned_rows():
+    """(B, H, S, hd) buffers seen as (B, S, H, hd): strides are multiples of
+    8 elements and the inner stride is 1, so rows stay 16-byte aligned."""
+    B, S, H, hd = 2, 150, 12, 64
+    st = (H * S * hd, hd, S * hd, 1)
+    assert _flash((B, S, H, hd), (B, S, 2, hd), (B, S, 2, hd),
+                  strides=(st, (2 * S * hd, hd, S * hd, 1), (2 * S * hd, hd, S * hd, 1)))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_route_refuses_misaligned_or_strided_rows(which):
+    shape = (1, 70, 4, 64)
+    good = _contig(shape)
+    # a data pointer off the 16-byte grid
+    mis = [0, 0, 0]
+    mis[which] = 2
+    assert not _flash(shape, shape, shape, misalign=tuple(mis))
+    # rows 65 elements apart (a slice of a wider buffer): 130 bytes
+    strides = [good] * 3
+    strides[which] = (70 * 4 * 65, 4 * 65, 65, 1)
+    assert not _flash(shape, shape, shape, strides=tuple(strides))
+    # an inner stride of 2
+    strides = [good] * 3
+    strides[which] = (70 * 4 * 128, 4 * 128, 128, 2)
+    assert not _flash(shape, shape, shape, strides=tuple(strides))
+
+
+def test_flash_route_ignores_the_stride_of_a_size_one_dim():
+    shape = (1, 70, 4, 64)
+    odd = (3, 4 * 64, 64, 1)   # the batch dim is never stepped
+    assert _flash(shape, shape, shape, strides=(odd, odd, odd))
+
+
+def _pools(P=20, ps=16, K=8, hd=128):
+    return (P, ps, K, hd)
+
+
+def _prefill(q_dtype, page_dtype, q_shape=(64, 48, 128), pool=None, strides=None,
+             misalign=(0, 0, 0)):
+    pool = pool or _pools(hd=q_shape[-1])
+    shapes = (q_shape, pool, pool)
+    return prefill_uses_tensor_cores(q_dtype, page_dtype, shapes,
+                                     strides or tuple(map(_contig, shapes)), misalign)
+
+
+# (q dtype, page dtype, q shape, page size, expected)
+PREFILL_CASES = [
+    (BF16, BF16, (64, 48, 128), 16, True),      # internlm2-20b, bf16 pages
+    (BF16, torch.int8, (64, 48, 128), 16, True),  # int8 pages
+    (BF16, BF16, (64, 32, 64), 16, True),       # stablelm-1.6b
+    (BF16, torch.int8, (64, 32, 64), 16, True),
+    (BF16, BF16, (8, 4, 16), 8, True),          # smoke widths, page 8
+    (BF16, torch.int8, (8, 4, 16), 8, True),
+    (F32, F32, (64, 32, 64), 16, False),        # f32: exact tokens
+    (F32, torch.int8, (64, 32, 64), 16, False),
+    (BF16, BF16, (64, 8, 256), 16, False),      # hd 256
+    (BF16, BF16, (64, 32, 64), 12, False),      # a page size that is not a power of two
+    (BF16, F32, (64, 32, 64), 16, False),
+]
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype,q_shape,ps,want", PREFILL_CASES)
+def test_prefill_route_by_dtype_head_dim_and_page_size(q_dtype, page_dtype, q_shape, ps, want):
+    pool = (20, ps, q_shape[1] // (6 if q_shape[1] == 48 else 1), q_shape[2])
+    assert _prefill(q_dtype, page_dtype, q_shape, pool) is want
+
+
+def test_prefill_route_takes_a_layer_view_of_stacked_pools():
+    """pool[i] of a (layers, P, ps, K, hd) stack: a page-sized stride and an
+    offset of whole layers keep every row 16-byte aligned."""
+    pool = (20, 16, 8, 128)
+    st = _contig(pool)
+    assert _prefill(BF16, BF16, pool=pool, strides=(_contig((64, 48, 128)), st, st))
+    assert _prefill(BF16, torch.int8, pool=pool, strides=(_contig((64, 48, 128)), st, st))
+
+
+def test_prefill_route_refuses_misaligned_page_rows():
+    pool = (20, 16, 8, 72)
+    q = (64, 48, 72)
+    assert not _prefill(BF16, torch.int8, q_shape=q, pool=pool)   # 72 not a TC width
+    pool = (20, 16, 8, 64)
+    q = (64, 48, 64)
+    rows_72 = (16 * 8 * 72, 8 * 72, 72, 1)     # int8 rows 72 bytes apart
+    assert not _prefill(BF16, torch.int8, q_shape=q, pool=pool,
+                        strides=(_contig(q), rows_72, rows_72))
+    assert not _prefill(BF16, BF16, q_shape=q, pool=pool, misalign=(0, 0, 8))
+    assert not _prefill(BF16, BF16, q_shape=q, pool=pool, misalign=(4, 0, 0))
+
+
+@pytest.mark.parametrize("shape,strides,misalign,itemsize,want", [
+    ((4, 8), (8, 1), 0, 2, True),
+    ((4, 8), (8, 1), 2, 2, False),
+    ((4, 8), (9, 1), 0, 2, False),
+    ((4, 8), (16, 2), 0, 2, False),
+    ((4, 16), (16, 1), 0, 1, True),
+    ((4, 16), (24, 1), 0, 1, False),
+    ((1, 8), (5, 1), 0, 2, True),
+])
+def test_rows_16b(shape, strides, misalign, itemsize, want):
+    assert _build.rows_16b(shape, strides, misalign, itemsize) is want
+
+
+@pytest.mark.parametrize("K,rows,n_tiles,sms,want", [
+    (32, 64, 8, 132, 8),     # stablelm-1.6b, C = 64 at past = 448: 256 CTAs
+    (8, 384, 8, 132, 4),     # internlm2-20b, C = 64 at past = 448: 192 CTAs
+    (32, 64, 1, 132, 1),     # one key tile: nothing to split
+    (32, 64, 3, 132, 2),     # never more splits than tiles
+    (8, 48, 100, 132, 8),    # at most one cluster of 8
+    (48, 6 * 64, 8, 132, 1),  # the row blocks alone fill the card
+    (1, 64, 16, 4, 4),
+])
+def test_prefill_splits(K, rows, n_tiles, sms, want):
+    splits = prefill_splits(K, rows, n_tiles, sms)
+    assert splits == want
+    assert splits & (splits - 1) == 0 and splits <= _build.TC_MAX_SPLITS
+
+
+# ---------------------------------------------------------------------------
+# a CPU tensor never reaches the kernels
+# ---------------------------------------------------------------------------
+def _no_library(*args, **kwargs):
+    raise AssertionError("a CPU tensor reached the CUDA kernels' library")
+
+
+@pytest.fixture
+def no_kernels(monkeypatch):
+    monkeypatch.setattr(_build, "library", _no_library)
+    monkeypatch.setattr(_build, "entry", _no_library)
+    before = (ops.launch_counts(), ops.tc_launch_counts())
+    yield
+    assert (ops.launch_counts(), ops.tc_launch_counts()) == before
+
+
+def _t(rng, shape, dtype):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+
+
+def _paged_inputs(rng, dtype, q8):
+    P, ps, K, hd = 9, 8, 2, 16
+    kp, vp = _t(rng, (P, ps, K, hd), F32), _t(rng, (P, ps, K, hd), F32)
+    scales = {}
+    if q8:
+        kp, ks = ops.quantize_kv(kp)
+        vp, vs = ops.quantize_kv(vp)
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return kp, vp, scales
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_attention_sends_cpu_tensors_to_the_plain_version(no_kernels, dtype, causal):
+    rng = np.random.default_rng(80)
+    q, k, v = _t(rng, (1, 11, 6, 16), dtype), _t(rng, (1, 11, 2, 16), dtype), \
+        _t(rng, (1, 11, 2, 16), dtype)
+    assert torch.equal(ops.attention(q, k, v, causal=causal),
+                       R.attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ops_decode_attention_sends_cpu_tensors_to_the_plain_version(no_kernels, dtype):
+    rng = np.random.default_rng(81)
+    q, kc, vc = _t(rng, (3, 6, 16), dtype), _t(rng, (3, 20, 2, 16), dtype), \
+        _t(rng, (3, 20, 2, 16), dtype)
+    ln = torch.tensor([1, 7, 20], dtype=torch.int32)
+    assert torch.equal(ops.decode_attention(q, kc, vc, ln), R.decode_attention_ref(q, kc, vc, ln))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("q8", [False, True])
+def test_ops_paged_attention_sends_cpu_tensors_to_the_plain_versions(no_kernels, dtype, q8):
+    rng = np.random.default_rng(82)
+    kp, vp, scales = _paged_inputs(rng, dtype, q8)
+    bt = torch.tensor([[3, 5, 1], [2, 7, 8]], dtype=torch.int32)
+    ln = torch.tensor([17, 9], dtype=torch.int32)
+    q = _t(rng, (2, 4, 16), dtype)
+    assert torch.equal(ops.paged_decode_attention(q, kp, vp, bt, ln, **scales),
+                       R.paged_decode_attention_ref(q, kp, vp, bt, ln, **scales))
+    qc = _t(rng, (7, 4, 16), dtype)
+    assert torch.equal(ops.paged_prefill_attention(qc, kp, vp, bt[0], 10, **scales),
+                       R.paged_prefill_attention_ref(qc, kp, vp, bt[0], 10, **scales))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ops_rmsnorm_and_scan_send_cpu_tensors_to_the_plain_versions(no_kernels, dtype):
+    rng = np.random.default_rng(83)
+    x, g = _t(rng, (5, 32), dtype), _t(rng, (32,), dtype)
+    assert torch.equal(ops.rmsnorm(x, g), R.rmsnorm_ref(x, g))
+    B, T, D, N = 2, 5, 12, 4
+    xs, dt = _t(rng, (B, T, D), dtype), _t(rng, (B, T, D), dtype).abs() * 0.1
+    A = -_t(rng, (D, N), F32).abs() - 0.1
+    Bm, Cm, Dk = _t(rng, (B, T, N), dtype), _t(rng, (B, T, N), dtype), _t(rng, (D,), dtype)
+    y, h = ops.ssm_scan(xs, dt, A, Bm, Cm, Dk)
+    yr, hr = R.ssm_scan_ref(xs, dt, A, Bm, Cm, Dk)
+    assert torch.equal(y, yr) and torch.equal(h, hr)
+
+
+def test_ops_cuda_route_refuses_cpu_tensors(no_kernels):
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_prefill_attention(q[0], q, q, torch.zeros(2, dtype=torch.int32), 0,
+                                    impl="cuda")
