@@ -13,7 +13,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    CUDA, nvcc and triton versions, the kernels' build time, ``ptxas``'s
    registers and spills, and (where the toolkit has ``cuobjdump``) the
    ``HMMA``/``HGMMA`` instructions in each kernel's SASS: every
-   tensor-core body must hold some;
+   tensor-core body must hold some; ``split_bodies`` lists each
+   instantiation of the split-context decode body (registers, spills,
+   SASS instructions, ``HMMA`` of its tensor-core form);
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, in bf16 and f32, at the main path's shapes (stablelm-1.6b:
    H = K = 32, hd = 64, page 16) and at internlm2-20b's GQA widths
@@ -28,15 +30,29 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    forms of both paged kernels are held against their plain versions at
    those widths with f32 and bf16 queries, with +-99 payloads in every
    unreferenced slot, whose scales set to NaN, Inf or 1e30 must leave the
-   output unchanged to the bit.
+   output unchanged to the bit.  Both decode kernels (int8 pages too) also
+   at lengths 0, 1, ps, ps + 1 and the capacity in one batch: zeros at
+   length 0 with NaN past every length (int8: NaN, Inf or 1e30 scales),
+   every call through the split-context body (``split_launches``); then
+   paged decode (fp and int8 pages, f32 and bf16) again with the pools'
+   rows moved off 16 bytes, every call through the one-block-a-row body,
+   and MLA's 192 / 128 through the other slot body.
    Times (CUDA events, median) of the kernel, its plain version and one
    PyTorch library call for the same function (a yardstick the port
    never calls), beside the least time the card could take, and the
    device time of one call of the kernel and of the library call
    (``device_ms``, ``library_device_ms``: ``torch.profiler`` over 20
-   calls).  Flash and paged prefill (fp and int8 pages) are also timed at
-   Jamba-1.5-Large's and internlm2-20b's widths (``timing_bf16_wide``), and
-   every bf16 call of theirs timed must take the tensor-core body;
+   calls).  The decode kernels' rows add ``cold_device_ms`` and
+   ``library_cold_device_ms``: the same calls rotating over enough copies
+   of their inputs that each finds its K/V out of the L2 cache, as a decode
+   step does; no cold reading may beat the bytes bound; and
+   ``other_body_host_ms``, the wrapper's host time when the one-block-a-row
+   body serves the same call (K/V rows moved off 16 bytes).  Flash and paged
+   prefill (fp and int8 pages) are also timed at Jamba-1.5-Large's and
+   internlm2-20b's widths (``timing_bf16_wide``), and every bf16 call of
+   theirs timed must take the tensor-core body; so are paged decode (fp and
+   int8 pages) at internlm2-20b's and slot decode at Jamba-1.5-Large's, and
+   every decode call timed must take the split-context body;
 3. ``held``    — stablelm-1.6b at full width cut to 2 layers, float32:
    the same weights and requests through the paged engine on the card
    and on the CPU must give the same greedy tokens, with fp pages and
@@ -57,7 +73,8 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    LLMSched and then FCFS on one slot replica (flash and slot decode
    kernels, exact launch accounting; every bf16 flash and paged prefill
    call of every serving run must take the tensor-core body, counted in
-   ``tc_launches``), then under LLMSched on two paged
+   ``tc_launches``, and every decode call the split-context body, counted
+   in ``split_launches``), then under LLMSched on two paged
    replicas with a small and a large page pool, live migration and the
    prefix cache, once with bf16 pages and once with int8 pages at the
    same pool bytes;
@@ -95,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import signal
 import statistics
@@ -121,6 +139,8 @@ TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # the special-function units' exp rate: 16 a clock per SM (Hopper)
 SFU_EXP_PER_CLOCK_PER_SM = 16
+# host seconds between a traced window's edges and the work it measures
+TRACE_PAD_S = 0.01
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid")
 KERNEL_META = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -203,9 +223,13 @@ def time_ms(fn, groups: int = 15, per_group: int = 10) -> float:
 def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     """Device time of one call from ``torch.profiler``: every kernel that
     ``calls`` back-to-back calls launch (after a warm-up), summed by kernel
-    name and divided by ``calls``.  ``device_ms`` is their sum.  A window
-    whose trace lost events (a kernel seen other than a whole number of
-    times a call) is measured again, up to ``windows`` times in all."""
+    name and divided by ``calls``.  ``device_ms`` is their sum.  The calls
+    sit ``TRACE_PAD_S`` inside the traced window on each side: the tracer
+    drops a kernel whose device timestamp, mapped onto the host clock, falls
+    outside the window, and that mapping drifts over a long process.  A
+    window whose trace lost events all the same (a kernel seen other than a
+    whole number of times a call) is measured again, up to ``windows``
+    times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -213,9 +237,11 @@ def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     torch.cuda.synchronize()
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
         by_kernel = {}
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -260,6 +286,50 @@ def _times(kernel, plain, library=None) -> dict:
     return out
 
 
+def _cold_device_ms(fn, tensors, touched: int, dev) -> dict:
+    """Device time of one call of ``fn(*tensors)`` whose inputs come cold
+    from HBM, as in a decode step, where the other layers' KV has evicted
+    this layer's from the L2 cache: the calls rotate over ``copies`` clones
+    of ``tensors``, so that between two calls on one copy the calls touch
+    more than twice the L2's bytes (``touched`` bytes a call)."""
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 * 2**20)
+    copies = min(32, max(3, -(-2 * l2 // touched) + 1))
+    sets = itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(copies)])
+    return {"cold_device_ms": device_ms(lambda: fn(*next(sets)))["device_ms"],
+            "cold_copies": copies}
+
+
+def _decode_row(kernel, kernel_in, plain, library, library_in, nbytes, flops, dev,
+                shape) -> dict:
+    """A decode kernel's timing row, bf16: ``_times`` (warm: the same inputs
+    call after call, out of the L2 cache), the bound, and the device time of
+    the kernel and of the library call with cold inputs; no cold reading may
+    beat the bytes bound (a warm one may: it reads the L2).
+    ``other_body_host_ms`` is ``host_ms`` of the same wrapper with its K/V
+    rows moved off 16 bytes, which the one-block-a-row body serves: in one
+    process, the host cost of the route decode calls took before the split
+    body (predicate, split rule and cluster launch) against the new one."""
+    from repro_torch.kernels import ops
+
+    nb, fl = bound(nbytes, flops, torch.bfloat16)
+    row = dict(**_times(lambda: kernel(*kernel_in), plain, lambda: library(*library_in)),
+               bound_ms=nb, bound_by=fl, shape=shape)
+    other = (_misaligned(kernel_in[0]), _misaligned(kernel_in[1])) + tuple(kernel_in[2:])
+    calls0, split0 = sum(ops.launch_counts().values()), ops.split_launch_counts()
+    row["other_body_host_ms"] = host_ms(lambda: kernel(*other))
+    check(ops.split_launch_counts() == split0, "a misaligned decode call took the split body")
+    row["other_body_calls"] = sum(ops.launch_counts().values()) - calls0
+    del other
+    cold = _cold_device_ms(kernel, kernel_in, nbytes, dev)
+    lib = _cold_device_ms(library, library_in,
+                          sum(t.numel() * t.element_size() for t in library_in), dev)
+    row.update(cold, library_cold_device_ms=lib["cold_device_ms"],
+               library_cold_copies=lib["cold_copies"])
+    check(row["cold_device_ms"] >= nb and row["library_cold_device_ms"] >= nb,
+          f"a cold reading beats its bytes bound {nb} ms: {row}")
+    return row
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -284,8 +354,10 @@ def phase_env(build_mod) -> dict:
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "Compiling entry" in ln or "spill" in ln
              or "error" in ln]
+    sass = _sass_mma(build_mod, info["path"])
     env = {
-        "sass_mma": _sass_mma(build_mod, info["path"]),
+        "sass_mma": sass,
+        "split_bodies": _split_bodies(info["log"], sass),
         "nvidia_smi": smi_line(),
         "device": torch.cuda.get_device_name(0),
         "device_count": torch.cuda.device_count(),
@@ -330,6 +402,74 @@ def _sass_mma(build_mod, lib_path: str):
     check(len(tc) == 9 and all(v["HMMA"] + v["HGMMA"] > 0 for v in tc.values()),
           f"a tensor-core body without tensor-core instructions: {tc}")
     return counts
+
+
+def _split_key(name: str):
+    """``decode_split<HD, G, q dtype, page dtype, slot|paged>`` (CUDA-core
+    form) or ``decode_split_tc<HD, bf16|int8, slot|paged>`` (tensor-core
+    form) of one instantiation of the split-context decode body, from its
+    mangled or demangled name; None for another kernel."""
+    import re
+
+    flag = r"(?:\(bool\))?(true|false|1|0)"
+    num = r"(?:\(int\))?(\d+)"
+    m = re.search(r"decode_split_tc_kernelILi(\d+)ELb([01])ELb([01])E", name) or \
+        re.search(rf"decode_split_tc_kernel<{num}, {flag}, {flag}>", name)
+    if m:
+        pages = "int8" if m.group(2) in ("true", "1") else "bf16"
+        where = "paged" if m.group(3) in ("true", "1") else "slot"
+        return f"decode_split_tc<{m.group(1)}, {pages}, {where}>"
+    m = re.search(r"decode_split_kernelILi(\d+)ELi(\d+)E(.*?)Lb([01])E", name)
+    if m:
+        t = "bf16" if m.group(3).startswith("13__nv_bfloat16") else "f32"
+        tp = "int8" if m.group(3).endswith("a") else t
+        hd, g, paged = m.group(1), m.group(2), m.group(4) == "1"
+    else:
+        # c++filt: <128, 4, float, signed char, true>; cu++filt: <(int)128, ..., (bool)1>
+        m = re.search(rf"decode_split_kernel<{num}, {num}, ([^,]+), ([^,]+), {flag}>", name)
+        if not m:
+            return None
+        names = {"__nv_bfloat16": "bf16", "float": "f32", "signed char": "int8"}
+        hd, g, t, tp, paged = (m.group(1), m.group(2), names[m.group(3)], names[m.group(4)],
+                               m.group(5) in ("true", "1"))
+    return f"decode_split<{hd}, {g}, {t}, {tp}, {'paged' if paged else 'slot'}>"
+
+
+#: instantiations of the split body: the CUDA-core form at G = 1, 2 for bf16
+#: q and 1, 2, 4 for f32 q, the tensor-core form for bf16 q; each at hd 16,
+#: 64 and 128 over slot caches, paged pools and int8 pools
+SPLIT_BODIES = 3 * (3 * 2 + 3 * 3) + 3 * 3
+
+
+def _split_bodies(log: str, sass) -> dict:
+    """Each instantiation of the split-context decode body: ``ptxas``'s
+    registers and spill bytes, and its SASS instruction count (and, for the
+    tensor-core form, its ``HMMA`` count, which must not be 0) where the
+    toolkit has ``cuobjdump``."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            key = _split_key(line.split("'")[1])
+            if key is not None:
+                out[key] = {}
+        elif key is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[key]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[key]["spill_loads"] = int(words[-4])
+        elif key is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            out[key]["registers"] = int(words[words.index("registers,") - 1])
+    for name, counts in (sass or {}).items():
+        key = _split_key(name)
+        if key in out:
+            out[key]["sass_instructions"] = counts["instructions"]
+            if key.startswith("decode_split_tc"):
+                out[key]["HMMA"] = counts["HMMA"]
+    check(len(out) == SPLIT_BODIES,
+          f"expected {SPLIT_BODIES} split-body instantiations, found {len(out)}")
+    check(all(v.get("HMMA", 1) > 0 for v in out.values()),
+          f"a tensor-core decode body without HMMA: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -518,6 +658,102 @@ def _check_int8_kernels(dev, errs, cases) -> None:
                 cases.append(("int8 prefill", label, str(dtype), past))
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view whose rows start one element into rows one
+    element wider: off 16 bytes, so the split-context body refuses it."""
+    wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, dtype=t.dtype, device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
+def _check_decode_edges(dev, errs, cases) -> None:
+    """Both decode kernels (int8 pages too), f32 and bf16, at stablelm-1.6b's
+    widths over lengths 0, 1, ps, ps + 1, the capacity and mixed: zeros at
+    length 0 with NaN everywhere past the lengths (int8: NaN, Inf and 1e30
+    scales there, which must not change the output by a bit), the plain
+    version's output at the other lengths.  Once with 16-byte pool and
+    cache rows, where the split body must take every call, and once with
+    the paged pools' rows moved off 16 bytes, where the one-block-a-row
+    body must take every paged call; MLA decode's 192 / 128 slot cache
+    must take the other body too."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_int8,
+    )
+
+    rng = np.random.default_rng(15)
+    H, K, hd, ps, npp = 32, 32, 64, 16, 64
+    cap = ps * npp
+    lens = np.array([0, 1, ps, ps + 1, cap, 33, 515, cap - 7], np.int32)
+    B = len(lens)
+    for body in ("split", "other"):
+        place = _misaligned if body == "other" else (lambda t: t)
+        before = (ops.launch_counts(), ops.split_launch_counts())
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, bt, ln, garbage = _decode_case(rng, B, H, K, hd, ps, npp, lens, dtype,
+                                                      dev)
+            kq, vq, ks, vs = _int8_pools(kp.float(), vp.float(), garbage)
+            runs = {"paged_decode_attention": (
+                lambda k, v: paged_decode_attention(q, k, v, bt, ln),
+                lambda k, v: R.paged_decode_attention_ref(q, k, v, bt, ln), kp, vp, garbage)}
+            if body == "split":
+                kc = R.gather_pages(kp, bt)                  # (B, cap, K, hd) slot caches
+                vc = R.gather_pages(vp, bt)
+                tail = torch.from_numpy(np.arange(cap)[None, :] >= lens[:, None]).to(dev)
+                runs["decode_attention"] = (
+                    lambda k, v: decode_attention(q, k, v, ln),
+                    lambda k, v: R.decode_attention_ref(q, k, v, ln), kc, vc, tail)
+            for name, (kern, plain, k, v, dead) in runs.items():
+                k99, v99 = k.clone(), v.clone()
+                k99[dead], v99[dead] = 99.0, -99.0
+                k99, v99 = place(k99), place(v99)
+                got = kern(k99, v99)
+                errs[name] = max(errs[name], _err(got[1:], plain(k99, v99)[1:], dtype))
+                knan, vnan = k.clone(), v.clone()
+                knan[dead], vnan[dead] = float("nan"), float("nan")
+                got = kern(place(knan), place(vnan))
+                check(torch.equal(got[0], torch.zeros_like(got[0])),
+                      f"{name}: length 0 did not give zeros ({body} body, {dtype})")
+                check(torch.equal(got, kern(place(k), place(v))),
+                      f"{name}: NaN past the lengths leaked ({body} body, {dtype})")
+            kq, vq = place(kq), place(vq)
+            got = paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs)
+            errs["paged_decode_attention_int8"] = max(
+                errs["paged_decode_attention_int8"],
+                _err(got[1:], R.paged_decode_attention_ref(q, kq, vq, bt, ln, k_scales=ks,
+                                                           v_scales=vs)[1:], dtype))
+            check(torch.equal(got[0], torch.zeros_like(got[0])),
+                  f"int8 decode: length 0 did not give zeros ({body} body, {dtype})")
+            for bad in GARBAGE_SCALES:
+                k2, v2 = _poisoned(ks, vs, garbage, bad)
+                check(torch.equal(paged_decode_attention_int8(q, kq, vq, bt, ln, k2, v2), got),
+                      f"int8 decode output changed under {bad} scales ({body} body, {dtype})")
+            cases.append(("decode edges", body, str(dtype)))
+        counts, splits = ops.launch_counts(), ops.split_launch_counts()
+        served = {k: (counts[k] - before[0][k], splits[k] - before[1][k])
+                  for k in ops.SPLIT_KERNELS}
+        if body == "split":
+            check(all(n == m > 0 for n, m in served.values()),
+                  f"a decode call missed the split body: {served}")
+        else:
+            check(all(n > 0 and m == 0 for k, (n, m) in served.items()
+                      if k != "decode_attention"),
+                  f"a misaligned paged decode call took the split body: {served}")
+    # MLA decode (hd 192, hd_v 128) takes the one-block-a-row body
+    q = _on(dev, torch.bfloat16, rng.normal(size=(2, 16, 192)).astype(np.float32))[0]
+    kc, vc = _on(dev, torch.bfloat16, rng.normal(size=(2, 64, 16, 192)).astype(np.float32),
+                 rng.normal(size=(2, 64, 16, 128)).astype(np.float32))
+    ln = torch.tensor([5, 64], dtype=torch.int32, device=dev)
+    split0 = ops.split_launch_counts()["decode_attention"]
+    errs["decode_attention"] = max(errs["decode_attention"], _err(
+        decode_attention(q, kc, vc, ln), R.decode_attention_ref(q, kc, vc, ln), torch.bfloat16))
+    check(ops.split_launch_counts()["decode_attention"] == split0,
+          "MLA decode (192 / 128) took the split body")
+    cases.append(("decode MLA 192/128",))
+
+
 def _scan_inputs(rng, B, T, D, N, dtype, dev, r=512):
     """Selective-scan inputs in the Mamba layer's layout: x, dt (B, T, D),
     A (D, N) f32, B and C as strided column slices of one (B, T, r + 2N)
@@ -607,6 +843,82 @@ def _ssm_timing(dev, rng, B, T, D, N, with_h0: bool) -> dict:
         shape=f"B={B} T={T} D={D} N={N} h0={'given' if with_h0 else 'none'}, B/C strided")
 
 
+def _paged_decode_rows(q, kp, vp, bt, ln, lens, errs, dev, shape):
+    """Timing rows of paged decode over bf16 pages and over the same K/V
+    quantized to int8 pages, bf16 q; each also held against its plain
+    version.  SDPA runs on the gathered (and for int8 dequantized) K/V with
+    a length mask (gather and dequantize untimed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_int8,
+    )
+
+    dt, es = torch.bfloat16, 2
+    B, H, hd = q.shape
+    _, ps, K, _ = kp.shape
+    errs["paged_decode_attention"] = max(errs["paged_decode_attention"], _err(
+        paged_decode_attention(q, kp, vp, bt, ln), R.paged_decode_attention_ref(
+            q, kp, vp, bt, ln), dt))
+    mask = (torch.arange(bt.shape[1] * ps, device=dev)[None, :] < ln[:, None].long())
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None]
+
+    def dense(pool):
+        return R.gather_pages(pool, bt).transpose(1, 2).contiguous()   # (B, K, S, hd)
+
+    tokens = int(lens.sum())
+    table = 4 * int(sum(-(-int(n) // ps) for n in lens)) + 4 * B
+    g = H // K
+    fp = _decode_row(
+        lambda k, v: paged_decode_attention(q, k, v, bt, ln), (kp, vp),
+        lambda: R.paged_decode_attention_ref(q, kp, vp, bt, ln),
+        lambda k, v: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                                    enable_gqa=g > 1),
+        (dense(kp), dense(vp)), 2 * B * H * hd * es + 2 * tokens * K * hd * es + table,
+        4 * H * hd * tokens, dev, shape)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    errs["paged_decode_attention_int8"] = max(
+        errs["paged_decode_attention_int8"],
+        _err(paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs),
+             R.paged_decode_attention_ref(q, kq, vq, bt, ln, k_scales=ks, v_scales=vs), dt))
+    q8 = _decode_row(
+        lambda k, v, a, b: paged_decode_attention_int8(q, k, v, bt, ln, a, b),
+        (kq, vq, ks, vs),
+        lambda: R.paged_decode_attention_ref(q, kq, vq, bt, ln, k_scales=ks, v_scales=vs),
+        lambda k, v: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                                    enable_gqa=g > 1),
+        (dense(R.dequantize_pages_ref(kq, ks).to(dt)),
+         dense(R.dequantize_pages_ref(vq, vs).to(dt))),
+        2 * B * H * hd * es + 2 * tokens * K * hd + 2 * tokens * K * 4 + table,
+        4 * H * hd * tokens + 2 * tokens * K * hd, dev, shape + ", int8 pages, bf16 q")
+    return fp, q8
+
+
+def _slot_decode_row(q, kc, vc, ln, lens, dev, shape) -> dict:
+    """Timing row of slot decode, bf16; SDPA with a length mask over the
+    (B, K, S_max, hd) transposed cache (transposed untimed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    es = 2
+    B, H, hd = q.shape
+    _, S, K, _ = kc.shape
+    smask = (torch.arange(S, device=dev)[None, :] < ln[:, None].long())[:, None, None, :]
+    tokens = int(lens.sum())
+    return _decode_row(
+        lambda k, v: decode_attention(q, k, v, ln), (kc, vc),
+        lambda: R.decode_attention_ref(q, kc, vc, ln),
+        lambda k, v: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=smask,
+                                                    enable_gqa=H > K),
+        (kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()),
+        2 * B * H * hd * es + 2 * tokens * K * hd * es + 4 * B, 4 * H * hd * tokens, dev,
+        shape)
+
+
 def _wide_timing(dev, errs) -> dict:
     """The tensor-core bodies timed at the main path's other widths, bf16,
     with inputs from a generator of their own (the first slices' timed
@@ -619,6 +931,7 @@ def _wide_timing(dev, errs) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import (
         paged_prefill_attention, paged_prefill_attention_int8,
@@ -683,6 +996,25 @@ def _wide_timing(dev, errs) -> dict:
                                                         enable_gqa=True)),
         bound_ms=nb, bound_by=fl,
         shape=f"internlm2-20b: C={C} past={past} H={H} K={K} hd={hd} ps={ps}, int8 pages")
+    # the decode kernels: paged at internlm2-20b's widths (B = 8 over
+    # 96..800 tokens, pages of 16), slot at Jamba-1.5-Large's (the hybrid
+    # phase's attention layer: 4 slots of S_max = 1024)
+    lens = rng.integers(96, 801, size=8)
+    q, kp, vp, bt, ln, _ = _decode_case(rng, 8, H, K, hd, ps, 64, lens, dt, dev)
+    wide["paged_decode_attention"], wide["paged_decode_attention_int8"] = _paged_decode_rows(
+        q, kp, vp, bt, ln, lens, errs, dev,
+        f"internlm2-20b: B=8 H={H} K={K} hd={hd} ps={ps} tokens={int(lens.sum())}")
+    del kp, vp
+    B, S, H, K, hd = 4, 1024, 64, 8, 128
+    lens = np.array([386, 400, 430, 460], np.int32)
+    q, kc, vc = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
+                               for sh in ((B, H, hd), (B, S, K, hd), (B, S, K, hd))))
+    ln = torch.from_numpy(lens).to(dev)
+    errs["decode_attention"] = max(errs["decode_attention"], _err(
+        decode_attention(q, kc, vc, ln), R.decode_attention_ref(q, kc, vc, ln), dt))
+    wide["decode_attention"] = _slot_decode_row(
+        q, kc, vc, ln, lens, dev,
+        f"jamba-1.5-large: B={B} S_max={S} H={H} K={K} hd={hd} tokens={int(lens.sum())}")
     return wide
 
 
@@ -724,15 +1056,62 @@ def _tc_scaling(dev) -> dict:
             "paged_prefill_splits_device_ms": splits}
 
 
+def _decode_split_sweep(dev) -> dict:
+    """Device time (profiler) of the split decode body at 1, 2, 4 and 8
+    context splits against the count ``decode_splits`` picks, bf16, at the
+    timed shapes: slot decode at stablelm-1.6b's and Jamba-1.5-Large's
+    widths (B = 4, lengths 386..460), paged decode over bf16 and int8 pages
+    at stablelm-1.6b's and over bf16 pages at internlm2-20b's (B = 8 over
+    96..800 tokens); each also at length 0, the launch's fixed cost."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_attention as PA
+
+    rng = np.random.default_rng(16)
+    dt = torch.bfloat16
+    cases = {}
+    for label, (H, K, hd) in {"slot stablelm-1.6b": (32, 32, 64),
+                              "slot jamba-1.5-large": (64, 8, 128)}.items():
+        q, kc, vc = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
+                                   for sh in ((4, H, hd), (4, 1024, K, hd), (4, 1024, K, hd))))
+        ln = torch.tensor([386, 400, 430, 460], dtype=torch.int32, device=dev)
+        cases[label] = (lambda l, q=q, kc=kc, vc=vc: DA.decode_attention(q, kc, vc, l), ln,
+                        _build.decode_launch(4, H, K, 1024, dt, q.device.index)[1])
+    for label, (H, K, hd, q8) in {"paged stablelm-1.6b": (32, 32, 64, False),
+                                  "paged stablelm-1.6b int8": (32, 32, 64, True),
+                                  "paged internlm2-20b": (48, 8, 128, False)}.items():
+        lens = rng.integers(96, 801, size=8)
+        q, kp, vp, bt, ln, _ = _decode_case(rng, 8, H, K, hd, 16, 64, lens, dt, dev)
+        if q8:
+            kq, vq, ks, vs = _int8_pools(kp, vp)
+            fn = (lambda l, q=q, kq=kq, vq=vq, bt=bt, ks=ks, vs=vs:
+                  PA.paged_decode_attention_int8(q, kq, vq, bt, l, ks, vs))
+        else:
+            fn = lambda l, q=q, kp=kp, vp=vp, bt=bt: PA.paged_decode_attention(q, kp, vp, bt, l)
+        cases[label] = (fn, ln, _build.decode_launch(8, H, K, 1024, dt, q.device.index)[1])
+    pick = _build.decode_splits
+    out = {}
+    try:
+        for label, (fn, ln, picked) in cases.items():
+            row = {"picked": picked}
+            for n in (1, 2, 4, 8):
+                _build.decode_splits = lambda *a, n=n: n
+                row[n] = device_ms(lambda: fn(ln))["device_ms"]
+                if n == picked:
+                    zero = torch.zeros_like(ln)
+                    row["length 0"] = device_ms(lambda: fn(zero))["device_ms"]
+            out[label] = row
+    finally:
+        _build.decode_splits = pick
+    return out
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_prefill_attention,
     )
-    from repro_torch.kernels.paged_attention import (
-        paged_decode_attention_int8, paged_prefill_attention_int8,
-    )
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import paged_prefill_attention_int8
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -781,6 +1160,7 @@ def phase_kernels(dev) -> dict:
     _check_rmsnorm(rng, dev, errs, cases, 8192, (1, 4, 512))
     _check_slot_kernels(rng, dev, errs, cases)
     _check_int8_kernels(dev, errs, cases)
+    _check_decode_edges(dev, errs, cases)
     _check_ssm_scan(dev, errs, cases)
     torch.cuda.synchronize()
     rng = timing_rng
@@ -796,46 +1176,12 @@ def phase_kernels(dev) -> dict:
     H, K, hd = widths["stablelm-1.6b"]
     timing = {}
     launches0, tc0 = ops.launch_counts(), ops.tc_launch_counts()
+    split0 = ops.split_launch_counts()
     lens = rng.integers(96, 801, size=8)
     q, kp, vp, bt, ln, _ = _decode_case(rng, 8, H, K, hd, ps, npp, lens, dt, dev)
-    kd, vd = R.gather_pages(kp, bt), R.gather_pages(vp, bt)       # (B, S, K, hd)
-    mask = (torch.arange(npp * ps, device=dev)[None, :] < ln[:, None].long())
-    q4 = q[:, :, None]
-    k4, v4 = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-    tokens = int(lens.sum())
-    nb, fl = bound(
-        2 * 8 * H * hd * es + 2 * tokens * K * hd * es
-        + 4 * int(sum(-(-int(n) // ps) for n in lens)) + 4 * 8,
-        4 * H * hd * tokens, dt)
-    timing["paged_decode_attention"] = dict(
-        **_times(lambda: paged_decode_attention(q, kp, vp, bt, ln),
-                 lambda: R.paged_decode_attention_ref(q, kp, vp, bt, ln),
-                 lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask[:, None, None, :])),
-        bound_ms=nb, bound_by=fl, shape=f"B=8 H=K={H} hd={hd} ps={ps} "
-        f"tokens={tokens}")
-    # the int8 form on the same K/V, quantized; SDPA on the dequantized,
-    # gathered bf16 KV (dequantize and gather untimed, as above)
-    kq, vq, ks, vs = _int8_pools(kp, vp)
-    errs["paged_decode_attention_int8"] = max(
-        errs["paged_decode_attention_int8"],
-        _err(paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs),
-             R.paged_decode_attention_ref(q, kq, vq, bt, ln, k_scales=ks, v_scales=vs), dt))
-    k8 = R.gather_pages(R.dequantize_pages_ref(kq, ks).to(dt), bt).transpose(1, 2).contiguous()
-    v8 = R.gather_pages(R.dequantize_pages_ref(vq, vs).to(dt), bt).transpose(1, 2).contiguous()
-    nb, fl = bound(
-        2 * 8 * H * hd * es + 2 * tokens * K * hd + 2 * tokens * K * 4
-        + 4 * int(sum(-(-int(n) // ps) for n in lens)) + 4 * 8,
-        4 * H * hd * tokens + 2 * tokens * K * hd, dt)
-    timing["paged_decode_attention_int8"] = dict(
-        **_times(lambda: paged_decode_attention_int8(q, kq, vq, bt, ln, ks, vs),
-                 lambda: R.paged_decode_attention_ref(
-            q, kq, vq, bt, ln, k_scales=ks, v_scales=vs),
-                 lambda: F.scaled_dot_product_attention(
-            q4, k8, v8, attn_mask=mask[:, None, None, :])),
-        bound_ms=nb, bound_by=fl, shape=f"B=8 H=K={H} hd={hd} ps={ps} "
-        f"tokens={tokens}, int8 pages, bf16 q")
-    del kq, vq, ks, vs, k8, v8
+    timing["paged_decode_attention"], timing["paged_decode_attention_int8"] = \
+        _paged_decode_rows(q, kp, vp, bt, ln, lens, errs, dev,
+                           f"B=8 H=K={H} hd={hd} ps={ps} tokens={int(lens.sum())}")
     past, C = 448, 64
     q, kp, vp, bt, _ = _prefill_case(rng, C, H, K, hd, ps, past, dt, dev)
     ctx = past + C
@@ -891,18 +1237,8 @@ def phase_kernels(dev) -> dict:
     q, kc, vc = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
                                for sh in ((B, H, hd), (B, S, K, hd), (B, S, K, hd))))
     ln = torch.from_numpy(lens).to(dev)
-    smask = torch.arange(S, device=dev)[None, :] < ln[:, None].long()
-    k4, v4 = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    tokens = int(lens.sum())
-    nb, fl = bound(2 * B * H * hd * es + 2 * tokens * K * hd * es + 4 * B,
-                   4 * H * hd * tokens, dt)
-    timing["decode_attention"] = dict(
-        **_times(lambda: decode_attention(q, kc, vc, ln),
-                 lambda: R.decode_attention_ref(q, kc, vc, ln),
-                 lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k4, v4, attn_mask=smask[:, None, None, :])),
-        bound_ms=nb, bound_by=fl,
-        shape=f"B={B} S_max={S} H=K={H} hd={hd} tokens={tokens}")
+    timing["decode_attention"] = _slot_decode_row(
+        q, kc, vc, ln, lens, dev, f"B={B} S_max={S} H=K={H} hd={hd} tokens={int(lens.sum())}")
     # one admission's prefill: a 386-token prompt, causal
     Sq = 386
     q, k, v = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
@@ -918,12 +1254,23 @@ def phase_kernels(dev) -> dict:
         bound_ms=nb, bound_by=fl, shape=f"B=1 Sq=Sk={Sq} causal H=K={H} hd={hd}")
     wide = _wide_timing(dev, errs)
     scaling = _tc_scaling(dev)
+    split_sweep = _decode_split_sweep(dev)
     # every bf16 call timed above took the tensor-core body
     launches, tcs = ops.launch_counts(), ops.tc_launch_counts()
     timed_tc = {k: {"launches": launches[k] - launches0[k], "tc_launches": tcs[k] - tc0[k]}
                 for k in ops.TC_KERNELS}
     check(all(v["launches"] == v["tc_launches"] > 0 for v in timed_tc.values()),
           f"a timed bf16 call missed the tensor-core body: {timed_tc}")
+    # ... and every decode call timed above the split-context body, but the
+    # ones ``other_body_host_ms`` sent to the other body
+    splits = ops.split_launch_counts()
+    timed_split = {k: {"launches": launches[k] - launches0[k],
+                       "split_launches": splits[k] - split0[k],
+                       "other_body": timing[k]["other_body_calls"] + wide[k]["other_body_calls"]}
+                   for k in ops.SPLIT_KERNELS}
+    check(all(v["launches"] - v["other_body"] == v["split_launches"] > 0
+              for v in timed_split.values()),
+          f"a timed decode call missed the split body: {timed_split}")
     # the Jamba-1.5-Large scan: a 512-token prefill (the summary's row), a
     # 17-token one and a decode step at B = 4 over carried states
     srng = np.random.default_rng(10)
@@ -933,7 +1280,8 @@ def phase_kernels(dev) -> dict:
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, "timing_ssm_scan": ssm_more,
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
-           "timing_bf16_wide": wide, "timed_tc": timed_tc, "tc_scaling": scaling,
+           "timing_bf16_wide": wide, "timed_tc": timed_tc, "timed_split": timed_split,
+           "tc_scaling": scaling, "decode_split_sweep": split_sweep,
            "peaks": "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"}
     emit("kernels", **out)
     return out
@@ -1129,6 +1477,7 @@ def _serve(eng, reqs) -> dict:
             dec_s += dt
     wall = time.perf_counter() - t_start
     counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    splits = ops.split_launch_counts()
     torch.cuda.synchronize()
     prof = eng.latency_profile()
     res = {
@@ -1136,7 +1485,7 @@ def _serve(eng, reqs) -> dict:
         "new_tokens": sum(len(r.out_tokens) for r in finished),
         "prompt_tokens": sum(len(r.prompt) for r in reqs),
         "decode_steps": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
-        "launches": counts, "tc_launches": tcs, "wall_s": wall,
+        "launches": counts, "tc_launches": tcs, "split_launches": splits, "wall_s": wall,
         "prefill_tok_s": pre_tok / pre_s if pre_s else None,
         "decode_tok_s": dec_tok / dec_s if dec_s else None,
         "p50_step_ms": statistics.median(step_ms),
@@ -1150,7 +1499,7 @@ def _serve(eng, reqs) -> dict:
     check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
           "a request finished with the wrong token count")
     res["kv_dtype"] = eng.kv_dtype
-    _check_paged_launches(counts, tcs, [eng])
+    _check_paged_launches(counts, tcs, splits, [eng])
     eng.allocator.check_no_leaks()
     return res
 
@@ -1162,11 +1511,18 @@ def _check_tc(counts, tcs, cfg, what: str) -> None:
     check(tcs == want, f"{what}: tensor-core launches {tcs}, expected {want}")
 
 
-def _check_paged_launches(counts, tcs, engines) -> None:
+def _check_split(counts, splits, what: str) -> None:
+    """Every decode call of a serving run took the split-context body."""
+    want = {k: counts[k] for k in splits}
+    check(splits == want, f"{what}: split-body launches {splits}, expected {want}")
+
+
+def _check_paged_launches(counts, tcs, splits, engines) -> None:
     """Exact launch accounting of paged engines of one page dtype: each
     attention kernel once a layer per decode step or prefill chunk, RMSNorm
     twice a layer plus once; the other page dtype's kernels never; the
-    prefill through the tensor-core body in bf16."""
+    prefill through the tensor-core body in bf16; every decode call through
+    the split-context body."""
     kv_dtype = engines[0].kv_dtype
     decode, prefill, _ = PAGED_KERNELS[kv_dtype]
     steps = sum(e.decode_steps for e in engines)
@@ -1183,6 +1539,7 @@ def _check_paged_launches(counts, tcs, engines) -> None:
     check(all(counts[k] == 0 for k in other[:2]),
           f"{kv_dtype} pages launched the other page dtype's kernels: {counts}")
     _check_tc(counts, tcs, engines[0].cfg, f"{kv_dtype} pages")
+    _check_split(counts, splits, f"{kv_dtype} pages")
 
 
 def phase_engine(dev, cfg) -> dict:
@@ -1244,6 +1601,8 @@ def phase_engine(dev, cfg) -> dict:
                      max_new_tokens=64) for i in range(8)]))
     return {"launches": main_counts, "launches_int8": run3["launches"],
             "tc_launches": run1["tc_launches"], "tc_launches_int8": run3["tc_launches"],
+            "split_launches": run1["split_launches"],
+            "split_launches_int8": run3["split_launches"],
             "runs": [run1, run2, run3]}
 
 
@@ -1266,6 +1625,7 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_PAD_S)   # (see device_ms)
     by_kernel = {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -1320,12 +1680,13 @@ def _stalled(signum, frame):
     raise Stalled(f"testbed run did not finish within {TESTBED_LIMIT_S} s")
 
 
-def _check_slot_launches(counts, tcs, cfg, adm: int, steps: int, what: str) -> None:
+def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: str) -> None:
     """Exact launch accounting of slot engines: per admission, flash
     attention once an attention layer and the scan once a Mamba layer; per
     decode step, slot decode attention once an attention layer and the scan
     once a Mamba layer; RMSNorm twice a layer plus once for both; the paged
-    kernels never; flash through the tensor-core body in bf16."""
+    kernels never; flash through the tensor-core body in bf16; every decode
+    call through the split-context body."""
     from repro_torch.models import layer_kind
 
     mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
@@ -1343,6 +1704,7 @@ def _check_slot_launches(counts, tcs, cfg, adm: int, steps: int, what: str) -> N
     check(all(v == 0 for k, v in counts.items() if k not in used),
           f"{what}: a kernel off the slot path ran: {counts}")
     _check_tc(counts, tcs, cfg, what)
+    _check_split(counts, splits, what)
 
 
 def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
@@ -1366,6 +1728,7 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
     finally:
         signal.alarm(0)
     counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    splits = ops.split_launch_counts()
     profiles = [e.latency_profile() for e in engines]
     out = {
         "model": engines[0].cfg.name, "layers": engines[0].cfg.n_layers,
@@ -1378,21 +1741,22 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
         "l_b_ms": [({int(b): float(v) * 1e3 for b, v in zip(p.batch_sizes, p.latency)}
                     if p else {}) for p in profiles],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts, "tc_launches": tcs,
+        "launches": counts, "tc_launches": tcs, "split_launches": splits,
     }
     check(out["finished"] == jobs, f"{name}: {out['finished']} of {jobs} jobs finished")
     if serve_cfg.engine == "slot":
         adm = sum(e.admissions for e in engines)
         steps = sum(e.decode_steps for e in engines)
         out.update(admissions=adm, decode_steps=steps)
-        _check_slot_launches(counts, tcs, engines[0].cfg, adm, steps, f"testbed {name}")
+        _check_slot_launches(counts, tcs, splits, engines[0].cfg, adm, steps,
+                             f"testbed {name}")
     else:
         out.update(decode_steps=sum(e.decode_steps for e in engines),
                    prefill_chunks=sum(e.prefill_chunks for e in engines),
                    pool_pages=[e.num_pages for e in engines],
                    pool_bytes=[e.num_pages * e.page_bytes for e in engines],
                    kv_dtype=serve_cfg.kv_dtype)
-        _check_paged_launches(counts, tcs, engines)
+        _check_paged_launches(counts, tcs, splits, engines)
         for e in engines:
             e.allocator.check_no_leaks(allow_indexed=True)
     return out
@@ -1540,17 +1904,19 @@ def _serve_slot(eng, reqs) -> dict:
         dec_tok += rows
     wall = time.perf_counter() - t_start
     counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    splits = ops.split_launch_counts()
     prof = eng.latency_profile()
     check(len(finished) == len(reqs), "not every request finished")
     check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
           "a request finished with the wrong token count")
-    _check_slot_launches(counts, tcs, eng.cfg, eng.admissions, eng.decode_steps, "hybrid")
+    _check_slot_launches(counts, tcs, splits, eng.cfg, eng.admissions, eng.decode_steps,
+                         "hybrid")
     return {
         "requests": len(reqs), "finished": len(finished),
         "prompt_tokens": sum(len(r.prompt) for r in reqs),
         "new_tokens": sum(len(r.out_tokens) for r in finished),
         "admissions": eng.admissions, "decode_steps": eng.decode_steps,
-        "launches": counts, "tc_launches": tcs, "wall_s": wall,
+        "launches": counts, "tc_launches": tcs, "split_launches": splits, "wall_s": wall,
         "prefill_tok_s": sum(len(r.prompt) for r in reqs) / pre_s,
         "decode_tok_s": dec_tok / (sum(step_ms) / 1e3),
         "p50_step_ms": statistics.median(step_ms),
@@ -1662,14 +2028,22 @@ def main(argv=None) -> int:
                        "paged_prefill_attention": eng["tc_launches"]["paged_prefill_attention"],
                        "paged_prefill_attention_int8":
                            eng["tc_launches_int8"]["paged_prefill_attention_int8"]}
+        split_launches = {
+            "decode_attention": tb["llmsched"]["split_launches"]["decode_attention"],
+            "paged_decode_attention": eng["split_launches"]["paged_decode_attention"],
+            "paged_decode_attention_int8":
+                eng["split_launches_int8"]["paged_decode_attention_int8"]}
         summary = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name],
              **({"tc_launches": tc_launches[name]} if name in tc_launches else {}),
+             **({"split_launches": split_launches[name]} if name in split_launches else {}),
              "max_abs_err": kern["max_abs_err"][name],
              **{k: kern["timing_bf16"][name][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                          "device_ms", "library_device_ms", "host_ms")}}
+                          "device_ms", "library_device_ms", "host_ms",
+                          "other_body_host_ms", "cold_device_ms", "library_cold_device_ms")
+                if k in kern["timing_bf16"][name]}}
             for name, (src, rep) in KERNEL_META.items()
         ]
         print(json.dumps({"kernels": summary}), flush=True)

@@ -62,6 +62,13 @@ SIGNATURES: Dict[str, List] = {
     "flash_attention_tc_bf16": [P] * 4 + [I] * 7 + [L] * 9 + [F, P],
     "paged_prefill_tc_bf16": [P] * 5 + [I] * 8 + [L] * 6 + [F, P],
     "paged_prefill_q8_tc_bf16": [P] * 7 + [I] * 8 + [L] * 12 + [F, P],
+    # the split-context decode bodies (csrc/decode_split.cuh), f32 and bf16
+    "decode_attention_split_f32": [P] * 5 + [I] * 7 + [L] * 6 + [F, P],
+    "decode_attention_split_bf16": [P] * 5 + [I] * 7 + [L] * 6 + [F, P],
+    "paged_decode_split_f32": [P] * 6 + [I] * 9 + [L] * 6 + [F, P],
+    "paged_decode_split_bf16": [P] * 6 + [I] * 9 + [L] * 6 + [F, P],
+    "paged_decode_q8_split_f32": [P] * 8 + [I] * 9 + [L] * 12 + [F, P],
+    "paged_decode_q8_split_bf16": [P] * 8 + [I] * 9 + [L] * 12 + [F, P],
 }
 #: head dims the tensor-core attention body is built for (hd == hd_v)
 TC_HEAD_DIMS = (16, 64, 128)
@@ -71,7 +78,67 @@ TC_TILE = 64
 #: most context splits of one row block (its CTAs form one cluster, and 8
 #: is the largest cluster every Hopper part schedules)
 TC_MAX_SPLITS = 8
+#: head dims the split-context decode body is built for (hd == hd_v)
+SPLIT_HEAD_DIMS = (16, 64, 128)
+#: tokens of the whole tiles a decode split's run is made of
+SPLIT_TILE = 32
+#: most context splits of one decode row (one cluster, as above)
+SPLIT_MAX_SPLITS = 8
+#: query rows a decode CTA holds beyond a group of 2: 16 (one mma.sync
+#: operand) in the tensor-core form that bf16 queries take, 4 on CUDA
+#: cores for f32 (:func:`decode_group_rows`; the launcher has a form for
+#: 1, 2, these two, and no other size)
+SPLIT_TC_ROWS = 16
+SPLIT_CUDA_CORE_ROWS = 4
+#: SMs a decode launch aims to give each CTA at most: a CTA's 8 warps walk
+#: one row's keys side by side, and each split costs a cluster merge (and,
+#: where the clusters do not all fit at once, a wave), so splits are added
+#: only until every third SM holds a CTA (chip_smoke.py's split sweep)
+SPLIT_SMS_PER_CTA = 3
 
+
+def decode_group_rows(g: int, q_dtype: torch.dtype) -> int:
+    """Query rows one CTA of the split-context decode body holds, of a
+    group of ``g`` that share a kv head: all of them when ``g <= 2``, else
+    ``SPLIT_TC_ROWS`` (bf16 queries, the tensor-core form) or
+    ``SPLIT_CUDA_CORE_ROWS`` (f32, CUDA cores); a group then takes
+    ``ceil(g / rows)`` CTAs.  The launch takes this size as an argument and
+    refuses one it has no form for, so this is the one place that picks it.
+    """
+    if g <= 2:
+        return g
+    return SPLIT_TC_ROWS if q_dtype == torch.bfloat16 else SPLIT_CUDA_CORE_ROWS
+
+
+def decode_splits(B: int, K: int, capacity: int, sms: int, groups: int = 1) -> int:
+    """Context splits of a split-body decode call.
+
+    ``B * K * groups`` CTAs (``groups``: the CTAs a query group takes, from
+    :func:`decode_group_rows`) hold the rows' kv heads over caches of
+    ``capacity`` tokens (the slot cache's S_max, or the block table's
+    ``pages_per_seq * page_size``): the fewest power-of-two splits (up to
+    ``SPLIT_MAX_SPLITS``, and at most the ``SPLIT_TILE``-token tiles of the
+    capacity) that give at least one CTA to every ``SPLIT_SMS_PER_CTA`` SMs
+    of the ``sms``.  Only shapes go in, never the lengths, so the choice
+    needs no device read; each split then walks an equal run of whole tiles
+    of its row's visible tokens, computed on the device.
+    """
+    ctas = B * K * groups
+    n_tiles = -(-capacity // SPLIT_TILE)
+    splits = 1
+    while (splits < SPLIT_MAX_SPLITS and 2 * splits <= n_tiles
+           and ctas * splits * SPLIT_SMS_PER_CTA < sms):
+        splits *= 2
+    return splits
+
+
+def decode_launch(B: int, H: int, K: int, capacity: int, q_dtype: torch.dtype,
+                  index: int) -> tuple:
+    """``(rows, splits)`` of a split-body decode call on CUDA device
+    ``index``: :func:`decode_group_rows` and :func:`decode_splits`."""
+    g = H // K
+    rows = decode_group_rows(g, q_dtype)
+    return rows, decode_splits(B, K, capacity, sm_count(index), -(-g // rows))
 
 class KernelError(RuntimeError):
     """A kernel failed to build, or its launch was refused."""

@@ -60,14 +60,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 constexpr int kMaxDevices = 16;
 
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more
-// than the default 48 KB (up to the 227 KB a Hopper block may use), once per
+// than `free_bytes` (the default 48 KB, less any static shared memory the
+// kernel also holds; up to the 227 KB a Hopper block may use), once per
 // device and size: `granted` is the launcher's record of what each device
 // already allows this kernel (a function-local static of the launcher, so
 // one record per kernel instantiation), so a steady stream of launches makes
 // no attribute call.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&granted)[kMaxDevices]) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&granted)[kMaxDevices],
+                              size_t free_bytes = 48 * 1024) {
+  if (bytes <= free_bytes) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -3,29 +3,43 @@
 // Replaces: repro/kernels/decode_attention.py::decode_attention
 // (Pallas, _decode_kernel).
 // Bound on the H100: bytes. Each (row, kv head) reads its len x hd K and
-// len x hd_v V once and does ~2 flops per element per grouped query head, so
-// even at group size 6 the work is a few flops a byte, far under the ~295 a
-// byte at which bf16 compute would bind.
-// Design:
+// len x hd_v V once and does ~4 flops per K/V element pair per grouped
+// query head, so even at group size 8 the work is ~8 flops a byte, far
+// under the ~20 at which f32 FMAs (and the ~295 at which bf16 tensor cores)
+// would bind. At the testbed's shape (B = 4, S_max = 1024, H = K = 32,
+// hd = 64, 1676 visible rows) the bytes are 13.7 MB, 4.1 us at 3.35 TB/s.
+// Two bodies; the wrapper (decode_attention.py) picks one by shape:
+// - f32 or bf16 with hd == hd_v in {16, 64, 128} and 16-byte cache rows of
+//   inner stride 1: the split-context body of decode_split.cuh, entry
+//   points decode_attention_split_{f32,bf16}. Grid (B * K * row groups,
+//   splits): the host picks splits (1-8, decode_splits) from B, K, S_max and
+//   the SM count, never from the lengths, and each split walks an equal run
+//   of whole 32-row tiles of the row's visible cache rows. A CTA's 8 warps
+//   walk the run side by side through per-warp cp.async rings; g <= 2 (and
+//   f32) computes on CUDA cores, lanes across the head dim; bf16 with g >= 3
+//   (Jamba-1.5-Large's 8, internlm2-20b's 6) on tensor cores (mma.sync, all
+//   16 rows of a group in one A operand); the splits of a row merge in one
+//   cluster through distributed shared memory. At the testbed's shape: 128
+//   CTAs, no split; at Jamba's (B = 4, K = 8): 32 x 2 splits;
+// - any other shape (MLA decode's hd 192 / hd_v 128, hd 256, misaligned or
+//   strided rows): the CUDA-core body below, entry points
+//   decode_attention_{f32,bf16}, one block per (row, kv head).
+// Both read the cache through its strides, (B, S_max, K, hd) as the slot
+// engine keeps it, so no call transposes or copies the cache (the JAX
+// wrapper transposes the whole cache per call); read no cache row at or past
+// min(lengths[b], S_max), so whatever the unused tail of a slot holds (even
+// NaN) cannot reach the output; and return acc / max(l, 1e-30) rounded
+// once to q's dtype (length 0 gives zeros, as the TPU kernel does).
+// The CUDA-core body:
 // - one block per (row b, kv head kh) holds that head's g query rows,
-//   pre-scaled, in f32 shared memory, so every cache row is read once for all
-//   grouped heads;
-// - the block loops over cache rows t < min(lengths[b], S) only, in tiles of
-//   kTile rows: rows past the length are never read (the TPU grid skips whole
-//   512-row blocks past the length; here nothing past it is touched), and a
-//   length of 0 gives zeros, as the TPU kernel's max(l, 1e-30) does;
-// - the cache is read through its strides, (B, S_max, K, hd) as the slot
-//   engine keeps it, so no call transposes or copies the cache (the JAX
-//   wrapper transposes the whole cache per call);
-// - K rows are staged as f32 with one float of padding, so the per-score
-//   dot products do not collide on one bank;
+//   pre-scaled, in f32 shared memory, and loops over the live cache rows
+//   in tiles of kTile rows, staged as f32 (K padded by one float against
+//   bank conflicts);
 // - the last tile's slots past the length are *replaced* by -1e30 (never
-//   added to), get weight exactly 0 and their V rows are zeroed, so NaN in
-//   the unused tail of a slot cannot reach the output (0 * NaN guard);
-// - online softmax (running max m, sum l, f32 accumulator) across tiles;
-//   the output is acc / max(l, 1e-30).
-// hd and hd_v are runtime arguments (MLA decode has hd 192, hd_v 128).
-// No tensor cores, TMA or split over the cache yet: one tile at a time.
+//   added to), get weight exactly 0 and their V rows are zeroed;
+// - online softmax (running max m, sum l, f32 accumulator) across tiles.
+// hd and hd_v are runtime arguments there (MLA decode has hd 192, hd_v 128).
+#include "decode_split.cuh"
 #include "common.cuh"
 
 namespace repro_torch {
@@ -165,3 +179,36 @@ int launch(const void* q, const void* kc, const void* vc, const void* lens, void
 
 REPRO_DECODE_ENTRY(decode_attention_f32, float)
 REPRO_DECODE_ENTRY(decode_attention_bf16, __nv_bfloat16)
+
+// the split-context body (decode_split.cuh): hd == hd_v in {16, 64, 128},
+// inner stride 1, 16-byte rows; splits in {1, 2, 4, 8}; rows, the query
+// rows a CTA holds, as _build.decode_group_rows picks them
+#define REPRO_DECODE_SPLIT_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const void* q, const void* kc, const void* vc, const void* lens,   \
+                      void* out, int B, int H, int K, int hd, int S, int splits,         \
+                      int rows, long long ks0, long long ks1, long long ks2,             \
+                      long long vs0, long long vs1, long long vs2, float scale,          \
+                      void* stream) {                                                    \
+    repro_torch::split::Params p{};                                                      \
+    p.q = q;                                                                             \
+    p.k = kc;                                                                            \
+    p.v = vc;                                                                            \
+    p.lens = static_cast<const int*>(lens);                                              \
+    p.out = out;                                                                         \
+    p.H = H;                                                                             \
+    p.K = K;                                                                             \
+    p.cap = S;                                                                           \
+    p.splits = splits;                                                                   \
+    p.ks0 = ks0;                                                                         \
+    p.ks1 = ks1;                                                                         \
+    p.ks2 = ks2;                                                                         \
+    p.vs0 = vs0;                                                                         \
+    p.vs1 = vs1;                                                                         \
+    p.vs2 = vs2;                                                                         \
+    p.scale_log2 = scale * repro_torch::tc::kLog2e;                                   \
+    return repro_torch::split::launch<T, T, false>(p, B, hd, rows, stream);              \
+  }
+
+REPRO_DECODE_SPLIT_ENTRY(decode_attention_split_f32, float)
+REPRO_DECODE_SPLIT_ENTRY(decode_attention_split_bf16, __nv_bfloat16)
+

@@ -6,31 +6,51 @@
 // (P, ps, K), one symmetric scale per token slot and kv head).
 // Bound on the H100: bytes. Each (row, kv head) reads its len x hd K and V
 // once and does 4 flops per K/V element pair per grouped query head, so even
-// at group size 6 the work is ~6 flops a byte, far under the ~295 a byte at
-// which bf16 compute would bind. int8 pages halve the bf16 bytes (plus 4
-// bytes of scale per token and kv head for K and for V).
-// Design:
+// at group size 8 the work is ~8 flops a byte, far under the ~20 at which
+// f32 FMAs would bind. At the timed shape (B = 8, H = K = 32, hd = 64, pages
+// of 16, 3160 tokens) the bytes are 25.9 MB, 7.7 us at 3.35 TB/s; int8
+// pages halve the payload (plus 4 bytes of scale per token and kv head for
+// K and for V): 13.8 MB, 4.1 us.
+// Two bodies; the wrapper (paged_attention.py) picks one by shape:
+// - f32 or bf16 q over pages of q's dtype or int8 with hd in {16, 64, 128}
+//   and 16-byte page rows of inner stride 1: the split-context body of
+//   decode_split.cuh, entry points paged_decode{,_q8}_split_{f32,bf16}.
+//   Grid (B * K * row groups, splits): the host picks splits (1-8,
+//   decode_splits) from B, K, the table's reach (npp * ps) and the SM count,
+//   never from the lengths; each split walks an equal run of whole 32-token
+//   tiles of the row's visible tokens, its block-table entries staged in
+//   shared memory first. A CTA's 8 warps walk the run side by side through
+//   per-warp cp.async rings (16-byte copies through each row's page and
+//   slot, found once a row); g <= 2 (and f32) computes on CUDA cores, lanes
+//   across the head dim; bf16 with g >= 3 on tensor cores (mma.sync; int8
+//   rows widened exactly to bf16 in shared memory first); the splits of a
+//   row merge in one cluster through distributed shared memory. int8: each
+//   live token's k- and v-scale staged once; the score scaled by k_scale
+//   after the product, the weight by v_scale in f32, the scaled weight
+//   selected. At the timed shape: 256 CTAs, no split (64 CTAs x 1 split at
+//   internlm2-20b's K = 8, 16 query rows a CTA);
+// - any other shape (hd 256, misaligned or strided page rows): the CUDA-core
+//   body below, entry points paged_decode{,_q8}_{f32,bf16}, one block per
+//   (row, kv head), one page at a time, synchronous.
+// Both visit only pages j < ceil(len / ps): the block-table entry of a page
+// past the length is never read, and the page id and the page count are
+// range-checked (a bad id, or a length the table cannot cover, traps
+// instead of reading outside the pool or table); read the pool and the
+// scale pools through their strides, token-major (P, ps, K, hd), so a layer
+// view of a stacked pool goes in as it is; *replace* scores past the length
+// by -1e30 and give them weight exactly 0 (after dequantizing), so NaN or
+// Inf in a recycled page, or in the scale of an unwritten slot, cannot
+// reach a live row; and return acc / max(l, 1e-30), so length 0 gives 0 as
+// on the TPU, rounded once to q's dtype (the TPU's f32 output, then astype).
+// The CUDA-core body:
 // - one block per (row b, kv head kh) holds that head's g query rows,
-//   pre-scaled, in f32 shared memory, so every K/V page is read once for
-//   all grouped heads;
-// - the block loops over pages j < ceil(len / ps) only: the block-table
-//   entry of a page past the length is never read, and the page id and
-//   the page count are range-checked (a bad id, or a length the table
-//   cannot cover, traps instead of reading outside the pool or table);
-// - the pool is read through its strides, token-major (P, ps, K, hd), so
-//   nothing transposes or copies the pool per call; so are the scale pools;
+//   pre-scaled, in f32 shared memory;
 // - each page's K and V (ps x hd) are staged in shared memory as f32; int8
-//   rows are dequantized there, float(int8) * scale[token, kv head], the
-//   same f32 product as the TPU kernel; the K rows are padded by one float
-//   so the per-score dot products do not collide on one bank;
-// - scores past the length are *replaced* by -1e30, their weights set to
-//   exactly 0 and the V rows past the length zeroed (after dequantizing)
-//   before p.V, so NaN or Inf left in a recycled page, or in the scale of
-//   an unwritten slot, cannot reach a live row (0 * NaN guard);
-// - online softmax (running max m, sum l, f32 accumulator) across pages;
-//   the output is acc / max(l, 1e-30), so length 0 gives 0 as on the TPU,
-//   rounded once to q's dtype (the TPU's f32 output, then astype).
-// No tensor cores, TMA or pipelining yet: one page at a time, synchronous.
+//   rows are dequantized there, float(int8) * scale[token, kv head]; the K
+//   rows are padded by one float against bank conflicts; V rows past the
+//   length are zeroed before p.V;
+// - online softmax (running max m, sum l, f32 accumulator) across pages.
+#include "decode_split.cuh"
 #include "common.cuh"
 
 namespace repro_torch {
@@ -204,3 +224,80 @@ REPRO_PAGED_DECODE_ENTRY(paged_decode_f32, float)
 REPRO_PAGED_DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16)
 REPRO_PAGED_DECODE_Q8_ENTRY(paged_decode_q8_f32, float)
 REPRO_PAGED_DECODE_Q8_ENTRY(paged_decode_q8_bf16, __nv_bfloat16)
+
+// the split-context body (decode_split.cuh): hd in {16, 64, 128}, inner
+// stride 1, 16-byte page rows; splits in {1, 2, 4, 8}; rows, the query
+// rows a CTA holds, as _build.decode_group_rows picks them
+namespace {
+
+repro_torch::split::Params split_params(const void* q, const void* kp, const void* vp,
+                                        const void* bt, const void* lens, void* out, int H,
+                                        int K, int ps, int npp, int P, int splits,
+                                        long long ks0, long long ks1, long long ks2,
+                                        long long vs0, long long vs1, long long vs2,
+                                        float scale) {
+  repro_torch::split::Params p{};
+  p.q = q;
+  p.k = kp;
+  p.v = vp;
+  p.bt = static_cast<const int*>(bt);
+  p.lens = static_cast<const int*>(lens);
+  p.out = out;
+  p.H = H;
+  p.K = K;
+  p.cap = npp * ps;
+  p.ps = ps;
+  p.npp = npp;
+  p.P = P;
+  p.splits = splits;
+  p.ks0 = ks0;
+  p.ks1 = ks1;
+  p.ks2 = ks2;
+  p.vs0 = vs0;
+  p.vs1 = vs1;
+  p.vs2 = vs2;
+  p.scale_log2 = scale * repro_torch::tc::kLog2e;
+  return p;
+}
+
+}  // namespace
+
+#define REPRO_PAGED_DECODE_SPLIT_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(const void* q, const void* kp, const void* vp, const void* bt,     \
+                      const void* lens, void* out, int B, int H, int K, int hd, int ps,  \
+                      int npp, int P, int splits, int rows, long long ks0,               \
+                      long long ks1, long long ks2, long long vs0, long long vs1,        \
+                      long long vs2, float scale, void* stream) {                        \
+    const repro_torch::split::Params p = split_params(                                   \
+        q, kp, vp, bt, lens, out, H, K, ps, npp, P, splits, ks0, ks1, ks2, vs0, vs1,     \
+        vs2, scale);                                                                     \
+    return repro_torch::split::launch<T, T, true>(p, B, hd, rows, stream);               \
+  }
+
+#define REPRO_PAGED_DECODE_Q8_SPLIT_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const void* q, const void* kp, const void* vp, const void* ksc,    \
+                      const void* vsc, const void* bt, const void* lens, void* out, int B, \
+                      int H, int K, int hd, int ps, int npp, int P, int splits,          \
+                      int rows, long long ks0, long long ks1, long long ks2,             \
+                      long long vs0, long long vs1, long long vs2, long long kss0,       \
+                      long long kss1, long long kss2, long long vss0, long long vss1,    \
+                      long long vss2, float scale, void* stream) {                       \
+    repro_torch::split::Params p = split_params(                                         \
+        q, kp, vp, bt, lens, out, H, K, ps, npp, P, splits, ks0, ks1, ks2, vs0, vs1,     \
+        vs2, scale);                                                                     \
+    p.ksc = static_cast<const float*>(ksc);                                              \
+    p.vsc = static_cast<const float*>(vsc);                                              \
+    p.kss0 = kss0;                                                                       \
+    p.kss1 = kss1;                                                                       \
+    p.kss2 = kss2;                                                                       \
+    p.vss0 = vss0;                                                                       \
+    p.vss1 = vss1;                                                                       \
+    p.vss2 = vss2;                                                                       \
+    return repro_torch::split::launch<T, int8_t, true>(p, B, hd, rows, stream);          \
+  }
+
+REPRO_PAGED_DECODE_SPLIT_ENTRY(paged_decode_split_f32, float)
+REPRO_PAGED_DECODE_SPLIT_ENTRY(paged_decode_split_bf16, __nv_bfloat16)
+REPRO_PAGED_DECODE_Q8_SPLIT_ENTRY(paged_decode_q8_split_f32, float)
+REPRO_PAGED_DECODE_Q8_SPLIT_ENTRY(paged_decode_q8_split_bf16, __nv_bfloat16)
+

@@ -45,6 +45,8 @@ KERNELS = {
 }
 #: the wrappers with a tensor-core body beside their CUDA-core one
 TC_KERNELS = ("flash_attention", "paged_prefill_attention", "paged_prefill_attention_int8")
+#: the wrappers with a split-context decode body beside their other one
+SPLIT_KERNELS = ("decode_attention", "paged_decode_attention", "paged_decode_attention_int8")
 
 
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -74,11 +76,18 @@ def tc_launch_counts() -> Dict[str, int]:
     return {name: KERNELS[name].tc_launches for name in TC_KERNELS}
 
 
+def split_launch_counts() -> Dict[str, int]:
+    """Of those launches, the ones the split-context decode bodies served."""
+    return {name: KERNELS[name].split_launches for name in SPLIT_KERNELS}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     for name in TC_KERNELS:
         KERNELS[name].tc_launches = 0
+    for name in SPLIT_KERNELS:
+        KERNELS[name].split_launches = 0
 
 
 def attention(

@@ -16,6 +16,20 @@ Replaces the JAX package's Pallas kernels in
   of scale per token slot and kv head for K and for V (1.88x fewer bytes
   a token than bf16 at hd = 64, 3.76x fewer than float32).
 
+The decode kernel has two bodies, chosen by shape
+(:func:`decode_uses_split_body`), never by failure: f32 or bf16 queries
+over pages of their dtype or int8 with hd in ``SPLIT_HEAD_DIMS`` (16, 64,
+128) and 16-byte-aligned page rows go to the split-context body
+(``csrc/decode_split.cuh``: each row's context split over
+:func:`~repro_torch.kernels._build.decode_splits` CTAs of one cluster, a
+CTA's warps side by side on its tokens, on CUDA cores for g <= 2 and f32
+queries and on tensor cores for bf16 with g >= 3, the warps merged in
+shared memory and the splits through distributed shared memory); any
+other shape (hd 256, misaligned or strided page rows) to the one-block-a-
+row body.  The split count comes from shapes alone: the wrappers never
+read ``lengths`` on the host.  ``paged_decode_attention.split_launches``
+(and the int8 wrapper's) count the calls the split body served.
+
 The prefill kernel has two bodies, chosen by shape
 (:func:`prefill_uses_tensor_cores`), never by failure: bf16 queries over
 bf16 or int8 pages with hd in ``TC_HEAD_DIMS`` (16, 64, 128), a
@@ -125,6 +139,28 @@ def prefill_splits(K: int, rows: int, n_tiles: int, sms: int) -> int:
     return splits
 
 
+def decode_uses_split_body(q_dtype: torch.dtype, page_dtype: torch.dtype, shapes,
+                           strides, misalign) -> bool:
+    """Whether the split-context body serves a decode call (else the
+    one-block-a-row body).
+
+    Pure Python on what q and the two pools describe: the dtypes, their
+    ``shapes``, ``strides`` (in elements) and ``data_ptr() % 16``, each a
+    triple in the order q, k pages, v pages.  True for f32 or bf16 q over
+    pages of q's dtype or int8, with hd in ``SPLIT_HEAD_DIMS`` and page
+    rows that are 16-byte aligned with inner stride 1.  q is read element
+    by element, so its layout does not matter.
+    """
+    if q_dtype not in _SUFFIX or page_dtype not in (q_dtype, torch.int8):
+        return False
+    hd = shapes[0][-1]
+    if hd not in _build.SPLIT_HEAD_DIMS or shapes[1][-1] != hd or shapes[2][-1] != hd:
+        return False
+    n = page_dtype.itemsize
+    return (_build.rows_16b(shapes[1], strides[1], misalign[1], n)
+            and _build.rows_16b(shapes[2], strides[2], misalign[2], n))
+
+
 def _index(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
     if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous int32 tensor on {device}, "
@@ -141,6 +177,7 @@ def _scale_args(scales: Scales) -> Tuple[tuple, tuple]:
 
 
 def _decode(q, k_pages, v_pages, block_tables, lengths, scale, scales: Scales):
+    """Launch one decode call; returns ``(out, whether the split body ran)``."""
     what = "paged decode" if scales is None else "int8 paged decode"
     _check_pools(q, k_pages, v_pages, what, scales)
     B, H, hd = q.shape
@@ -149,21 +186,37 @@ def _decode(q, k_pages, v_pages, block_tables, lengths, scale, scales: Scales):
             or lengths.shape != (B,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
-    bt = _index(block_tables, q.device, "block_tables")
-    lens = _index(lengths, q.device, "lengths")
+    dev = q.device
+    bt = _index(block_tables, dev, "block_tables")
+    lens = _index(lengths, dev, "lengths")
     q = q.contiguous()
     out = torch.empty_like(q)
-    scale = scale if scale is not None else hd ** -0.5
+    scale = float(scale if scale is not None else hd ** -0.5)
     ptrs, strides = _scale_args(scales)
-    name = f"paged_decode_{'' if scales is None else 'q8_'}{_SUFFIX[q.dtype]}"
-    code = _build.entry(name)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs, bt.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, H, K, hd, ps, bt.shape[1], P,
-        *k_pages.stride(), *v_pages.stride(), *strides, float(scale),
-        _build.current_stream(q.device),
-    )
+    stream = _build.current_stream(dev)
+    q8 = "" if scales is None else "q8_"
+    pk, pv = k_pages.data_ptr(), v_pages.data_ptr()
+    ks, vs = k_pages.stride(), v_pages.stride()
+    npp = bt.shape[1]
+    split = decode_uses_split_body(q.dtype, k_pages.dtype,
+                                   (q.shape, k_pages.shape, v_pages.shape),
+                                   (q.stride(), ks, vs), (0, pk % 16, pv % 16))
+    if split:
+        rows, splits = _build.decode_launch(B, H, K, npp * ps, q.dtype, dev.index)
+        name = f"paged_decode_{q8}split_{_SUFFIX[q.dtype]}"
+        code = _build.entry(name)(
+            q.data_ptr(), pk, pv, *ptrs, bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            B, H, K, hd, ps, npp, P, splits, rows, ks[0], ks[1], ks[2], vs[0], vs[1],
+            vs[2], *strides, scale, stream,
+        )
+    else:
+        name = f"paged_decode_{q8}{_SUFFIX[q.dtype]}"
+        code = _build.entry(name)(
+            q.data_ptr(), pk, pv, *ptrs, bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            B, H, K, hd, ps, npp, P, *ks, *vs, *strides, scale, stream,
+        )
     _build.check(code, name)
-    return out
+    return out, split
 
 
 def _prefill(q, k_pages, v_pages, block_table, past, scale, scales: Scales):
@@ -219,21 +272,25 @@ def paged_decode_attention(
     """Decode attention over a paged KV pool through per-request block tables.
 
     Pages at or past ``ceil(lengths[b] / page_size)`` are never read;
-    positions at or past ``lengths[b]`` get weight exactly 0 and their V
-    rows are zeroed, so garbage (even NaN) in recycled pages cannot leak.
-    A row of length 0 returns zeros.
+    positions at or past ``lengths[b]`` get weight exactly 0 and never
+    reach P.V (the split body does not load them, the other body zeroes
+    their V rows), so garbage (even NaN) in recycled pages cannot leak.
+    A row of length 0 returns zeros.  ``lengths`` stays on the device: the
+    call makes no host sync.
 
     Returns
     -------
     torch.Tensor
         ``(B, H, hd)`` in ``q.dtype``.
     """
-    out = _decode(q, k_pages, v_pages, block_tables, lengths, scale, None)
+    out, split = _decode(q, k_pages, v_pages, block_tables, lengths, scale, None)
     paged_decode_attention.launches += 1
+    paged_decode_attention.split_launches += split
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.split_launches = 0
 
 
 def paged_decode_attention_int8(
@@ -248,23 +305,27 @@ def paged_decode_attention_int8(
 ) -> torch.Tensor:
     """:func:`paged_decode_attention` over int8 pools and their scale pools.
 
-    Each staged page row is dequantized as ``float(int8) * scale`` before
-    the products.  The masking is the fp kernel's, applied after
-    dequantizing, so a NaN or Inf scale of a slot past the length (an
-    unwritten or recycled slot) cannot reach the output.
+    The int8 values are widened exactly and the scales applied in f32
+    (the split body scales the score by k_scale after the product and the
+    weight by v_scale; the other body dequantizes each staged row).  The
+    masking is the fp kernel's, applied after the scales, so a NaN, Inf or
+    1e30 scale of a slot past the length (an unwritten or recycled slot)
+    cannot reach the output.
 
     Returns
     -------
     torch.Tensor
         ``(B, H, hd)`` in ``q.dtype`` (f32 accumulation, one rounding).
     """
-    out = _decode(q, k_pages, v_pages, block_tables, lengths, scale,
-                  (k_scales, v_scales))
+    out, split = _decode(q, k_pages, v_pages, block_tables, lengths, scale,
+                         (k_scales, v_scales))
     paged_decode_attention_int8.launches += 1
+    paged_decode_attention_int8.split_launches += split
     return out
 
 
 paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.split_launches = 0
 
 
 def paged_prefill_attention(

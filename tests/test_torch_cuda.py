@@ -779,3 +779,253 @@ def test_bf16_engines_take_the_tensor_core_bodies(dev, arch):
         counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
         assert sum(tcs.values()) > 0
         assert all(tcs[name] == counts[name] for name in ops.TC_KERNELS), (counts, tcs)
+
+
+# ---------------------------------------------------------------------------
+# the split-context bodies of slot and paged decode attention
+# ---------------------------------------------------------------------------
+# (H, K, hd): the smoke configs (g 1 and 3), stablelm-1.6b, internlm2-20b,
+# Jamba-1.5-Large and a group of 16 (two row groups a kv head)
+SPLIT_WIDTHS = [(4, 4, 16), (6, 2, 16), (32, 32, 64), (48, 8, 128), (64, 8, 128),
+                (32, 2, 64)]
+DECODE_KINDS = ["slot", "paged", "int8"]
+
+
+def _split_lengths(cap, ps):
+    """0, 1, ps, ps + 1, a capacity-long row and mixed lengths in one
+    batch, so that some splits of some rows hold no live key."""
+    return np.minimum([0, 1, ps, ps + 1, cap, 33, cap // 2 + 3, cap - 7], cap).astype(np.int32)
+
+
+def _decode_split_case(rng, kind, H, K, hd, dtype, dev, ps=16, npp=16):
+    """Inputs of one decode call of ``kind`` (slot, paged, int8) at the
+    given widths, the garbage mask and a callable ``run(k, v, scales)``.
+
+    Returns (q, lengths, clean tensors, a poisoner, kernel, plain, counter)."""
+    cap = npp * ps
+    lens = _split_lengths(cap, ps)
+    B = len(lens)
+    ln = torch.from_numpy(lens).to(dev)
+    q = _randn(rng, (B, H, hd), dtype, dev)
+    if kind == "slot":
+        kc, vc = _randn(rng, (B, cap, K, hd), dtype, dev), _randn(rng, (B, cap, K, hd), dtype,
+                                                                  dev)
+        dead = torch.from_numpy(np.arange(cap)[None, :] >= lens[:, None]).to(dev)
+        return dict(q=q, ln=ln, k=kc, v=vc, dead=dead, counter=decode_attention,
+                    kernel=lambda k, v, s=None: decode_attention(q, k, v, ln),
+                    plain=lambda k, v, s=None: R.decode_attention_ref(q, k, v, ln))
+    P = B * npp + 3
+    bt = rng.permutation(np.arange(1, P))[: B * npp].reshape(B, npp).astype(np.int32)
+    live = torch.zeros(P, ps, dtype=torch.bool)
+    for b in range(B):
+        for t in range(int(lens[b])):
+            live[bt[b, t // ps], t % ps] = True
+    bt_t = torch.from_numpy(bt).to(dev)
+    if kind == "paged":
+        kp, vp = _pools(rng, P, ps, K, hd, dtype, dev)
+        return dict(q=q, ln=ln, k=kp, v=vp, dead=~live.to(dev), counter=paged_decode_attention,
+                    kernel=lambda k, v, s=None: paged_decode_attention(q, k, v, bt_t, ln),
+                    plain=lambda k, v, s=None: R.paged_decode_attention_ref(q, k, v, bt_t, ln))
+    kq, vq, ks, vs, dead = _int8_case(rng, P, ps, K, hd, live, dev)
+    return dict(q=q, ln=ln, k=kq, v=vq, scales=(ks, vs), dead=dead,
+                counter=paged_decode_attention_int8,
+                kernel=lambda k, v, s=(ks, vs): paged_decode_attention_int8(
+                    q, k, v, bt_t, ln, *s),
+                plain=lambda k, v, s=(ks, vs): R.paged_decode_attention_ref(
+                    q, k, v, bt_t, ln, k_scales=s[0], v_scales=s[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K,hd", SPLIT_WIDTHS)
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_split_decode_body_matches_plain_and_ignores_garbage(dev, kind, H, K, hd, dtype):
+    """The split body at the main path's widths, f32 and bf16: against the
+    plain version with +-99 in every dead slot (int8: +-99 payloads of
+    scale 1), zeros at length 0, and the output unchanged to the bit when
+    the dead slots hold NaN (int8: when their scales are NaN, Inf or 1e30)."""
+    rng = np.random.default_rng(90)
+    c = _decode_split_case(rng, kind, H, K, hd, dtype, dev)
+    k, v, dead, fn = c["k"], c["v"], c["dead"], c["counter"]
+    if kind != "int8":
+        k, v = k.clone(), v.clone()
+        k[dead], v[dead] = 99.0, -99.0
+    before, split0 = fn.launches, fn.split_launches
+    got = c["kernel"](k, v)
+    assert fn.launches == before + 1 and fn.split_launches == split0 + 1
+    assert got.dtype == dtype and got.shape == c["q"].shape
+    # row 0 has length 0: zeros (the plain version's additive mask is not
+    # defined there)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], c["plain"](k, v)[1:], dtype)
+    if kind == "int8":
+        ks, vs = c["scales"]
+        for value in GARBAGE_SCALES:
+            k2, v2 = _garbage_scales(ks, vs, dead, value)
+            assert torch.equal(c["kernel"](k, v, (k2, v2)), got)
+    else:
+        knan, vnan = c["k"].clone(), c["v"].clone()
+        knan[dead], vnan[dead] = float("nan"), float("nan")
+        assert torch.equal(c["kernel"](knan, vnan), c["kernel"](c["k"], c["v"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_split_decode_body_at_every_split_count(dev, monkeypatch, kind, splits, dtype):
+    """1, 2, 4 and 8 splits a row (8 over a 16-token capacity: most splits
+    hold nothing), at group sizes 2 and 6 (bf16: the tensor-core form; f32:
+    two row groups on CUDA cores) and 40 (three tensor-core row groups of
+    16), give the plain version's output."""
+    monkeypatch.setattr(_build, "decode_splits", lambda *a: splits)
+    rng = np.random.default_rng(91)
+    for npp, H in ((1, 4), (16, 12), (3, 80)):
+        c = _decode_split_case(rng, kind, H, 2, 64, dtype, dev, npp=npp)
+        k, v, dead = c["k"], c["v"], c["dead"]
+        if kind != "int8":
+            k, v = k.clone(), v.clone()
+            k[dead], v[dead] = 99.0, -99.0
+        split0 = c["counter"].split_launches
+        got = c["kernel"](k, v)
+        assert c["counter"].split_launches == split0 + 1
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        _close(got[1:], c["plain"](k, v)[1:], dtype)
+
+
+@pytest.mark.gpu
+def test_split_decode_bodies_give_zeros_for_length_zero(dev):
+    q = torch.ones(2, 4, 16, device=dev)
+    ln = torch.zeros(2, dtype=torch.int32, device=dev)
+    nan = torch.full((2, 8, 2, 16), float("nan"), device=dev)
+    split0 = decode_attention.split_launches
+    out = decode_attention(q, nan, nan, ln)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert decode_attention.split_launches == split0 + 1
+    pool = torch.full((5, 8, 2, 16), float("nan"), device=dev)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=dev)
+    out = paged_decode_attention(q, pool, pool, bt, ln)
+    assert torch.equal(out, torch.zeros_like(out))
+    q8 = torch.full((5, 8, 2, 16), 99, dtype=torch.int8, device=dev)
+    sc = torch.full((5, 8, 2), float("nan"), device=dev)
+    out = paged_decode_attention_int8(q.bfloat16(), q8, q8, bt, ln, sc, sc)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_decode_bodies_read_strided_stacked_views(dev, dtype):
+    """Layer views of a stacked slot cache, of stacked pools and scale
+    pools, and a slot cache of every other kv head take the split body and
+    give the result of their contiguous copies."""
+    rng = np.random.default_rng(92)
+    B, S, K, hd, H = 3, 200, 2, 64, 12
+    stack = _randn(rng, (4, 2, B, S, 2 * K, hd), dtype, dev)     # (layers, k/v, B, S, 2K, hd)
+    q = _randn(rng, (B, H, hd), dtype, dev)
+    ln = torch.tensor([5, 200, 97], dtype=torch.int32, device=dev)
+    counts0, splits0 = ops.launch_counts(), ops.split_launch_counts()
+    for kc, vc in ((stack[2, 0, :, :, :K], stack[2, 1, :, :, :K]),
+                   (stack[1, 0, :, :, ::2], stack[1, 1, :, :, ::2])):
+        assert not kc.is_contiguous()
+        got = ops.decode_attention(q, kc, vc, ln)
+        assert torch.equal(got, decode_attention(q, kc.contiguous(), vc.contiguous(), ln))
+        _close(got, R.decode_attention_ref(q, kc, vc, ln), dtype)
+    pools = _randn(rng, (3, 2, 12, 16, K, hd), dtype, dev)        # (layers, k/v, P, ps, K, hd)
+    kq, ks = ops.quantize_kv(_randn(rng, (3, 12, 16, K, hd), torch.float32, dev))
+    vq, vs = ops.quantize_kv(_randn(rng, (3, 12, 16, K, hd), torch.float32, dev))
+    bt = torch.tensor([[4, 9, 2, 7], [11, 3, 1, 5], [6, 8, 10, 0]], dtype=torch.int32,
+                      device=dev)
+    ln = torch.tensor([17, 64, 1], dtype=torch.int32, device=dev)
+    got = ops.paged_decode_attention(q, pools[1, 0], pools[1, 1], bt, ln)
+    assert torch.equal(got, paged_decode_attention(q, pools[1, 0].contiguous(),
+                                                   pools[1, 1].contiguous(), bt, ln))
+    got = ops.paged_decode_attention(q, kq[2], vq[2], bt, ln, k_scales=ks[2], v_scales=vs[2])
+    assert torch.equal(got, paged_decode_attention_int8(
+        q, kq[2].contiguous(), vq[2].contiguous(), bt, ln, ks[2].contiguous(),
+        vs[2].contiguous()))
+    counts, splits = ops.launch_counts(), ops.split_launch_counts()
+    assert {n: counts[n] - counts0[n] for n in ops.SPLIT_KERNELS} == \
+        {n: splits[n] - splits0[n] for n in ops.SPLIT_KERNELS} == \
+        {"decode_attention": 4, "paged_decode_attention": 2, "paged_decode_attention_int8": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_refused_decode_shapes_take_the_other_body(dev, dtype):
+    """MLA decode's hd 192 / hd_v 128, hd 256 pools and misaligned rows go
+    to the one-block-a-row bodies (f32 and bf16 entry points), which still
+    match the plain versions; split_launches does not move."""
+    rng = np.random.default_rng(93)
+    splits0 = ops.split_launch_counts()
+    q = _randn(rng, (2, 16, 192), dtype, dev)
+    kc, vc = _randn(rng, (2, 40, 16, 192), dtype, dev), _randn(rng, (2, 40, 16, 128), dtype, dev)
+    ln = torch.tensor([3, 40], dtype=torch.int32, device=dev)
+    _close(decode_attention(q, kc, vc, ln), R.decode_attention_ref(q, kc, vc, ln), dtype)
+    q = _randn(rng, (2, 4, 64), dtype, dev)
+    kb = _randn(rng, (2, 40, 2, 65), dtype, dev)
+    km, vm = kb[..., 1:], kb.flip(0)[..., :64]            # rows off 16 bytes, 65 apart
+    assert km.data_ptr() % 16 != 0
+    _close(decode_attention(q, km, vm, ln), R.decode_attention_ref(q, km, vm, ln), dtype)
+    bt = torch.tensor([[1, 2, 3], [4, 5, 0]], dtype=torch.int32, device=dev)
+    lp = torch.tensor([20, 9], dtype=torch.int32, device=dev)
+    for hd in (256, 64):
+        pool = _randn(rng, (6, 8, 2, hd + 1), dtype, dev)
+        kp = pool[..., 1:] if hd == 64 else pool[..., :hd].contiguous()
+        vp = kp.flip(0)
+        qd = _randn(rng, (2, 4, hd), dtype, dev)
+        _close(paged_decode_attention(qd, kp, vp, bt, lp),
+               R.paged_decode_attention_ref(qd, kp, vp, bt, lp), dtype)
+    kq, ks = ops.quantize_kv(_randn(rng, (6, 8, 2, 256), torch.float32, dev))
+    qd = _randn(rng, (2, 4, 256), dtype, dev)
+    _close(paged_decode_attention_int8(qd, kq, kq, bt, lp, ks, ks),
+           R.paged_decode_attention_ref(qd, kq, kq, bt, lp, k_scales=ks, v_scales=ks), dtype)
+    kq, ks = ops.quantize_kv(_randn(rng, (6, 8, 2, 65), torch.float32, dev))
+    km = kq[..., 1:]                                      # int8 rows off 16 bytes
+    qd = _randn(rng, (2, 4, 64), dtype, dev)
+    _close(paged_decode_attention_int8(qd, km, km, bt, lp, ks, ks),
+           R.paged_decode_attention_ref(qd, km, km, bt, lp, k_scales=ks, v_scales=ks), dtype)
+    assert ops.split_launch_counts() == splits0
+
+
+@pytest.mark.gpu
+def test_decode_wrappers_make_no_host_sync(dev):
+    """Neither wrapper reads the lengths (or anything else) back: every
+    call runs under torch.cuda.set_sync_debug_mode("error")."""
+    rng = np.random.default_rng(94)
+    cases = [_decode_split_case(rng, kind, 48, 8, 128, torch.bfloat16, dev)
+             for kind in DECODE_KINDS]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [c["kernel"](c["k"], c["v"]) for c in cases]
+        outs.append(decode_attention(cases[0]["q"], cases[0]["k"][:, :40], cases[0]["v"][:, :40],
+                                     cases[0]["ln"].clamp(max=40)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "internlm2_20b", "jamba_1_5_large_398b"])
+def test_engines_take_the_split_decode_bodies(dev, arch, dtype):
+    """Smoke models (hd 16), f32 and bf16: every slot and paged decode call
+    (fp and int8 pages, int8 slot cache) takes the split body."""
+    cfg = get_smoke_config(arch).with_(dtype=dtype)
+    params = init_params(cfg, seed=3, device=dev)
+    prompts = [[1, 2, 3], list(range(4, 30)), [7] * 9, list(range(40, 57))]
+    engines = [LLMEngine(c, max_batch=4, max_len=64, params=params, device=dev)
+               for c in (cfg, cfg.with_(kv_cache_dtype="int8"))]
+    if arch != "jamba_1_5_large_398b":
+        engines += [PagedLLMEngine(cfg, max_seqs=4, max_len=64, page_size=8, prefill_chunk=8,
+                                   params=params, kv_dtype=kv, device=dev)
+                    for kv in ("fp32", "int8")]
+    for eng in engines:
+        ops.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            assert eng.admit(Request(rid=i, prompt=p, max_new_tokens=4))
+        while eng.batch_size or getattr(eng, "waiting", None):
+            eng.step()
+        counts, splits = ops.launch_counts(), ops.split_launch_counts()
+        assert sum(splits.values()) > 0
+        assert all(splits[name] == counts[name] for name in ops.SPLIT_KERNELS), (counts, splits)

@@ -3,8 +3,9 @@
 The flash and paged-prefill wrappers choose between a bf16 tensor-core
 body and the f32 CUDA-core body by a pure-Python predicate on shapes,
 strides, dtypes and ``data_ptr() % 16``; the paged prefill also splits a
-chunk's context over a number of CTAs chosen on the host.  Both are held
-here on plain tuples.  The last tests hold that :mod:`repro_torch.kernels.ops`
+chunk's context over a number of CTAs chosen on the host.  The two decode
+wrappers choose their split-context body the same way and split each
+row's context by shapes alone.  All are held here on plain tuples.  The last tests hold that :mod:`repro_torch.kernels.ops`
 sends a CPU tensor to :mod:`repro_torch.kernels.ref` and nowhere else: the
 kernels' library is made to raise if anything reaches for it.
 """
@@ -17,6 +18,8 @@ import numpy as np
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.flash_attention import uses_tensor_cores
 from repro_torch.kernels.paged_attention import prefill_splits, prefill_uses_tensor_cores
 
@@ -170,6 +173,179 @@ def test_prefill_splits(K, rows, n_tiles, sms, want):
 
 
 # ---------------------------------------------------------------------------
+# the split-context decode bodies: which calls they serve, how many splits
+# ---------------------------------------------------------------------------
+I8 = torch.int8
+
+
+def _slot_route(q_dtype, cache_dtype, q, k, v, strides=None, misalign=(0, 0, 0)):
+    shapes = (q, k, v)
+    return DA.decode_uses_split_body(q_dtype, cache_dtype, shapes,
+                                     strides or tuple(map(_contig, shapes)), misalign)
+
+
+def _paged_route(q_dtype, page_dtype, q, pool, strides=None, misalign=(0, 0, 0)):
+    shapes = (q, pool, pool)
+    return PA.decode_uses_split_body(q_dtype, page_dtype, shapes,
+                                     strides or tuple(map(_contig, shapes)), misalign)
+
+
+# (q dtype, cache dtype, q, k, v shapes, expected): the slot engine's
+# widths (stablelm-1.6b, internlm2-20b, Jamba-1.5-Large, the smoke configs)
+SLOT_SPLIT_CASES = [
+    (BF16, BF16, (4, 32, 64), (4, 1024, 32, 64), (4, 1024, 32, 64), True),
+    (F32, F32, (4, 32, 64), (4, 1024, 32, 64), (4, 1024, 32, 64), True),
+    (BF16, BF16, (4, 64, 128), (4, 1024, 8, 128), (4, 1024, 8, 128), True),
+    (F32, F32, (4, 64, 128), (4, 1024, 8, 128), (4, 1024, 8, 128), True),
+    (BF16, BF16, (8, 48, 128), (8, 512, 8, 128), (8, 512, 8, 128), True),
+    (BF16, BF16, (3, 6, 16), (3, 64, 2, 16), (3, 64, 2, 16), True),
+    (F32, F32, (3, 4, 16), (3, 64, 4, 16), (3, 64, 4, 16), True),
+    (BF16, BF16, (2, 16, 192), (2, 64, 16, 192), (2, 64, 16, 128), False),   # MLA 192 / 128
+    (BF16, BF16, (2, 8, 256), (2, 64, 8, 256), (2, 64, 8, 256), False),      # hd 256
+    (BF16, BF16, (2, 8, 96), (2, 64, 8, 96), (2, 64, 8, 96), False),         # hd 96
+    (BF16, BF16, (2, 8, 64), (2, 64, 8, 64), (2, 64, 8, 128), False),        # hd != hd_v
+    (torch.float16, torch.float16, (2, 8, 64), (2, 64, 8, 64), (2, 64, 8, 64), False),
+    (F32, BF16, (2, 8, 64), (2, 64, 8, 64), (2, 64, 8, 64), False),          # mixed dtypes
+]
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype,q,k,v,want", SLOT_SPLIT_CASES)
+def test_slot_decode_route_by_dtype_and_head_dim(q_dtype, cache_dtype, q, k, v, want):
+    assert _slot_route(q_dtype, cache_dtype, q, k, v) is want
+
+
+# (q dtype, page dtype, q shape, pool shape, expected)
+PAGED_SPLIT_CASES = [
+    (BF16, BF16, (8, 32, 64), (515, 16, 32, 64), True),       # stablelm-1.6b
+    (F32, F32, (8, 32, 64), (515, 16, 32, 64), True),
+    (BF16, I8, (8, 32, 64), (515, 16, 32, 64), True),          # int8 pages
+    (F32, I8, (8, 32, 64), (515, 16, 32, 64), True),
+    (BF16, BF16, (8, 48, 128), (515, 16, 8, 128), True),      # internlm2-20b
+    (BF16, I8, (8, 48, 128), (515, 16, 8, 128), True),
+    (F32, I8, (8, 48, 128), (515, 16, 8, 128), True),
+    (BF16, BF16, (4, 6, 16), (33, 8, 2, 16), True),           # smoke widths, page 8
+    (BF16, I8, (4, 4, 16), (33, 8, 4, 16), True),
+    (BF16, BF16, (4, 32, 64), (33, 12, 32, 64), True),        # any page size
+    (BF16, BF16, (4, 8, 256), (33, 16, 8, 256), False),       # hd 256
+    (BF16, I8, (4, 8, 256), (33, 16, 8, 256), False),
+    (BF16, BF16, (4, 8, 96), (33, 16, 8, 96), False),         # hd 96
+    (BF16, F32, (4, 8, 64), (33, 16, 8, 64), False),          # pages of another float dtype
+    (torch.float16, torch.float16, (4, 8, 64), (33, 16, 8, 64), False),
+]
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype,q,pool,want", PAGED_SPLIT_CASES)
+def test_paged_decode_route_by_dtype_and_head_dim(q_dtype, page_dtype, q, pool, want):
+    assert _paged_route(q_dtype, page_dtype, q, pool) is want
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_decode_routes_take_layer_views_of_stacked_caches_and_pools(dtype):
+    """cache[i] of a (layers, B, S, K, hd) stack, pool[i] of a (layers, P,
+    ps, K, hd) stack and a slot cache of every other kv head: whole rows
+    apart, offsets of whole rows, so every row stays 16-byte aligned."""
+    B, S, K, hd = 4, 1024, 8, 128
+    k = (B, S, K, hd)
+    st = _contig(k)
+    assert _slot_route(dtype, dtype, (B, 64, hd), k, k, strides=((64 * hd, hd, 1), st, st))
+    every_other = (S * 2 * K * hd, 2 * K * hd, 2 * hd, 1)
+    assert _slot_route(dtype, dtype, (B, 64, hd), k, k,
+                       strides=((64 * hd, hd, 1), every_other, every_other))
+    pool = (20, 16, 8, 128)
+    pst = _contig(pool)
+    for page_dtype in (dtype, I8):
+        assert _paged_route(dtype, page_dtype, (4, 48, 128), pool,
+                            strides=(_contig((4, 48, 128)), pst, pst))
+
+
+@pytest.mark.parametrize("which", [1, 2])
+def test_decode_routes_refuse_misaligned_or_strided_rows(which):
+    q, k = (2, 8, 64), (2, 70, 4, 64)
+    good = (_contig(q), _contig(k), _contig(k))
+    mis = [0, 0, 0]
+    mis[which] = 2
+    assert not _slot_route(BF16, BF16, q, k, k, misalign=tuple(mis))
+    assert not _paged_route(BF16, BF16, q, k, misalign=tuple(mis))
+    mis[which] = 8                       # int8 rows must start on 16 bytes too
+    assert not _paged_route(BF16, I8, q, k, misalign=tuple(mis))
+    strides = list(good)
+    strides[which] = (70 * 4 * 65, 4 * 65, 65, 1)      # rows 65 elements apart
+    assert not _slot_route(BF16, BF16, q, k, k, strides=tuple(strides))
+    assert not _paged_route(BF16, BF16, q, k, strides=tuple(strides))
+    strides[which] = (70 * 4 * 128, 4 * 128, 128, 2)   # an inner stride of 2
+    assert not _slot_route(BF16, BF16, q, k, k, strides=tuple(strides))
+    assert not _paged_route(BF16, I8, q, k, strides=tuple(strides))
+    strides[which] = (70 * 4 * 72, 4 * 72, 72, 1)      # int8 rows 72 bytes apart
+    assert not _paged_route(BF16, I8, q, k, strides=tuple(strides))
+
+
+def test_decode_routes_ignore_q_layout():
+    """q is read element by element: a misaligned or strided q still takes
+    the split body."""
+    q, k = (2, 8, 64), (2, 70, 4, 64)
+    st = (_contig(q), _contig(k), _contig(k))
+    odd = ((8 * 65, 65, 1), st[1], st[2])
+    assert _slot_route(BF16, BF16, q, k, k, strides=odd, misalign=(2, 0, 0))
+    assert _paged_route(F32, I8, q, k, strides=odd, misalign=(4, 0, 0))
+
+
+# (B, K, query group, q dtype, capacity, SMs, expected splits) at the main
+# path's shapes
+DECODE_SPLIT_COUNTS = [
+    (4, 32, 1, BF16, 1024, 132, 1),   # stablelm-1.6b slot decode, the testbed's 4 slots
+    (8, 32, 1, BF16, 1024, 132, 1),   # stablelm-1.6b paged decode, 8 rows of 64 pages
+    (8, 8, 6, BF16, 1024, 132, 1),    # internlm2-20b paged decode: one 16-row group
+    (4, 8, 8, BF16, 1024, 132, 2),    # Jamba-1.5-Large slot decode at B = 4
+    (4, 8, 8, F32, 1024, 132, 1),     # ... in f32: two CUDA-core row groups of 4
+    (1, 32, 1, BF16, 1024, 132, 2),   # one request
+    (1, 8, 6, BF16, 1024, 132, 8),
+    (4, 32, 1, BF16, 16, 132, 1),     # a capacity below one tile: nothing to split
+    (1, 8, 1, BF16, 32, 132, 1),      # one tile
+    (1, 8, 1, BF16, 64, 132, 2),      # never more splits than tiles
+    (2, 2, 3, BF16, 64, 132, 2),      # the smoke configs' max_len 64
+    (1, 1, 1, F32, 4096, 132, 8),     # at most one cluster of 8
+]
+
+
+@pytest.mark.parametrize("B,K,g,dtype,cap,sms,want", DECODE_SPLIT_COUNTS)
+def test_decode_splits(B, K, g, dtype, cap, sms, want):
+    groups = -(-g // _build.decode_group_rows(g, dtype))
+    splits = _build.decode_splits(B, K, cap, sms, groups)
+    assert splits == want
+    assert splits & (splits - 1) == 0 and splits <= _build.SPLIT_MAX_SPLITS
+    # it reaches a CTA for every SPLIT_SMS_PER_CTA SMs, or stops at the
+    # cluster's size or at the tiles of the capacity
+    tiles = -(-cap // _build.SPLIT_TILE)
+    assert (B * K * groups * splits * _build.SPLIT_SMS_PER_CTA >= sms
+            or splits == _build.SPLIT_MAX_SPLITS or 2 * splits > tiles)
+
+
+@pytest.mark.parametrize("g,dtype,want", [
+    (1, BF16, 1), (2, BF16, 1), (2, F32, 1),
+    (3, BF16, 1), (6, BF16, 1), (8, BF16, 1), (16, BF16, 1), (40, BF16, 3),
+    (3, F32, 1), (6, F32, 2), (8, F32, 2), (40, F32, 10),
+])
+def test_decode_row_groups(g, dtype, want):
+    """bf16 groups above 2 take the tensor-core form, 16 rows a CTA; f32
+    groups take CUDA-core CTAs of 4 rows; a group of 1 or 2 one CTA of its
+    size.  Only those four sizes have a form in the launcher."""
+    rows = _build.decode_group_rows(g, dtype)
+    assert -(-g // rows) == want
+    assert rows == (g if g <= 2 else 16 if dtype == BF16 else 4)
+
+
+@pytest.mark.parametrize("B,K,g,dtype,cap,sms,want", DECODE_SPLIT_COUNTS)
+def test_slot_wrapper_uses_the_same_split_rule(monkeypatch, B, K, g, dtype, cap, sms, want):
+    """Both decode wrappers take their launch from ``_build.decode_launch``
+    alone: neither module keeps a rule of its own."""
+    for mod in (DA, PA):
+        assert not hasattr(mod, "decode_splits") and not hasattr(mod, "decode_row_groups")
+    monkeypatch.setattr(_build, "sm_count", lambda index: sms)
+    assert _build.decode_launch(B, K * g, K, cap, dtype, 0) == (
+        _build.decode_group_rows(g, dtype), want)
+
+
+# ---------------------------------------------------------------------------
 # a CPU tensor never reaches the kernels
 # ---------------------------------------------------------------------------
 def _no_library(*args, **kwargs):
@@ -180,9 +356,9 @@ def _no_library(*args, **kwargs):
 def no_kernels(monkeypatch):
     monkeypatch.setattr(_build, "library", _no_library)
     monkeypatch.setattr(_build, "entry", _no_library)
-    before = (ops.launch_counts(), ops.tc_launch_counts())
+    before = (ops.launch_counts(), ops.tc_launch_counts(), ops.split_launch_counts())
     yield
-    assert (ops.launch_counts(), ops.tc_launch_counts()) == before
+    assert (ops.launch_counts(), ops.tc_launch_counts(), ops.split_launch_counts()) == before
 
 
 def _t(rng, shape, dtype):
