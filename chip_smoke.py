@@ -15,7 +15,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    ``HMMA``/``HGMMA`` instructions in each kernel's SASS: every
    tensor-core body must hold some; ``split_bodies`` lists each
    instantiation of the split-context decode body (registers, spills,
-   SASS instructions, ``HMMA`` of its tensor-core form);
+   SASS instructions, ``HMMA`` of its tensor-core form), and
+   ``rmsnorm_ssm_ptxas`` the registers and spills of each RMSNorm (warps a
+   row) and selective-scan (lanes a channel) instantiation;
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card, in bf16 and f32, at the main path's shapes (stablelm-1.6b:
    H = K = 32, hd = 64, page 16) and at internlm2-20b's GQA widths
@@ -99,7 +101,19 @@ The ``kernels`` phase also holds the Mamba selective-scan kernel against
 its plain version at the hybrid path's shapes (D = 16384, N = 16; T = 1 at
 B = 4, T = 17 and 512 at B = 1) and the smoke config's, with B and C read
 as strided slices, and times it beside its bound (bytes against the exps
-on the special-function units at the card's maximum clock).
+on the special-function units at the card's maximum clock).  RMSNorm is
+held at d = 100 (odd rows off 16 bytes), with x and gamma off 16 bytes, at
+386 rows and at none, and timed (``timing_rmsnorm``, beside
+``F.rms_norm``) at the main path's other shapes: 8 x 2048, 386 x 2048,
+4 x 8192 and 512 x 8192; ``rmsnorm_sweep`` times it with the warps a row
+``_build.rmsnorm_warps`` picks and with twice as many.
+
+``--phases timing`` runs only those RMSNorm and scan timings, and
+``--src DIR`` imports ``repro_torch`` from another tree (``DIR`` is its
+``src``): with both, one call times a parent commit and this one in turns
+(unpack the parent with ``git archive`` into a git-ignored directory).
+Every profiled decode window (``profile`` lines) carries RMSNorm's and the
+scan's device time and share of the busy time (``kernel_shares``).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line,
 and a last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -142,6 +156,8 @@ SFU_EXP_PER_CLOCK_PER_SM = 16
 # host seconds between a traced window's edges and the work it measures
 TRACE_PAD_S = 0.01
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid")
+# run only when named: the RMSNorm and scan timings alone (``kernels`` has them)
+EXTRA_PHASES = ("timing",)
 KERNEL_META = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                                "src/repro/kernels/paged_attention.py:119"),
@@ -358,6 +374,7 @@ def phase_env(build_mod) -> dict:
     env = {
         "sass_mma": sass,
         "split_bodies": _split_bodies(info["log"], sass),
+        "rmsnorm_ssm_ptxas": _ptxas_of(info["log"], _norm_scan_key),
         "nvidia_smi": smi_line(),
         "device": torch.cuda.get_device_name(0),
         "device_count": torch.cuda.device_count(),
@@ -404,6 +421,41 @@ def _sass_mma(build_mod, lib_path: str):
     return counts
 
 
+def _norm_scan_key(name: str):
+    """``rmsnorm<dtype, W warps>`` or ``ssm_scan<dtype, L lanes>`` of one
+    instantiation of the RMSNorm or selective-scan kernel, from its mangled
+    name (an instantiation without the count, as an older tree's, keeps only
+    the dtype); None for another kernel."""
+    import re
+
+    m = re.search(r"(rmsnorm|ssm_scan)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?", name)
+    if not m:
+        return None
+    dtype = "f32" if m.group(2) == "f" else "bf16"
+    if m.group(3) is None:
+        return f"{m.group(1)}<{dtype}>"
+    return f"{m.group(1)}<{dtype}, {m.group(3)} {'warps' if m.group(1) == 'rmsnorm' else 'lanes'}>"
+
+
+def _ptxas_of(log: str, key_of) -> dict:
+    """``ptxas``'s registers and spill bytes of every kernel instantiation
+    that ``key_of`` names (from its mangled name)."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            key = key_of(line.split("'")[1])
+            if key is not None:
+                out[key] = {}
+        elif key is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[key]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[key]["spill_loads"] = int(words[-4])
+        elif key is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            out[key]["registers"] = int(words[words.index("registers,") - 1])
+    return out
+
+
 def _split_key(name: str):
     """``decode_split<HD, G, q dtype, page dtype, slot|paged>`` (CUDA-core
     form) or ``decode_split_tc<HD, bf16|int8, slot|paged>`` (tensor-core
@@ -446,19 +498,7 @@ def _split_bodies(log: str, sass) -> dict:
     registers and spill bytes, and its SASS instruction count (and, for the
     tensor-core form, its ``HMMA`` count, which must not be 0) where the
     toolkit has ``cuobjdump``."""
-    out, key = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            key = _split_key(line.split("'")[1])
-            if key is not None:
-                out[key] = {}
-        elif key is not None and "spill stores" in line:
-            words = line.replace(",", "").split()
-            out[key]["spill_stores"] = int(words[words.index("spill") - 2])
-            out[key]["spill_loads"] = int(words[-4])
-        elif key is not None and "Used" in line and "registers" in line:
-            words = line.split()
-            out[key]["registers"] = int(words[words.index("registers,") - 1])
+    out = _ptxas_of(log, _split_key)
     for name, counts in (sass or {}).items():
         key = _split_key(name)
         if key in out:
@@ -545,6 +585,42 @@ def _check_rmsnorm(rng, dev, errs, cases, d, row_counts) -> None:
             errs["rmsnorm"] = max(errs["rmsnorm"],
                                   _err(rmsnorm(x, g), R.rmsnorm_ref(x, g), dtype))
             cases.append(("rmsnorm", d, str(dtype), rows))
+
+
+def _misaligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data pointer is one element off the
+    buffer's start (storage offset 1): off 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _check_rmsnorm_edges(dev, errs, cases) -> None:
+    """RMSNorm where its vectors do not fit: d = 100 (not a multiple of
+    8 bf16 or 4 f32 values, so odd rows start off 16 bytes), x and gamma
+    off 16 bytes (storage offset 1), 386 rows (a slot admission), and no
+    rows; f32 and bf16, each against its plain version, one launch a call
+    (none without rows)."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    rng = np.random.default_rng(17)
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, d in ((0, 2048), (1, 100), (8, 100), (386, 2048), (386, 100)):
+            x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32) * 3).to(dev, dtype)
+            g = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(dev, dtype)
+            for label, (xi, gi) in (("aligned", (x, g)),
+                                    ("off 16 bytes", (_misaligned_rows(x), _misaligned_rows(g)))):
+                before = rmsnorm.launches
+                got = rmsnorm(xi, gi)
+                check(rmsnorm.launches == before + (1 if rows else 0),
+                      f"rmsnorm launches at rows={rows}: {rmsnorm.launches - before}")
+                check(got.shape == x.shape, f"rmsnorm output shape {tuple(got.shape)}")
+                if rows:
+                    errs["rmsnorm"] = max(errs["rmsnorm"],
+                                          _err(got, R.rmsnorm_ref(xi, gi), dtype))
+                cases.append(("rmsnorm edge", str(dtype), rows, d, label))
 
 
 def _check_slot_kernels(rng, dev, errs, cases) -> None:
@@ -773,14 +849,16 @@ def _check_ssm_scan(dev, errs, cases) -> None:
     """ssm_scan against its plain version, f32 and bf16, with B and C read
     as strided column slices: the main path's shapes (D = 16384, N = 16;
     T = 1 at B = 4, T = 17 and 512 at B = 1), the smoke config's (D = 128,
-    N = 8) and ragged T and D, each with h0 given and none; then two halves
-    with the state carried must equal the whole, bit for bit."""
+    N = 8), ragged T and D and state sizes 1, 4 and 13, each with h0 given
+    and none; then two halves with the state carried must equal the whole,
+    bit for bit."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.ssm_scan import ssm_scan
 
     rng = np.random.default_rng(9)
     shapes = [(4, 1, 16384, 16), (1, 17, 16384, 16), (1, 512, 16384, 16),
-              (2, 13, 128, 8), (3, 37, 100, 16)]
+              (2, 13, 128, 8), (3, 37, 100, 16), (2, 13, 128, 1), (2, 13, 128, 4),
+              (3, 37, 100, 13)]
     for dtype in (torch.bfloat16, torch.float32):
         for B, T, D, N in shapes:
             x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(rng, B, T, D, N, dtype, dev)
@@ -1106,6 +1184,77 @@ def _decode_split_sweep(dev) -> dict:
     return out
 
 
+#: the main path's other RMSNorm shapes (rows, d): a paged decode step at
+#: b = 8, a slot admission's 386-token prompt, Jamba's decode at b = 4 and a
+#: 512-token Jamba prefill (the summary's row is a 64-token prefill chunk)
+RMSNORM_SHAPES = ((8, 2048), (386, 2048), (4, 8192), (512, 8192))
+
+
+def _rmsnorm_row(dev, rows: int, d: int) -> dict:
+    """RMSNorm's timing row at ``rows`` x ``d`` bf16 (gamma of ones, x drawn
+    from a seeded device generator): ``_times`` with ``F.rms_norm`` as the
+    library call, the bytes bound (x read and out written once, gamma once)
+    and the warps a row the wrapper takes (where the tree has the rule)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    dt, es = torch.bfloat16, 2
+    x = torch.randn(rows, d, device=dev, dtype=dt,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    g = torch.ones(d, device=dev, dtype=dt)
+    nb, fl = bound(2 * rows * d * es + d * es, 4 * rows * d, dt)
+    rule = getattr(_build, "rmsnorm_warps", None)
+    return dict(**_times(lambda: rmsnorm(x, g), lambda: R.rmsnorm_ref(x, g),
+                         lambda: F.rms_norm(x, (d,), g, 1e-5)),
+                bound_ms=nb, bound_by=fl, shape=f"rows={rows} d={d}",
+                warps=rule(d, dt) if rule else None)
+
+
+def phase_timing(dev, emit_line: bool = True) -> dict:
+    """The two kernels this tree's RMSNorm and selective scan are timed at,
+    through their wrappers alone (so a tree from before their launch rules
+    runs it too, for a same-call A/B): RMSNorm at ``RMSNORM_SHAPES``, the
+    Jamba-1.5-Large scan at a 512-token prefill (the summary's row), a
+    17-token one and a decode step at B = 4 over carried states."""
+    srng = np.random.default_rng(10)
+    out = {"timing_rmsnorm": {f"{r}x{d}": _rmsnorm_row(dev, r, d) for r, d in RMSNORM_SHAPES},
+           "ssm_scan": _ssm_timing(dev, srng, 1, 512, 16384, 16, with_h0=False),
+           "timing_ssm_scan": {
+               "prefill T=17": _ssm_timing(dev, srng, 1, 17, 16384, 16, with_h0=False),
+               "decode B=4": _ssm_timing(dev, srng, 4, 1, 16384, 16, with_h0=True)}}
+    if emit_line:
+        emit("timing", rmsnorm_64x2048=_rmsnorm_row(dev, 64, 2048), **out)
+    return out
+
+
+def _rmsnorm_sweep(dev) -> dict:
+    """Device time (profiler) of RMSNorm, bf16, at each timed shape and at
+    8192 x 2048 (past any prefill of the main path) with the warps a row
+    ``_build.rmsnorm_warps`` picks and with twice as many."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    pick = _build.rmsnorm_warps
+    out = {}
+    try:
+        for rows, d in ((64, 2048),) + RMSNORM_SHAPES + ((8192, 2048),):
+            x = torch.randn(rows, d, device=dev, dtype=torch.bfloat16,
+                            generator=torch.Generator(device=dev).manual_seed(3))
+            g = torch.ones(d, device=dev, dtype=torch.bfloat16)
+            w0 = pick(d, torch.bfloat16)
+            row = {"picked": w0}
+            for w in (w0, 2 * w0):
+                _build.rmsnorm_warps = lambda *a, w=w: w
+                row[f"warps={w}"] = device_ms(lambda: rmsnorm(x, g))["device_ms"]
+            out[f"{rows}x{d}"] = row
+    finally:
+        _build.rmsnorm_warps = pick
+    return out
+
+
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.paged_attention import (
@@ -1113,7 +1262,6 @@ def phase_kernels(dev) -> dict:
     )
     from repro_torch.kernels.paged_attention import paged_prefill_attention_int8
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
 
     rng = np.random.default_rng(0)
     widths = {"stablelm-1.6b": (32, 32, 64), "internlm2-20b GQA": (48, 8, 128)}
@@ -1158,6 +1306,7 @@ def phase_kernels(dev) -> dict:
     # timed shapes stay those of the first slice (3160 decode tokens)
     timing_rng = copy.deepcopy(rng)
     _check_rmsnorm(rng, dev, errs, cases, 8192, (1, 4, 512))
+    _check_rmsnorm_edges(dev, errs, cases)
     _check_slot_kernels(rng, dev, errs, cases)
     _check_int8_kernels(dev, errs, cases)
     _check_decode_edges(dev, errs, cases)
@@ -1221,15 +1370,7 @@ def phase_kernels(dev) -> dict:
         bound_ms=nb, bound_by=fl,
         shape=f"C={C} past={past} H=K={H} hd={hd} ps={ps}, int8 pages, bf16 q")
     del kq, vq, ks, vs, k8, v8
-    x = torch.randn(64, 2048, device=dev, dtype=dt,
-                    generator=torch.Generator(device=dev).manual_seed(3))
-    g = torch.ones(2048, device=dev, dtype=dt)
-    nb, fl = bound(2 * 64 * 2048 * es + 2048 * es, 4 * 64 * 2048, dt)
-    timing["rmsnorm"] = dict(
-        **_times(lambda: rmsnorm(x, g),
-                 lambda: R.rmsnorm_ref(x, g),
-                 lambda: F.rms_norm(x, (2048,), g, 1e-5)),
-        bound_ms=nb, bound_by=fl, shape="rows=64 d=2048")
+    timing["rmsnorm"] = _rmsnorm_row(dev, 64, 2048)
     # the testbed's slot decode: b = 4 slots of S_max = 1024 holding a
     # ~386-token prompt plus what they decoded
     B, S = 4, 1024
@@ -1271,14 +1412,11 @@ def phase_kernels(dev) -> dict:
     check(all(v["launches"] - v["other_body"] == v["split_launches"] > 0
               for v in timed_split.values()),
           f"a timed decode call missed the split body: {timed_split}")
-    # the Jamba-1.5-Large scan: a 512-token prefill (the summary's row), a
-    # 17-token one and a decode step at B = 4 over carried states
-    srng = np.random.default_rng(10)
-    timing["ssm_scan"] = _ssm_timing(dev, srng, 1, 512, 16384, 16, with_h0=False)
-    ssm_more = {"prefill T=17": _ssm_timing(dev, srng, 1, 17, 16384, 16, with_h0=False),
-                "decode B=4": _ssm_timing(dev, srng, 4, 1, 16384, 16, with_h0=True)}
+    norm_scan = phase_timing(dev, emit_line=False)
+    timing["ssm_scan"] = norm_scan.pop("ssm_scan")
+    sweeps = {"rmsnorm_sweep": _rmsnorm_sweep(dev)}
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
-           "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, "timing_ssm_scan": ssm_more,
+           "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, **norm_scan, **sweeps,
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
            "timing_bf16_wide": wide, "timed_tc": timed_tc, "timed_split": timed_split,
            "tc_scaling": scaling, "decode_split_sweep": split_sweep,
@@ -1608,8 +1746,9 @@ def phase_engine(dev, cfg) -> dict:
 
 def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
     """Trace ``n_steps`` steady decode steps at batch ``len(reqs)`` with
-    torch.profiler: device time by kernel, and the share of the window the
-    device idled.  Works for the paged and the slot engine."""
+    torch.profiler: device time by kernel, the share of the window the
+    device idled, and RMSNorm's and the scan's device time and share of the
+    busy time (``kernel_shares``).  Works for the paged and the slot engine."""
     from torch.profiler import ProfilerActivity, profile
 
     for r in reqs:
@@ -1635,6 +1774,12 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
         by_kernel[name] = (tot + evt.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    shares = {}
+    for kernel in ("rmsnorm_kernel", "ssm_scan_kernel"):
+        hits = [(t, n) for name, (t, n) in by_kernel.items() if kernel in name]
+        ms = sum(t for t, _ in hits)
+        shares[kernel] = {"ms": ms, "count": sum(n for _, n in hits),
+                          "share_of_busy": ms / busy_ms if busy_ms else None}
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
     return {
         "top_host_ops_ms": [{"name": e.key, "self_ms": e.self_cpu_time_total / 1e3,
@@ -1645,6 +1790,7 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "device_events": sum(n for _, n in by_kernel.values()),
         "top_kernels_ms": [{"name": k, "ms": t, "count": n} for k, (t, n) in top],
+        "kernel_shares": shares,
     }
 
 
@@ -1980,21 +2126,29 @@ def _leaves(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
+    ap.add_argument("--src", default=None,
+                    help="import repro_torch from this directory instead of the "
+                         "checkout's src/ (another tree, for a same-call A/B)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    check(set(phases) <= set(PHASES), f"unknown phase in {phases}")
+    check(set(phases) <= set(PHASES + EXTRA_PHASES), f"unknown phase in {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build
 
+    emit("src", path=str(Path(_build.__file__).resolve().parents[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     signal.signal(signal.SIGALRM, _stalled)
     dev = torch.device("cuda", 0)
     phase_env(_build)
     kern = phase_kernels(dev) if "kernels" in phases else None
+    if "timing" in phases:
+        phase_timing(dev)
     from repro_torch.configs import get_config
 
     held_cfg = get_config("stablelm_1_6b").with_(n_layers=2, dtype="float32")

@@ -42,8 +42,8 @@ _STRIDES = [L] * 8
 _SCALE_STRIDES = [L] * 6  # (P, ps, K) strides of the k and v scale pools
 #: C signature of every entry point (all return an int cudaError_t)
 SIGNATURES: Dict[str, List] = {
-    "rmsnorm_f32": [P, P, P, I, I, F, P],
-    "rmsnorm_bf16": [P, P, P, I, I, F, P],
+    "rmsnorm_f32": [P, P, P, I, I, I, F, P],
+    "rmsnorm_bf16": [P, P, P, I, I, I, F, P],
     "paged_decode_f32": [P] * 6 + [I] * 7 + _STRIDES + [F, P],
     "paged_decode_bf16": [P] * 6 + [I] * 7 + _STRIDES + [F, P],
     "paged_prefill_f32": [P] * 5 + [I] * 8 + _STRIDES + [F, P],
@@ -56,8 +56,8 @@ SIGNATURES: Dict[str, List] = {
     "decode_attention_bf16": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
     "flash_attention_f32": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
     "flash_attention_bf16": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
-    "ssm_scan_f32": [P] * 9 + [I] * 4 + [L] * 12 + [P],
-    "ssm_scan_bf16": [P] * 9 + [I] * 4 + [L] * 12 + [P],
+    "ssm_scan_f32": [P] * 9 + [I] * 5 + [L] * 12 + [P],
+    "ssm_scan_bf16": [P] * 9 + [I] * 5 + [L] * 12 + [P],
     # the tensor-core bodies (csrc/attention_tc.cuh), bf16 only
     "flash_attention_tc_bf16": [P] * 4 + [I] * 7 + [L] * 9 + [F, P],
     "paged_prefill_tc_bf16": [P] * 5 + [I] * 8 + [L] * 6 + [F, P],
@@ -95,6 +95,46 @@ SPLIT_CUDA_CORE_ROWS = 4
 #: where the clusters do not all fit at once, a wave), so splits are added
 #: only until every third SM holds a CTA (chip_smoke.py's split sweep)
 SPLIT_SMS_PER_CTA = 3
+
+
+#: 16-byte vectors of a row one thread of the RMSNorm kernel holds, and the
+#: warps a row its launcher has a form for (csrc/rmsnorm.cu)
+RMSNORM_SLOTS = 8
+RMSNORM_WARPS = (1, 2, 4, 8, 16)
+#: lanes a channel the selective-scan launcher has a form for, and the
+#: states each lane holds (csrc/ssm_scan.cu)
+SSM_LANES = (1, 2, 4)
+SSM_STATES_PER_LANE = 4
+SSM_MAX_STATE = 16
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_warps(d: int, dtype: torch.dtype) -> int:
+    """Warps that hold one row of ``d`` ``dtype`` values (float32 or
+    bfloat16) in the RMSNorm kernel: the fewest of ``RMSNORM_WARPS`` whose
+    slots (``RMSNORM_SLOTS`` 16-byte vectors a thread) take the row, at most
+    16 (a wider row, past 32768 bf16 or 16384 f32 values, streams its rest;
+    32 warps would cap a thread at 64 registers and spill).  One warp at
+    stablelm-1.6b's d = 2048 in bf16, 4 at Jamba's 8192 (chip_smoke.py's
+    ``rmsnorm_sweep``: twice as many is slower at every timed shape).  The
+    launcher takes it and refuses a value it has no form for, so this is the
+    one place that picks it.  Cached: it runs on every launch.
+    """
+    if dtype not in (torch.float32, torch.bfloat16) or d < 1:
+        raise ValueError(f"rmsnorm_warps: no form for d={d}, {dtype}")
+    per_warp = 32 * RMSNORM_SLOTS * (16 // (4 if dtype == torch.float32 else 2))
+    return next((w for w in RMSNORM_WARPS if w * per_warp >= d), RMSNORM_WARPS[-1])
+
+
+def ssm_scan_lanes(N: int) -> int:
+    """Lanes that hold one channel's ``N`` states in the selective-scan
+    kernel: the fewest of ``SSM_LANES`` whose ``SSM_STATES_PER_LANE``
+    states each hold ``N`` (4 lanes at Jamba's N = 16).  The launcher takes
+    it and refuses a value it has no form for, or whose lanes cannot hold
+    N."""
+    if not 1 <= N <= SSM_MAX_STATE:
+        raise ValueError(f"ssm_scan_lanes: no form for N={N} (1 <= N <= {SSM_MAX_STATE})")
+    return next(L for L in SSM_LANES if L * SSM_STATES_PER_LANE >= N)
 
 
 def decode_group_rows(g: int, q_dtype: torch.dtype) -> int:

@@ -1,81 +1,211 @@
 // Fused row RMSNorm: out = x * rsqrt(mean(x^2) + eps) * gamma, f32 math.
 //
 // Replaces: repro/kernels/rmsnorm.py::rmsnorm (Pallas, _rmsnorm_kernel).
-// Bound on the H100: bytes. A row of d elements is read once, gamma once
-// (it stays in L2 across rows) and the row written once; the arithmetic is
-// three flops an element, far below the card's rate.
-// Design: one block per row, so a row's sum of squares is a block-local
-// reduction (warp shuffles, then one shared-memory pass over the warps'
-// partials) and nothing crosses blocks. The second pass re-reads the row,
-// which at d = 2048 is still in L1/L2; coalesced loads, one element a thread
-// per step.
+//
+// Bound on the H100: at the main path's sizes, latency. A row is read once
+// and written once and gamma is read once (three flops an element), so the
+// bytes bound is 0.16 us at 64 x 2048 bf16 and 5 us at Jamba's 512 x 8192,
+// against an empty launch's ~2 us. What costs is the chain inside a row:
+// load, reduce, scale, store. The body it replaces (one 256-thread block a
+// row, one element a thread a step, two __syncthreads() a row, the row read
+// twice) spent 4.2 us at 64 x 2048 bf16.
+//
+// Design: W warps hold a row (W from _build.rmsnorm_warps: one warp up to
+// 2048 bf16 or 1024 f32 values, doubling with d, at most 16). Each thread
+// holds kSlots 16-byte vectors of the row in registers (8 bf16 or 4 f32 a
+// vector, neighbouring lanes on neighbouring vectors), so the row comes from
+// device memory once: all of a thread's loads are in flight together, the sum
+// of squares is taken from the registers, reduced by warp shuffles (and, for
+// W > 1, one shared-memory exchange of the W partial sums), and the output is
+// written from the same registers with 16-byte stores. A CTA holds one row,
+// and its gamma loads are issued with the row's, so both are in flight at
+// once. (A CTA that walks several rows with gamma loaded once was slower at
+// every row count swept, 8 to 8192: its rows wait on one another.) The math
+// is f32 in the plain version's order, (x * rstd) * gamma, cast once; only
+// the sum of squares is in another order.
+//
+// Every shape the plain version takes runs here, in this one body: a vector
+// that runs past d (a ragged tail), or one of a row whose base is off 16 bytes
+// (a misaligned x, gamma or output, or odd rows when d is not a multiple of
+// the vector width), is read and written element by element into the same
+// slot; values of a row wider than the slots hold (more than 32768 bf16 or
+// 16384 f32) are streamed and read again for the output; rows = 0 launches
+// nothing. The launcher refuses a W it has no form for.
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+constexpr int kSlots = 8;  // 16-byte vectors of a row a thread holds
+
+// a 16-byte vector of a row, as four words
+struct Vec {
+  uint32_t w[4];
+};
+
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  using Raw = uint32_t;
+  static constexpr int kV = 4;  // values a vector
+  __device__ static float get(const Vec& v, int k) { return __uint_as_float(v.w[k]); }
+  __device__ static void put(Vec& v, int k, Raw bits) { v.w[k] = bits; }
+  __device__ static Raw raw(const Vec& v, int k) { return v.w[k]; }
+  __device__ static Raw bits(float f) { return __float_as_uint(f); }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  using Raw = uint16_t;
+  static constexpr int kV = 8;
+  // a bf16 is the upper half of the f32 with the same value
+  __device__ static float get(const Vec& v, int k) {
+    const uint32_t w = v.w[k >> 1];
+    return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+  __device__ static void put(Vec& v, int k, Raw bits) {
+    v.w[k >> 1] |= static_cast<uint32_t>(bits) << (16 * (k & 1));
+  }
+  __device__ static Raw raw(const Vec& v, int k) {
+    return static_cast<Raw>(v.w[k >> 1] >> (16 * (k & 1)));
+  }
+  __device__ static Raw bits(float f) { return __bfloat16_as_ushort(__float2bfloat16(f)); }
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Values e .. e + kV - 1 of a row (zeros past d): one 16-byte load where the
+// row is aligned and the vector lies inside it, else element by element.
+template <typename T>
+__device__ __forceinline__ Vec load_vec(const T* row, int e, int d, bool aligned) {
+  using E = Elem<T>;
+  Vec v = {{0u, 0u, 0u, 0u}};
+  if (aligned && e + E::kV <= d) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + e);
+    v.w[0] = u.x;
+    v.w[1] = u.y;
+    v.w[2] = u.z;
+    v.w[3] = u.w;
+  } else {
+    const typename E::Raw* raw = reinterpret_cast<const typename E::Raw*>(row);
+#pragma unroll
+    for (int k = 0; k < E::kV; ++k) {
+      if (e + k < d) E::put(v, k, raw[e + k]);
+    }
+  }
   return v;
 }
 
-// Sum of `v` over the block; every thread gets the total.
-__device__ float block_sum(float v) {
-  __shared__ float partial[32];
-  __shared__ float total;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    float w = lane < n_warps ? partial[lane] : 0.f;
-    w = warp_sum(w);
-    if (lane == 0) total = w;
+template <typename T>
+__device__ __forceinline__ void store_vec(T* row, int e, int d, bool aligned, const Vec& v) {
+  using E = Elem<T>;
+  if (aligned && e + E::kV <= d) {
+    *reinterpret_cast<uint4*>(row + e) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  } else {
+    typename E::Raw* raw = reinterpret_cast<typename E::Raw*>(row);
+#pragma unroll
+    for (int k = 0; k < E::kV; ++k) {
+      if (e + k < d) raw[e + k] = E::raw(v, k);
+    }
   }
-  __syncthreads();
-  return total;
 }
 
 template <typename T>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                               T* __restrict__ out, int d, float eps) {
+__device__ __forceinline__ float sum_squares(const Vec& v, float ss) {
+#pragma unroll
+  for (int k = 0; k < Elem<T>::kV; ++k) {
+    const float f = Elem<T>::get(v, k);
+    ss = fmaf(f, f, ss);
+  }
+  return ss;
+}
+
+// out = (x * rstd) * gamma, rounded once
+template <typename T>
+__device__ __forceinline__ Vec scale(const Vec& xv, const Vec& gv, float rstd) {
+  using E = Elem<T>;
+  Vec o = {{0u, 0u, 0u, 0u}};
+#pragma unroll
+  for (int k = 0; k < E::kV; ++k) E::put(o, k, E::bits(E::get(xv, k) * rstd * E::get(gv, k)));
+  return o;
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(W * 32)
+    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ out,
+                   int d, float eps) {
+  constexpr int V = Elem<T>::kV;
+  constexpr int kStride = W * 32 * V;  // values between a thread's slots
+  __shared__ float partial[W];
+  const int tid = threadIdx.x;
+  const int first = tid * V;
   const T* xr = x + static_cast<size_t>(blockIdx.x) * d;
   T* orow = out + static_cast<size_t>(blockIdx.x) * d;
+  const bool xa = aligned16(xr), oa = aligned16(orow), ga = aligned16(gamma);
+  Vec v[kSlots], g[kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) v[j] = load_vec(xr, first + j * kStride, d, xa);
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) g[j] = load_vec(gamma, first + j * kStride, d, ga);
   float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) ss = sum_squares<T>(v[j], ss);
+  // the values past the slots (rows wider than kSlots * kStride)
+  for (int e = first + kSlots * kStride; e < d; e += kStride)
+    ss = sum_squares<T>(load_vec(xr, e, d, xa), ss);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (W > 1) {  // one exchange of the warps' sums
+    if ((tid & 31) == 0) partial[tid >> 5] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) ss += partial[w];
   }
-  ss = block_sum(ss);
   const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    orow[i] = from_f32<T>(to_f32(xr[i]) * rstd * to_f32(gamma[i]));
-  }
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    store_vec(orow, first + j * kStride, d, oa, scale<T>(v[j], g[j], rstd));
+  for (int e = first + kSlots * kStride; e < d; e += kStride)
+    store_vec(orow, e, d, oa, scale<T>(load_vec(xr, e, d, xa), load_vec(gamma, e, d, ga), rstd));
 }
 
-constexpr int kThreads = 256;
-
+// warps: warps a row (1, 2, 4, 8 or 16), from _build.rmsnorm_warps; refused
+// when the launcher has no form for it
 template <typename T>
-int launch(const void* x, const void* gamma, void* out, int rows, int d, float eps,
+int launch(const void* x, const void* gamma, void* out, int rows, int d, int warps, float eps,
            void* stream) {
-  if (rows == 0) return 0;
-  rmsnorm_kernel<T><<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out), d,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  if (rows < 0 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(gamma);
+  T* op = static_cast<T*>(out);
+  switch (warps) {
+#define REPRO_RMSNORM_WARPS(W)                                                  \
+  case W:                                                                       \
+    if (rows) rmsnorm_kernel<T, W><<<rows, W * 32, 0, s>>>(xp, gp, op, d, eps); \
+    return static_cast<int>(cudaGetLastError());
+    REPRO_RMSNORM_WARPS(1)
+    REPRO_RMSNORM_WARPS(2)
+    REPRO_RMSNORM_WARPS(4)
+    REPRO_RMSNORM_WARPS(8)
+    REPRO_RMSNORM_WARPS(16)
+#undef REPRO_RMSNORM_WARPS
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 extern "C" int rmsnorm_f32(const void* x, const void* gamma, void* out, int rows, int d,
-                           float eps, void* stream) {
-  return repro_torch::launch<float>(x, gamma, out, rows, d, eps, stream);
+                           int warps, float eps, void* stream) {
+  return repro_torch::launch<float>(x, gamma, out, rows, d, warps, eps, stream);
 }
 
 extern "C" int rmsnorm_bf16(const void* x, const void* gamma, void* out, int rows, int d,
-                            float eps, void* stream) {
-  return repro_torch::launch<__nv_bfloat16>(x, gamma, out, rows, d, eps, stream);
+                            int warps, float eps, void* stream) {
+  return repro_torch::launch<__nv_bfloat16>(x, gamma, out, rows, d, warps, eps, stream);
 }

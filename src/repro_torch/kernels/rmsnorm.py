@@ -4,8 +4,9 @@ Replaces the JAX package's Pallas kernel (``repro/kernels/rmsnorm.py``);
 the kernel is ``csrc/rmsnorm.cu``.  The wrapper takes CUDA tensors only
 (the plain version, :func:`repro_torch.kernels.ref.rmsnorm_ref`, serves
 the CPU through :mod:`repro_torch.kernels.ops`), checks what the kernel
-accepts, allocates the output and counts its launches in
-``rmsnorm.launches``.
+accepts, allocates the output, takes the warps a row from
+:func:`repro_torch.kernels._build.rmsnorm_warps` and counts its launches
+in ``rmsnorm.launches`` (a call with no rows launches nothing).
 """
 
 from __future__ import annotations
@@ -48,10 +49,13 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
                          f"gamma ({d},), got {tuple(x.shape)} and "
                          f"{tuple(gamma.shape)}")
     out = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return out     # nothing to launch
     name = f"rmsnorm_{_SUFFIX[x.dtype]}"
     code = _build.entry(name)(
-        x.data_ptr(), gamma.data_ptr(), out.data_ptr(), x.numel() // max(d, 1), d,
-        float(eps), _build.current_stream(x.device),
+        x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows, d,
+        _build.rmsnorm_warps(d, x.dtype), float(eps), _build.current_stream(x.device),
     )
     _build.check(code, name)
     rmsnorm.launches += 1

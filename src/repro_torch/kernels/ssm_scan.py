@@ -14,10 +14,12 @@ x, dt, B and C are read through their strides: the Mamba layer's B and C
 are column slices of one projection and go in as they are.
 
 The wrapper takes CUDA tensors only: it checks what the kernel accepts,
-allocates the outputs, launches on the current stream, raises if the
-launch was refused and counts its launches in ``ssm_scan.launches``.  The
-plain version is :func:`repro_torch.kernels.ref.ssm_scan_ref`, which
-serves the CPU through :mod:`repro_torch.kernels.ops`.
+allocates the outputs, takes the lanes a channel from
+:func:`repro_torch.kernels._build.ssm_scan_lanes`, launches on the
+current stream, raises if the launch was refused and counts its launches
+in ``ssm_scan.launches``.  The plain version is
+:func:`repro_torch.kernels.ref.ssm_scan_ref`, which serves the CPU
+through :mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from . import _build
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: largest state size N the kernel keeps in registers (Jamba: 16)
-MAX_STATE = 16
+MAX_STATE = _build.SSM_MAX_STATE
 #: most sequences one launch takes (the grid's second axis)
 MAX_BATCH = 65535
 
@@ -98,8 +100,8 @@ def ssm_scan(
     code = _build.entry(name)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        hT.data_ptr(), B, T, Dd, N, *x.stride(), *dt.stride(), *Bm.stride(),
-        *Cm.stride(), _build.current_stream(x.device),
+        hT.data_ptr(), B, T, Dd, N, _build.ssm_scan_lanes(N), *x.stride(), *dt.stride(),
+        *Bm.stride(), *Cm.stride(), _build.current_stream(x.device),
     )
     _build.check(code, name)
     ssm_scan.launches += 1

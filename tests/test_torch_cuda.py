@@ -46,7 +46,9 @@ SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # (B, T, D, N): Jamba-1.5-Large decode at B = 4 and prefill of 17 and 512
 # tokens (D = 16384, N = 16), the smoke config's widths, ragged T and D
 SSM_SHAPES = [(4, 1, 16384, 16), (1, 17, 16384, 16), (1, 512, 16384, 16),
-              (2, 13, 128, 8), (3, 37, 100, 16)]
+              (2, 13, 128, 8), (3, 37, 100, 16),
+              # state sizes each lane form serves: 1 and 4 (one lane), 13 (ragged)
+              (2, 13, 128, 1), (3, 37, 100, 4), (2, 19, 100, 13)]
 
 
 @pytest.fixture
@@ -127,6 +129,77 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     x = torch.randn(shape, generator=g, device=dev).mul(3).to(dtype)
     gamma = torch.randn(shape[-1:], generator=g, device=dev).to(dtype)
     _close(rmsnorm(x, gamma), R.rmsnorm_ref(x, gamma), dtype)
+
+
+def _off16(t):
+    """A contiguous copy of ``t`` one element past its buffer's start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 100, 2048, 8192])
+@pytest.mark.parametrize("rows", [0, 1, 8, 64, 386, 512])
+def test_rmsnorm_kernel_at_the_main_paths_rows_and_widths(dev, rows, d, dtype, misaligned):
+    """Every row count and width of the main path and the smoke configs,
+    d = 100 (not a multiple of the 16-byte vector: odd rows start off 16
+    bytes), and x and gamma one element off 16 bytes: against the plain
+    version, one launch a call (none without rows)."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    x = torch.randn(rows, d, generator=g, device=dev).mul(3).to(dtype)
+    gamma = torch.randn(d, generator=g, device=dev).to(dtype)
+    if misaligned:
+        x, gamma = _off16(x), _off16(gamma)
+        assert x.is_contiguous() and gamma.data_ptr() % 16 and (rows == 0 or x.data_ptr() % 16)
+    before = rmsnorm.launches
+    got = rmsnorm(x, gamma)
+    assert rmsnorm.launches == before + (1 if rows else 0)
+    assert got.shape == x.shape and got.dtype == dtype
+    _close(got, R.rmsnorm_ref(x, gamma), dtype)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_streams_rows_wider_than_its_slots(dev):
+    """Rows past what 16 warps' slots hold (32768 bf16, 16384 f32 values)
+    are streamed and read again for the output, in the same body."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    for dtype, d in ((torch.bfloat16, 40001), (torch.float32, 20000)):
+        x = torch.randn(3, d, generator=g, device=dev).to(dtype)
+        gamma = torch.randn(d, generator=g, device=dev).to(dtype)
+        assert _build.rmsnorm_warps(d, dtype) == 16
+        _close(rmsnorm(x, gamma), R.rmsnorm_ref(x, gamma), dtype)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_launcher_refuses_forms_it_lacks(dev):
+    """Warps a row are a launch argument: a value the launcher has no form
+    for is refused, never run."""
+    x = torch.zeros(4, 64, device=dev)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for warps in (0, 3, 32, 64):
+        code = _build.library().rmsnorm_f32(x.data_ptr(), x[0].data_ptr(), out.data_ptr(),
+                                            4, 64, warps, 1e-5, stream)
+        with pytest.raises(_build.KernelError, match="rmsnorm_f32"):
+            _build.check(code, "rmsnorm_f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 16])
+def test_rmsnorm_every_warp_form_matches_plain(dev, monkeypatch, warps, dtype):
+    """Every warps-a-row form the launcher has, at d = 2048, 100 and 8192
+    (rows past one warp's slots streamed where the form is narrow)."""
+    monkeypatch.setattr(_build, "rmsnorm_warps", lambda *a: warps)
+    g = torch.Generator(device=dev).manual_seed(36)
+    for d in (2048, 100, 8192):
+        x = torch.randn(37, d, generator=g, device=dev).mul(3).to(dtype)
+        gamma = torch.randn(d, generator=g, device=dev).to(dtype)
+        _close(rmsnorm(x, gamma), R.rmsnorm_ref(x, gamma), dtype)
 
 
 @pytest.mark.gpu
@@ -536,16 +609,41 @@ def test_ssm_scan_refuses_what_the_kernel_does_not_take(dev):
                  Bm[..., :4], Bm[..., :4], D)
     with pytest.raises(ValueError, match="one dtype"):
         ssm_scan(x, x.bfloat16(), torch.zeros(8, 4, device=dev), Bm[..., :4], Bm[..., :4], D)
-    # a launch the kernel refuses (N past its registers) raises, never runs
+    # a launch the kernel refuses (N past its registers; lanes it has no
+    # form for, or too few for N) raises, never runs
     y, h = torch.empty_like(x), torch.empty(1, 8, 17, device=dev)
     A = torch.zeros(8, 17, device=dev)
-    code = _build.library().ssm_scan_f32(
-        x.data_ptr(), x.data_ptr(), A.data_ptr(), Bm.data_ptr(), Bm.data_ptr(),
-        D.data_ptr(), None, y.data_ptr(), h.data_ptr(), 1, 4, 8, 17, *x.stride(),
-        *x.stride(), *Bm.stride(), *Bm.stride(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    with pytest.raises(_build.KernelError, match="ssm_scan_f32"):
-        _build.check(code, "ssm_scan_f32")
+    for N, lanes in ((17, 4), (16, 3), (16, 8), (16, 2), (5, 1), (9, 2)):
+        code = _build.library().ssm_scan_f32(
+            x.data_ptr(), x.data_ptr(), A.data_ptr(), Bm.data_ptr(), Bm.data_ptr(),
+            D.data_ptr(), None, y.data_ptr(), h.data_ptr(), 1, 4, 8, N, lanes, *x.stride(),
+            *x.stride(), *Bm.stride(), *Bm.stride(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        with pytest.raises(_build.KernelError, match="ssm_scan_f32"):
+            _build.check(code, "ssm_scan_f32")
+
+
+# (lanes, (B, T, D, N)): every lanes-a-channel form the launcher has, at
+# each shape whose N its lanes hold (4 states a lane)
+LANE_FORM_CASES = [(lanes, shape) for lanes in _build.SSM_LANES
+                   for shape in [(4, 1, 16384, 16), (2, 37, 100, 16), (3, 70, 300, 8),
+                                 (2, 13, 128, 4), (2, 19, 100, 3)]
+                   if lanes * _build.SSM_STATES_PER_LANE >= shape[3]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes,shape", LANE_FORM_CASES)
+def test_ssm_scan_every_lane_form_matches_plain(dev, monkeypatch, lanes, shape, dtype):
+    """Each lanes-a-channel form at every shape whose N it holds (more lanes
+    than the rule picks, too), h0 given, against the plain version."""
+    B, T, D, N = shape
+    monkeypatch.setattr(_build, "ssm_scan_lanes", lambda n: lanes)
+    x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(np.random.default_rng(62), B, T, D, N, dtype, dev)
+    y, h = ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)
+    yr, hr = R.ssm_scan_ref(x, dt, A, Bm, Cm, Dk, h0=h0)
+    _ssm_close(y, yr, dtype)
+    _ssm_close(h, hr, torch.float32 if dtype == torch.float32 else dtype)
 
 
 @pytest.mark.gpu

@@ -346,6 +346,77 @@ def test_slot_wrapper_uses_the_same_split_rule(monkeypatch, B, K, g, dtype, cap,
 
 
 # ---------------------------------------------------------------------------
+# the RMSNorm and selective-scan launch shapes
+# ---------------------------------------------------------------------------
+def _values_per_warp(dtype):
+    return 32 * _build.RMSNORM_SLOTS * (16 // (4 if dtype == F32 else 2))
+
+
+# (d, dtype, expected warps a row): the main path's widths (stablelm-1.6b's
+# 2048, Jamba-1.5-Large's 8192), the smoke configs' and rows wider than 16
+# warps' slots hold
+RMSNORM_WARP_CASES = [
+    (2048, BF16, 1),
+    (8192, BF16, 4),
+    (2048, F32, 2),
+    (8192, F32, 8),
+    (64, BF16, 1),
+    (100, F32, 1),
+    (2049, BF16, 2),
+    (32768, BF16, 16),
+    (40001, BF16, 16),
+    (20000, F32, 16),
+]
+
+
+@pytest.mark.parametrize("d,dtype,want", RMSNORM_WARP_CASES)
+def test_rmsnorm_warps(d, dtype, want):
+    warps = _build.rmsnorm_warps(d, dtype)
+    assert warps == want and warps in _build.RMSNORM_WARPS
+
+
+@pytest.mark.parametrize("d", [1, 63, 100, 1024, 1025, 2048, 2049, 4096, 8192, 16384, 16385,
+                               32768, 32769, 65536])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_rmsnorm_warps_are_the_fewest_whose_slots_hold_the_row(d, dtype):
+    """A form the launcher has: the fewest warps whose slots take all d
+    values, or the most (16) where none do and the rest is streamed."""
+    warps = _build.rmsnorm_warps(d, dtype)
+    assert warps in _build.RMSNORM_WARPS
+    assert warps * _values_per_warp(dtype) >= d or warps == _build.RMSNORM_WARPS[-1]
+    assert warps == 1 or (warps // 2) * _values_per_warp(dtype) < d
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.float16), (0, BF16), (-1, F32),
+                                     (64, torch.int8)])
+def test_rmsnorm_warps_refuse_what_has_no_form(d, dtype):
+    with pytest.raises(ValueError, match="rmsnorm_warps"):
+        _build.rmsnorm_warps(d, dtype)
+
+
+@pytest.mark.parametrize("N,want", [(1, 1), (3, 1), (4, 1), (5, 2), (8, 2), (9, 4), (13, 4),
+                                    (16, 4)])
+def test_ssm_scan_lanes(N, want):
+    """The fewest lanes whose states hold N: 4 lanes of 4 at Jamba's N = 16
+    (coalesced 16-byte state accesses), one lane at N <= 4."""
+    lanes = _build.ssm_scan_lanes(N)
+    assert lanes == want and lanes in _build.SSM_LANES
+    assert lanes * _build.SSM_STATES_PER_LANE >= N
+    fewer = [L for L in _build.SSM_LANES if L < lanes]
+    assert all(L * _build.SSM_STATES_PER_LANE < N for L in fewer)
+
+
+def test_ssm_scan_lane_forms_hold_up_to_the_largest_state():
+    assert max(_build.SSM_LANES) * _build.SSM_STATES_PER_LANE == _build.SSM_MAX_STATE
+
+
+@pytest.mark.parametrize("N", [0, 17, 64, -1])
+def test_ssm_scan_lanes_refuse_what_has_no_form(N):
+    with pytest.raises(ValueError, match="ssm_scan_lanes"):
+        _build.ssm_scan_lanes(N)
+
+
+# ---------------------------------------------------------------------------
 # a CPU tensor never reaches the kernels
 # ---------------------------------------------------------------------------
 def _no_library(*args, **kwargs):
