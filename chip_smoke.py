@@ -95,7 +95,42 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    prompt tokens and 16 new tokens through ``LLMEngine.admit``/``step``
    with every launch counted and matched (the ``ssm_scan`` kernel once a
    Mamba layer per admission and decode step), a profiled decode window,
-   then LLMSched over one hybrid slot replica (6 planning jobs).
+   then LLMSched over one hybrid slot replica (6 planning jobs);
+9. ``held_mla`` — DeepSeek-V2-Lite at its published widths in float32,
+   cut to its first 2 layers (``prefix_0``: MLA + the leading dense MLP of
+   width 10944; ``blocks/0``: MLA + 64 experts top-6 and 2 shared; ~4.3 GB,
+   so the host holds it too): the same weights and 3 requests through
+   ``LLMEngine`` on the card and on the CPU must give the same greedy
+   tokens; then ``layers.mla_decode`` (the slot decode kernel at 192 /
+   128) against the engine's absorbed MLA decode on the card, to the
+   float32 model tolerance.  This phase and ``held_hybrid`` print the
+   smallest gap between a token's k-th and (k+1)-th router probability
+   they saw (``min_router_gap``), by device;
+10. ``mla``    — the whole DeepSeek-V2-Lite-16B (27 layers, bf16, 31.4 GB
+   of weights drawn on the card from a seed) through
+   ``LLMEngine.admit``/``step``: 4 requests of 128-512 prompt tokens and 32
+   new tokens each, every launch matched (flash once a layer per
+   admission, through its CUDA-core body at 192 / 128; RMSNorm twice a
+   layer plus once per admission and step; no decode-attention launch: MLA
+   decodes in the latent space), a profiled decode window with the host's
+   launches, syncs and routed-MoE calls a step, then LLMSched over one
+   DeepSeek slot replica (6 planning jobs, token scale 16);
+11. ``dense``  — Llama-3-405B (2 of 126 layers), Qwen1.5-110B (2 of 80,
+   QKV bias) and Kimi-K2 (1 of 61: 384 experts top-8 and the shared
+   expert) at their published widths in bf16, one at a time, each through
+   ``PagedLLMEngine`` with 4 requests of 96-384 prompt tokens and 16 new
+   tokens, launches matched, every paged prefill call through the
+   tensor-core body and every decode call through the split body.
+
+The ``testbed`` phase also runs the ``ladder3`` cascade fleet: the
+stablelm-1.6b, internlm2-20b and Kimi-K2 smoke configs on three paged
+replicas behind a ``DeterministicGate`` (strictness 0.8), built by
+``build_engines`` as the launcher builds it; every job must finish.  The
+``kernels`` phase also holds and times (``timing_bf16_mla_dense``) flash at
+DeepSeek-V2-Lite's MLA prefill (B = 1, Sq = Sk = 512, H = K = 16, hd 192 /
+hd_v 128, causal), paged decode over fp pages at Llama-3-405B's H = 128 /
+K = 8 and Kimi-K2's and Qwen1.5-110B's H = 64 / K = 8, paged prefill at
+Llama-3-405B's widths and RMSNorm at 4 x 16384 and 4 x 7168.
 
 The ``kernels`` phase also holds the Mamba selective-scan kernel against
 its plain version at the hybrid path's shapes (D = 16384, N = 16; T = 1 at
@@ -155,7 +190,8 @@ SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SFU_EXP_PER_CLOCK_PER_SM = 16
 # host seconds between a traced window's edges and the work it measures
 TRACE_PAD_S = 0.01
-PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid")
+PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
+          "held_mla", "mla", "dense")
 # run only when named: the RMSNorm and scan timings alone (``kernels`` has them)
 EXTRA_PHASES = ("timing",)
 KERNEL_META = {
@@ -921,11 +957,11 @@ def _ssm_timing(dev, rng, B, T, D, N, with_h0: bool) -> dict:
         shape=f"B={B} T={T} D={D} N={N} h0={'given' if with_h0 else 'none'}, B/C strided")
 
 
-def _paged_decode_rows(q, kp, vp, bt, ln, lens, errs, dev, shape):
-    """Timing rows of paged decode over bf16 pages and over the same K/V
-    quantized to int8 pages, bf16 q; each also held against its plain
-    version.  SDPA runs on the gathered (and for int8 dequantized) K/V with
-    a length mask (gather and dequantize untimed)."""
+def _paged_decode_rows(q, kp, vp, bt, ln, lens, errs, dev, shape, int8: bool = True):
+    """Timing rows of paged decode over bf16 pages and (with ``int8``) over
+    the same K/V quantized to int8 pages, bf16 q; each also held against its
+    plain version.  SDPA runs on the gathered (and for int8 dequantized) K/V
+    with a length mask (gather and dequantize untimed)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as R
@@ -956,6 +992,8 @@ def _paged_decode_rows(q, kp, vp, bt, ln, lens, errs, dev, shape):
                                                     enable_gqa=g > 1),
         (dense(kp), dense(vp)), 2 * B * H * hd * es + 2 * tokens * K * hd * es + table,
         4 * H * hd * tokens, dev, shape)
+    if not int8:
+        return fp, None
     kq, vq, ks, vs = _int8_pools(kp, vp)
     errs["paged_decode_attention_int8"] = max(
         errs["paged_decode_attention_int8"],
@@ -1094,6 +1132,146 @@ def _wide_timing(dev, errs) -> dict:
         q, kc, vc, ln, lens, dev,
         f"jamba-1.5-large: B={B} S_max={S} H={H} K={K} hd={hd} tokens={int(lens.sum())}")
     return wide
+
+
+#: the MLA / dense models' new widths: (H, K, hd) of paged attention
+MLA_DENSE_PAGED = {"llama3-405b": (128, 8, 128), "kimi-k2 / qwen1.5-110b": (64, 8, 128)}
+MLA_DENSE_RMSNORM = ((4, 16384), (4, 7168))
+
+
+def _mla_dense_rows(dev, errs, cases) -> dict:
+    """The kernels at the MLA / dense models' widths, each held against
+    its plain version in bf16 and f32 and timed in bf16 beside one library
+    call and its bound, with inputs from a generator of their own:
+
+    - flash at DeepSeek-V2-Lite's MLA prefill (B = 1, Sq = Sk = 512, H = K =
+      16, hd 192 / hd_v 128, causal: the CUDA-core body) beside SDPA;
+    - paged decode over fp pages at Llama-3-405B's H = 128 / K = 8 / hd 128
+      (g = 16) and Kimi-K2's and Qwen1.5-110B's H = 64 / K = 8 (g = 8), B = 8
+      over 96..800 tokens, held with +-99 and NaN in every unreferenced slot;
+    - paged prefill at Llama-3-405B's widths (C = 64 at past = 0 and 448),
+      poisoned the same way;
+    - RMSNorm at 4 x 16384 (Llama-3-405B decode) and 4 x 7168 (Kimi-K2),
+      beside ``F.rms_norm``.
+
+    Every bf16 paged prefill call timed here takes the tensor-core body and
+    every decode call the split body (but the misaligned ``other_body``
+    calls); flash at 192 / 128 takes neither tensor-core body."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_prefill_attention,
+    )
+
+    rng = np.random.default_rng(18)
+    rows = {}
+    launches0, tc0 = ops.launch_counts(), ops.tc_launch_counts()
+    split0 = ops.split_launch_counts()
+    # flash at MLA's head dims
+    Sq, H, hd, hd_v = 512, 16, 192, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _on(dev, dtype, *(rng.normal(size=sh).astype(np.float32) for sh in
+                                    ((1, Sq, H, hd), (1, Sq, H, hd), (1, Sq, H, hd_v))))
+        errs["flash_attention"] = max(errs["flash_attention"], _err(
+            flash_attention(q, k, v, causal=True), R.attention_ref(q, k, v, causal=True),
+            dtype))
+        cases.append(("flash", "deepseek-v2-lite MLA", str(dtype), Sq, True))
+    es, dt = 2, torch.bfloat16
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = Sq * (Sq + 1) // 2
+    nb, fl = bound(es * (2 * Sq * H * hd + Sq * H * hd_v + Sq * H * hd_v),
+                   2 * H * (hd + hd_v) * pairs, dt)
+    rows["flash_attention mla"] = dict(
+        **_times(lambda: flash_attention(q, k, v, causal=True),
+                 lambda: R.attention_ref(q, k, v, causal=True),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                        scale=hd ** -0.5)),
+        bound_ms=nb, bound_by=fl,
+        shape=f"deepseek-v2-lite MLA: B=1 Sq=Sk={Sq} causal H=K={H} hd={hd} hd_v={hd_v}")
+    flash_tc = ops.tc_launch_counts()["flash_attention"] - tc0["flash_attention"]
+    check(flash_tc == 0, f"flash at 192 / 128 took the tensor-core body {flash_tc} times")
+    ps, npp = 16, 64
+    other = 0
+    for label, (H, K, hd) in MLA_DENSE_PAGED.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            lens = np.concatenate([[1024, 1, ps, ps + 1], rng.integers(1, 1025, size=4)])
+            q, kp, vp, bt, ln, garbage = _decode_case(rng, 8, H, K, hd, ps, npp, lens,
+                                                      dtype, dev)
+            k99, v99 = _poisoned(kp, vp, garbage, 99.0)
+            errs["paged_decode_attention"] = max(errs["paged_decode_attention"], _err(
+                paged_decode_attention(q, k99, v99, bt, ln),
+                R.paged_decode_attention_ref(q, k99, v99, bt, ln), dtype))
+            knan, vnan = _poisoned(kp, vp, garbage, float("nan"))
+            check(torch.equal(paged_decode_attention(q, kp, vp, bt, ln),
+                              paged_decode_attention(q, knan, vnan, bt, ln)),
+                  f"decode output changed under NaN garbage ({label}, {dtype})")
+            cases.append(("decode", label, str(dtype), 8))
+        lens = rng.integers(96, 801, size=8)
+        q, kp, vp, bt, ln, _ = _decode_case(rng, 8, H, K, hd, ps, npp, lens, dt, dev)
+        row, _ = _paged_decode_rows(
+            q, kp, vp, bt, ln, lens, errs, dev,
+            f"{label}: B=8 H={H} K={K} hd={hd} ps={ps} tokens={int(lens.sum())}", int8=False)
+        other += row["other_body_calls"]
+        rows[f"paged_decode_attention {label}"] = row
+        del kp, vp
+    H, K, hd = MLA_DENSE_PAGED["llama3-405b"]
+    f32_pre = ops.launch_counts()["paged_prefill_attention"]
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            f32_pre = ops.launch_counts()["paged_prefill_attention"] - f32_pre
+        for past in (0, 448):
+            q, kp, vp, bt, garbage = _prefill_case(rng, 64, H, K, hd, ps, past, dtype, dev)
+            k77, v77 = _poisoned(kp, vp, garbage, 77.0)
+            errs["paged_prefill_attention"] = max(errs["paged_prefill_attention"], _err(
+                paged_prefill_attention(q, k77, v77, bt, past),
+                R.paged_prefill_attention_ref(q, k77, v77, bt, past), dtype))
+            knan, vnan = _poisoned(kp, vp, garbage, float("nan"))
+            check(torch.equal(paged_prefill_attention(q, kp, vp, bt, past),
+                              paged_prefill_attention(q, knan, vnan, bt, past)),
+                  f"prefill output changed under NaN garbage (llama3-405b, {dtype})")
+            cases.append(("prefill", "llama3-405b", str(dtype), past))
+    past, C = 448, 64
+    q, kp, vp, bt, _ = _prefill_case(rng, C, H, K, hd, ps, past, dt, dev)
+    ctx = past + C
+    n_ctx = -(-ctx // ps)
+    pairs = sum(past + c + 1 for c in range(C))
+    qc = q.transpose(0, 1)[None].contiguous()
+    cmask = (torch.arange(ctx, device=dev)[None, :]
+             <= past + torch.arange(C, device=dev)[:, None])
+    kc, vc = (R.gather_pages(pool, bt[None, :n_ctx])[:, :ctx].transpose(1, 2).contiguous()
+              for pool in (kp, vp))
+    nb, fl = bound(2 * C * H * hd * es + 2 * ctx * K * hd * es + 4 * n_ctx,
+                   4 * H * hd * pairs, dt)
+    rows["paged_prefill_attention llama3-405b"] = dict(
+        **_times(lambda: paged_prefill_attention(q, kp, vp, bt, past),
+                 lambda: R.paged_prefill_attention_ref(q, kp, vp, bt, past),
+                 lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=cmask,
+                                                        enable_gqa=True)),
+        bound_ms=nb, bound_by=fl,
+        shape=f"llama3-405b: C={C} past={past} H={H} K={K} hd={hd} ps={ps}")
+    for r, d in MLA_DENSE_RMSNORM:
+        _check_rmsnorm(rng, dev, errs, cases, d, (1, r, 64))
+        rows[f"rmsnorm {r}x{d}"] = _rmsnorm_row(dev, r, d)
+    # the bf16 paged prefill calls took the tensor-core body; every paged
+    # decode call the split body, but those sent off 16 bytes on purpose
+    launches, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    splits = ops.split_launch_counts()
+    n_pre = launches["paged_prefill_attention"] - launches0["paged_prefill_attention"]
+    tc_pre = tcs["paged_prefill_attention"] - tc0["paged_prefill_attention"]
+    n_dec = launches["paged_decode_attention"] - launches0["paged_decode_attention"]
+    split_dec = splits["paged_decode_attention"] - split0["paged_decode_attention"]
+    check(tc_pre == n_pre - f32_pre > 0,
+          f"a bf16 paged prefill call missed the tensor-core body: {tc_pre} of {n_pre}")
+    check(split_dec == n_dec - other > 0,
+          f"a paged decode call missed the split body: {split_dec} of {n_dec} ({other} sent "
+          f"to the other body)")
+    rows["launched"] = {"paged_prefill_attention": n_pre, "tc": tc_pre,
+                        "paged_decode_attention": n_dec, "split": split_dec,
+                        "other_body": other, "flash_tc": flash_tc}
+    return rows
 
 
 def _tc_scaling(dev) -> dict:
@@ -1412,13 +1590,15 @@ def phase_kernels(dev) -> dict:
     check(all(v["launches"] - v["other_body"] == v["split_launches"] > 0
               for v in timed_split.values()),
           f"a timed decode call missed the split body: {timed_split}")
+    mla_dense = _mla_dense_rows(dev, errs, cases)
     norm_scan = phase_timing(dev, emit_line=False)
     timing["ssm_scan"] = norm_scan.pop("ssm_scan")
     sweeps = {"rmsnorm_sweep": _rmsnorm_sweep(dev)}
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, **norm_scan, **sweeps,
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
-           "timing_bf16_wide": wide, "timed_tc": timed_tc, "timed_split": timed_split,
+           "timing_bf16_wide": wide, "timing_bf16_mla_dense": mla_dense,
+           "timed_tc": timed_tc, "timed_split": timed_split,
            "tc_scaling": scaling, "decode_split_sweep": split_sweep,
            "peaks": "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"}
     emit("kernels", **out)
@@ -1644,8 +1824,10 @@ def _serve(eng, reqs) -> dict:
 
 def _check_tc(counts, tcs, cfg, what: str) -> None:
     """Every flash and paged prefill call of a bf16 model took the
-    tensor-core body; of a float32 model, none did."""
-    want = {k: counts[k] if cfg.dtype == "bfloat16" else 0 for k in tcs}
+    tensor-core body; of a float32 model, none did, nor flash at MLA's
+    head dims (192 / 128: the CUDA-core body)."""
+    want = {k: counts[k] if cfg.dtype == "bfloat16"
+            and not (k == "flash_attention" and cfg.mla is not None) else 0 for k in tcs}
     check(tcs == want, f"{what}: tensor-core launches {tcs}, expected {want}")
 
 
@@ -1663,14 +1845,13 @@ def _check_paged_launches(counts, tcs, splits, engines) -> None:
     the split-context body."""
     kv_dtype = engines[0].kv_dtype
     decode, prefill, _ = PAGED_KERNELS[kv_dtype]
-    steps = sum(e.decode_steps for e in engines)
-    chunks = sum(e.prefill_chunks for e in engines)
-    layers = engines[0].cfg.n_layers
-    check(counts[decode] == layers * steps, f"{decode} launches {counts} vs {steps} steps")
-    check(counts[prefill] == layers * chunks,
-          f"{prefill} launches {counts} vs {chunks} chunks")
-    check(counts["rmsnorm"] == (2 * layers + 1) * (steps + chunks),
-          f"rmsnorm launches {counts} vs {steps + chunks} steps and chunks")
+    steps = sum(e.cfg.n_layers * e.decode_steps for e in engines)
+    chunks = sum(e.cfg.n_layers * e.prefill_chunks for e in engines)
+    norms = sum((2 * e.cfg.n_layers + 1) * (e.decode_steps + e.prefill_chunks)
+                for e in engines)
+    check(counts[decode] == steps, f"{decode} launches {counts} vs {steps} layer steps")
+    check(counts[prefill] == chunks, f"{prefill} launches {counts} vs {chunks} layer chunks")
+    check(counts["rmsnorm"] == norms, f"rmsnorm launches {counts} vs {norms} expected")
     check(all(counts[k] > 0 for k in PAGED_KERNELS[kv_dtype]),
           f"a kernel never ran: {counts}")
     other = PAGED_KERNELS["int8" if kv_dtype == "fp32" else "fp32"]
@@ -1744,11 +1925,27 @@ def phase_engine(dev, cfg) -> dict:
             "runs": [run1, run2, run3]}
 
 
+def _host_events(prof) -> dict:
+    """Host-side CUDA runtime calls of a traced window, by kind."""
+    launches = syncs = copies = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        if "LaunchKernel" in evt.name:
+            launches += 1
+        elif evt.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += 1
+        elif evt.name.startswith("cudaMemcpy"):
+            copies += 1
+    return {"launches": launches, "syncs": syncs, "memcpys": copies}
+
+
 def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
     """Trace ``n_steps`` steady decode steps at batch ``len(reqs)`` with
     torch.profiler: device time by kernel, the share of the window the
-    device idled, and RMSNorm's and the scan's device time and share of the
-    busy time (``kernel_shares``).  Works for the paged and the slot engine."""
+    device idled, RMSNorm's and the scan's device time and share of the
+    busy time (``kernel_shares``), and the host's kernel launches, syncs
+    and memcpys a step.  Works for the paged and the slot engine."""
     from torch.profiler import ProfilerActivity, profile
 
     for r in reqs:
@@ -1781,7 +1978,9 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
         shares[kernel] = {"ms": ms, "count": sum(n for _, n in hits),
                           "share_of_busy": ms / busy_ms if busy_ms else None}
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+    calls = _host_events(prof)
     return {
+        **{f"host_{k}_per_step": n / n_steps for k, n in calls.items()},
         "top_host_ops_ms": [{"name": e.key, "self_ms": e.self_cpu_time_total / 1e3,
                              "count": e.count} for e in host],
         "window": f"{n_steps} decode steps, batch {len(reqs)}, "
@@ -1828,16 +2027,19 @@ def _stalled(signum, frame):
 
 def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: str) -> None:
     """Exact launch accounting of slot engines: per admission, flash
-    attention once an attention layer and the scan once a Mamba layer; per
-    decode step, slot decode attention once an attention layer and the scan
-    once a Mamba layer; RMSNorm twice a layer plus once for both; the paged
-    kernels never; flash through the tensor-core body in bf16; every decode
-    call through the split-context body."""
+    attention once an attention or MLA layer and the scan once a Mamba
+    layer; per decode step, slot decode attention once an attention layer
+    (MLA decodes in the latent space, with no kernel) and the scan once a
+    Mamba layer; RMSNorm twice a layer plus once for both; the paged
+    kernels never; flash through the tensor-core body in bf16 (MLA's
+    192 / 128 through the CUDA-core body); every decode call through the
+    split-context body."""
     from repro_torch.models import layer_kind
 
     mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
     n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
-    check(counts["flash_attention"] == n_attn * adm,
+    n_mla = mixers.count("mla")
+    check(counts["flash_attention"] == (n_attn + n_mla) * adm,
           f"{what}: flash launches {counts} vs {adm} admissions")
     check(counts["decode_attention"] == n_attn * steps,
           f"{what}: slot decode launches {counts} vs {steps} decode steps")
@@ -1845,7 +2047,8 @@ def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: s
           f"{what}: ssm_scan launches {counts} vs {adm + steps} admissions and steps")
     check(counts["rmsnorm"] == (2 * cfg.n_layers + 1) * (adm + steps),
           f"{what}: rmsnorm launches {counts} vs {adm + steps} admissions and steps")
-    used = SLOT_KERNELS + (("ssm_scan",) if n_mamba else ())
+    used = (("flash_attention", "rmsnorm") + (("decode_attention",) if n_attn else ())
+            + (("ssm_scan",) if n_mamba else ()))
     check(all(counts[k] > 0 for k in used), f"{what}: a kernel never ran: {counts}")
     check(all(v == 0 for k, v in counts.items() if k not in used),
           f"{what}: a kernel off the slot path ran: {counts}")
@@ -1854,7 +2057,7 @@ def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: s
 
 
 def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
-                 jobs: int = TESTBED_JOBS) -> dict:
+                 jobs: int = TESTBED_JOBS, gate=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_scheduler
     from repro_torch.serving import ServingCluster
@@ -1863,7 +2066,7 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
     wl = generate_workload("planning", jobs, arrival_rate=0.9, seed=seed)
     sched = build_scheduler(name, store, epsilon=0.2, seed=seed,
                             plan_ahead_s=serve_cfg.plan_ahead_s)
-    cluster = ServingCluster(sched, engines, serve_cfg)
+    cluster = ServingCluster(sched, engines, serve_cfg, gate=gate)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1877,7 +2080,8 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
     splits = ops.split_launch_counts()
     profiles = [e.latency_profile() for e in engines]
     out = {
-        "model": engines[0].cfg.name, "layers": engines[0].cfg.n_layers,
+        "model": ",".join(dict.fromkeys(e.cfg.name for e in engines)),
+        "layers": engines[0].cfg.n_layers,
         "scheduler": name, "engine": serve_cfg.engine, "replicas": len(engines),
         "jobs": jobs, "finished": len(res.jct_by_job),
         "avg_jct_s": res.avg_jct, "makespan_s": res.makespan,
@@ -1888,6 +2092,7 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
                     if p else {}) for p in profiles],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts, "tc_launches": tcs, "split_launches": splits,
+        "escalations": res.escalations,
     }
     check(out["finished"] == jobs, f"{name}: {out['finished']} of {jobs} jobs finished")
     if serve_cfg.engine == "slot":
@@ -1909,8 +2114,10 @@ def _testbed_run(name, store, engines, serve_cfg, seed: int = 0,
 
 
 def phase_testbed(dev, cfg) -> dict:
+    from repro_torch.core import DeterministicGate
     from repro_torch.models import init_params
     from repro_torch.serving import PagedLLMEngine, Request, ServeConfig, build_engines
+    from repro_torch.sim.workloads import TIER_POOLS
 
     store = _profile_store()
     params = init_params(cfg, seed=0, device=dev)
@@ -1939,6 +2146,17 @@ def phase_testbed(dev, cfg) -> dict:
     runs["fleet_int8"]["budget_bytes"] = budgets
     emit("testbed", **runs["fleet_int8"])
     del engines
+    # the cascade ladder: three smoke-config tiers on paged replicas, a
+    # deterministic quality gate escalating rejected stages one tier up
+    ladder_cfg = ServeConfig(engine="paged", replicas=3, models=TIER_POOLS["ladder3"],
+                             cascade=True, max_len=512, max_batch=4, n_regular=4,
+                             token_scale=TESTBED_TOKEN_SCALE, time_scale=TESTBED_TIME_SCALE,
+                             seed=0)
+    engines = build_engines(None, ladder_cfg, device=dev)
+    runs["ladder3"] = _testbed_run("llmsched", store, engines, ladder_cfg,
+                                   gate=DeterministicGate(strictness=0.8, seed=0))
+    emit("testbed", **runs["ladder3"])
+    del engines
     # where a slot decode step's time goes: batch 4, testbed-sized prompts
     rng = np.random.default_rng(6)
     emit("profile", **_profile_decode(
@@ -1965,6 +2183,64 @@ def _hybrid_cfg():
     return get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS)
 
 
+class _RouterGaps:
+    """Within the block, every MoE routing also records the smallest gap
+    between a token's k-th and (k+1)-th router probability, by device
+    (``gaps``): a top-k that flips at a near-tie between card and CPU is a
+    summation order, not a fault, and the gap tells the two apart."""
+
+    def __init__(self) -> None:
+        self.gaps = {}
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+
+        self._routing = route = M._routing
+
+        def routing(p, cfg, x2d):
+            probs = torch.softmax((x2d @ p["router"]).float(), dim=-1)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            gap = float((top[:, -2] - top[:, -1]).min())
+            key = x2d.device.type
+            self.gaps[key] = min(self.gaps.get(key, 1.0), gap)
+            return route(p, cfg, x2d)
+
+        M._routing = routing
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe as M
+
+        M._routing = self._routing
+
+
+def _held_slot_runs(cfg, gpu_params, cpu_params, dev, prompts, new_tokens, what):
+    """The same requests through ``LLMEngine`` (2 slots, so a later request
+    re-uses a freed slot) on the card and on the CPU: outputs, seconds and
+    the smallest router gaps seen (:class:`_RouterGaps`)."""
+    from repro_torch.serving import LLMEngine, Request
+
+    outs, secs = {}, {}
+    with _RouterGaps() as gaps:
+        for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+            eng = LLMEngine(cfg, max_batch=2, max_len=128, params=params, device=d)
+            out, pending = {}, list(enumerate(prompts))
+            t1 = time.perf_counter()
+            while pending or eng.batch_size:
+                while pending and eng.can_admit():
+                    i, p = pending.pop(0)
+                    check(eng.admit(Request(
+                        rid=i, prompt=p, max_new_tokens=new_tokens[i],
+                        on_finish=lambda r, out=out: out.__setitem__(r.rid,
+                                                                     list(r.out_tokens)))),
+                        f"{what}: admission refused")
+                eng.step()
+            secs[name] = time.perf_counter() - t1
+            outs[name] = out
+    torch.cuda.synchronize()
+    return outs, secs, gaps.gaps
+
+
 def phase_held_hybrid(dev) -> dict:
     """Jamba-1.5-Large at full width in float32, cut to its first 2 layers
     (mamba+moe, mamba+mlp) and 4 experts (~20 GB, which the host holds
@@ -1976,7 +2252,6 @@ def phase_held_hybrid(dev) -> dict:
     from repro_torch.bridge import params_to
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill
-    from repro_torch.serving import LLMEngine, Request
 
     full = get_config(HYBRID_ARCH)
     cfg = full.with_(n_layers=2, dtype="float32",
@@ -1994,22 +2269,8 @@ def phase_held_hybrid(dev) -> dict:
         lg2, cache = decode_step(params, cfg, cache, torch.tensor([prompts[1][0]], device=d))
         logits[name] = torch.cat([lg.float().cpu(), lg2.float().cpu()])
         states[name] = cache["prefix_0"]["ssm"].cpu()
-    outs, secs = {}, {}
-    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
-        eng = LLMEngine(cfg, max_batch=2, max_len=128, params=params, device=d)
-        out, pending = {}, list(enumerate(prompts))
-        t1 = time.perf_counter()
-        while pending or eng.batch_size:
-            while pending and eng.can_admit():     # the third re-uses a freed slot
-                i, p = pending.pop(0)
-                check(eng.admit(Request(
-                    rid=i, prompt=p, max_new_tokens=(8, 5, 8)[i],
-                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens)))),
-                    "held_hybrid: admission refused")
-            eng.step()
-        secs[name] = time.perf_counter() - t1
-        outs[name] = out
-    torch.cuda.synchronize()
+    outs, secs, gaps = _held_slot_runs(cfg, gpu_params, cpu_params, dev, prompts, (8, 5, 8),
+                                       "held_hybrid")
     res = {"model": "jamba-1.5-large-398b widths, 2 layers (mamba+moe, mamba+mlp), "
                     "4 of 16 experts, float32, TF32 off, slot engine",
            "tokens_equal": outs["cuda"] == outs["cpu"],
@@ -2017,14 +2278,14 @@ def phase_held_hybrid(dev) -> dict:
            "max_logit_gap": float((logits["cuda"] - logits["cpu"]).abs().max()),
            "max_ssm_state_gap": float((states["cuda"] - states["cpu"]).abs().max()),
            "logits": "41-token prefill and one decode step", "init_s": init_s,
-           "seconds": secs}
+           "seconds": secs, "min_router_gap": gaps}
     emit("held_hybrid", **res)
     check(len(outs["cuda"]) == len(prompts), "held_hybrid: requests missing")
     check(res["tokens_equal"], "held_hybrid: card and CPU engines disagree")
     return res
 
 
-def _serve_slot(eng, reqs) -> dict:
+def _serve_slot(eng, reqs, what: str) -> dict:
     """Admit every request (prefill) and step until all finished, each
     admission and step ending in ``torch.cuda.synchronize()``; the launch
     counts are set to 0 just before and read just after."""
@@ -2056,7 +2317,7 @@ def _serve_slot(eng, reqs) -> dict:
     check(all(len(r.out_tokens) == r.max_new_tokens for r in finished),
           "a request finished with the wrong token count")
     _check_slot_launches(counts, tcs, splits, eng.cfg, eng.admissions, eng.decode_steps,
-                         "hybrid")
+                         what)
     return {
         "requests": len(reqs), "finished": len(finished),
         "prompt_tokens": sum(len(r.prompt) for r in reqs),
@@ -2097,7 +2358,7 @@ def phase_hybrid(dev) -> dict:
     del cache
     eng = LLMEngine(cfg, max_batch=4, max_len=1024, params=params, device=dev)
     run = _serve_slot(eng, [Request(rid=i, prompt=p, max_new_tokens=16)
-                            for i, p in enumerate(prompts)])
+                            for i, p in enumerate(prompts)], "hybrid")
     run.update(model=f"{cfg.name}, published widths, first {cfg.n_layers} layers, bf16",
                layer_kinds=[layer_kind(cfg, i) for i in range(cfg.n_layers)],
                weights_gb=weights_gb, init_s=init_s)
@@ -2113,6 +2374,209 @@ def phase_hybrid(dev) -> dict:
     tb = _testbed_run("llmsched", _profile_store(), engines, slot_cfg, jobs=HYBRID_JOBS)
     emit("testbed", **tb)
     return {"launches": run["launches"], "run": run, "profile": prof, "testbed": tb}
+
+
+# ---------------------------------------------------------------------------
+# phases: held_mla, mla and dense (DeepSeek-V2-Lite, Llama-3-405B,
+# Qwen1.5-110B, Kimi-K2)
+# ---------------------------------------------------------------------------
+MLA_ARCH = "deepseek_v2_lite_16b"
+MLA_JOBS = 6
+# DeepSeek's testbed tasks decode ~2-40 tokens (~8 on average), a quarter
+# of the other testbeds': its host-bound ~0.2 s decode steps would take
+# the run past the script's time budget otherwise
+MLA_TOKEN_SCALE = 16.0
+# the absorbed MLA decode against the expanded one through the slot decode
+# kernel, float32: the CPU tests' model tolerance (summation order only)
+MODEL_TOL = 1e-4
+# (arch, layers kept): each at its published widths, bf16
+DENSE_MODELS = (("llama3_405b", 2), ("qwen1_5_110b", 2), ("kimi_k2_1t_a32b", 1))
+
+
+def _weights_gb(params) -> float:
+    return sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+
+
+def phase_held_mla(dev) -> dict:
+    """DeepSeek-V2-Lite at its published widths in float32, cut to its first
+    2 layers (``prefix_0``: mla+dense_mlp with d_ff_dense 10944;
+    ``blocks/0``: mla+moe, 64 experts top-6 and 2 shared; ~4.3 GB, which the
+    host holds too): the same weights and 3 requests through ``LLMEngine``
+    on the card and on the CPU must give the same greedy tokens.  Then, on
+    the card prefill's ``prefix_0`` cache, ``layers.mla_decode`` (the slot
+    decode kernel at 192 / 128) against the engine's absorbed decode."""
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params, layer_kind, prefill
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _mla_decode_absorbed
+
+    cfg = get_config(MLA_ARCH).with_(n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    gpu_params = init_params(cfg, seed=1, device=dev)
+    cpu_params = params_to(gpu_params, "cpu")
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (29, 50, 44)]
+    logits, caches = {}, {}
+    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+        toks = torch.tensor([prompts[1]], dtype=torch.int32, device=d)
+        lg, cache = prefill(params, cfg, toks, max_len=128)
+        lg2, cache = decode_step(params, cfg, cache, torch.tensor([prompts[1][0]], device=d))
+        logits[name] = torch.cat([lg.float().cpu(), lg2.float().cpu()])
+        caches[name] = cache
+    outs, secs, gaps = _held_slot_runs(cfg, gpu_params, cpu_params, dev, prompts, (9, 6, 8),
+                                       "held_mla")
+    # mla_decode (expanded K/V, the slot decode kernel at 192 / 128, its
+    # one-block-a-row body) against the absorbed form, on the card
+    c = caches["cuda"]["prefix_0"]
+    lengths = caches["cuda"]["lengths"]
+    p = gpu_params["prefix_0"]["attn"]
+    x = torch.randn(1, 1, cfg.d_model, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(20))
+    ops.reset_launch_counts()
+    got, _, _ = L.mla_decode(p, cfg, x, c["c_kv"].clone(), c["k_rope"].clone(), lengths)
+    counts, splits = ops.launch_counts(), ops.split_launch_counts()
+    want = _mla_decode_absorbed(p, cfg, x, {k: t.clone() for k, t in c.items()}, lengths)
+    torch.cuda.synchronize()
+    check(counts["decode_attention"] == 1 and splits["decode_attention"] == 0,
+          f"held_mla: mla_decode launches {counts}, split {splits}")
+    gap = float((got - want).abs().max())
+    res = {"model": "deepseek-v2-lite-16b widths, 2 layers "
+                    f"({', '.join(layer_kind(cfg, i) for i in range(2))}), 64 experts top-6 "
+                    "+ 2 shared, float32, TF32 off, slot engine",
+           "tokens_equal": outs["cuda"] == outs["cpu"],
+           "n_tokens": sum(len(v) for v in outs["cuda"].values()),
+           "max_logit_gap": float((logits["cuda"] - logits["cpu"]).abs().max()),
+           "max_c_kv_gap": float((caches["cuda"]["blocks"]["0"]["c_kv"].cpu()
+                                  - caches["cpu"]["blocks"]["0"]["c_kv"]).abs().max()),
+           "logits": "50-token prefill and one decode step", "init_s": init_s,
+           "seconds": secs, "min_router_gap": gaps,
+           "mla_decode_vs_absorbed": {"max_abs_err": gap, "tol": MODEL_TOL,
+                                      "decode_attention_launches": counts["decode_attention"],
+                                      "length": int(lengths[0])}}
+    emit("held_mla", **res)
+    check(len(outs["cuda"]) == len(prompts), "held_mla: requests missing")
+    check(res["tokens_equal"], "held_mla: card and CPU engines disagree")
+    check(bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= MODEL_TOL + MODEL_TOL * want.abs()).all()),
+        f"held_mla: mla_decode and the absorbed decode differ by {gap}")
+    return res
+
+
+def phase_mla(dev) -> dict:
+    """The whole DeepSeek-V2-Lite-16B (27 layers, bf16, 31.4 GB of weights
+    drawn on the card) through ``LLMEngine.admit``/``step``: 4 requests of
+    128-512 prompt tokens and 32 new tokens each, every launch counted and
+    matched (flash once a layer per admission, through its CUDA-core body;
+    RMSNorm twice a layer plus once per admission and step; no decode
+    attention: the absorbed decode has no kernel); then a profiled decode
+    window and LLMSched over one DeepSeek slot replica."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, layer_kind, prefill
+    from repro_torch.models import moe as M
+    from repro_torch.serving import LLMEngine, Request, ServeConfig, build_engines
+
+    cfg = get_config(MLA_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    lens = rng.integers(128, 513, size=4)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+    toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+    lg, cache = prefill(params, cfg, toks, max_len=1024)
+    lg2, _ = decode_step(params, cfg, cache, lg.argmax(-1))
+    check(lg.shape == lg2.shape == (1, cfg.vocab) and bool(torch.isfinite(lg).all())
+          and bool(torch.isfinite(lg2).all()), "mla: logits not finite")
+    del cache
+    eng = LLMEngine(cfg, max_batch=4, max_len=1024, params=params, device=dev)
+    run = _serve_slot(eng, [Request(rid=i, prompt=p, max_new_tokens=32)
+                            for i, p in enumerate(prompts)], "mla")
+    n = cfg.n_layers
+    check(run["launches"]["flash_attention"] == n * run["admissions"]
+          and run["tc_launches"]["flash_attention"] == 0
+          and run["launches"]["decode_attention"] == 0
+          and run["launches"]["rmsnorm"] == (2 * n + 1) * (run["admissions"]
+                                                           + run["decode_steps"]),
+          f"mla: launches {run['launches']}, tc {run['tc_launches']}")
+    run.update(model=f"{cfg.name}, published widths, all {n} layers, bf16",
+               layer_kinds={k: sum(1 for i in range(n) if layer_kind(cfg, i) == k)
+                            for k in dict.fromkeys(layer_kind(cfg, i) for i in range(n))},
+               weights_gb=_weights_gb(params), init_s=init_s)
+    emit("mla", **run)
+    del eng
+    # where a DeepSeek decode step's time goes; each routed MoE layer reads
+    # its experts' token counts on the host (one sync a MoE layer)
+    calls = {"moe_block": 0}
+    block = M.moe_block
+
+    def counted(*a, **k):
+        calls["moe_block"] += 1
+        return block(*a, **k)
+
+    prof_eng = LLMEngine(cfg, max_batch=4, max_len=1024, params=params, device=dev)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=386).tolist(),
+                    max_new_tokens=64) for i in range(4)]
+    prof = _profile_decode(prof_eng, reqs)
+    M.moe_block = counted       # one more step, counting the routed MoE calls
+    try:
+        prof_eng.step()
+    finally:
+        M.moe_block = block
+    prof["moe_blocks_per_step"] = calls["moe_block"]
+    emit("profile", model=cfg.name, **prof)
+    del prof_eng
+    slot_cfg = ServeConfig(engine="slot", replicas=1, max_len=1024, **dict(
+        TESTBED_COMMON, token_scale=MLA_TOKEN_SCALE, time_scale=MLA_TOKEN_SCALE))
+    engines = build_engines(cfg, slot_cfg, params=params, device=dev)
+    tb = _testbed_run("llmsched", _profile_store(), engines, slot_cfg, jobs=MLA_JOBS)
+    tb["token_scale"] = MLA_TOKEN_SCALE
+    emit("testbed", **tb)
+    return {"launches": run["launches"], "run": run, "profile": prof, "testbed": tb}
+
+
+def phase_dense(dev) -> dict:
+    """Llama-3-405B (2 of 126 layers), Qwen1.5-110B (2 of 80, QKV bias) and
+    Kimi-K2 (1 of 61: all 384 experts top-8 and the shared expert) at their
+    published widths in bf16, one at a time, through ``PagedLLMEngine``:
+    4 requests of 96-384 prompt tokens and 16 new tokens each, launches
+    matched, every bf16 paged prefill call through the tensor-core body and
+    every decode call through the split body."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving import PagedLLMEngine, Request
+
+    out = {}
+    for arch, layers in DENSE_MODELS:
+        _free_card()
+        full = get_config(arch)
+        cfg = full.with_(n_layers=layers)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(22)
+        lens = rng.integers(96, 385, size=4)
+        prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+        lg, _ = prefill(params, cfg, torch.tensor([prompts[0][:64]], dtype=torch.int32,
+                                                  device=dev), max_len=128)
+        check(lg.shape == (1, cfg.vocab) and bool(torch.isfinite(lg).all()),
+              f"dense {arch}: logits not finite")
+        eng = PagedLLMEngine(cfg, max_seqs=4, max_len=512, params=params, device=dev)
+        run = _serve(eng, [Request(rid=i, prompt=p, max_new_tokens=16)
+                           for i, p in enumerate(prompts)])
+        run.update(model=f"{full.name}, published widths, {layers} of {full.n_layers} "
+                         "layers, bf16",
+                   group_size=cfg.n_heads // cfg.n_kv_heads,
+                   weights_gb=_weights_gb(params), init_s=init_s, pool_pages=eng.num_pages)
+        emit("dense", **run)
+        out[arch] = run
+        del eng, params, lg
+    _free_card()
+    return out
 
 
 def _leaves(tree):
@@ -2168,6 +2632,14 @@ def main(argv=None) -> int:
     if "hybrid" in phases:
         _free_card()     # the 66 GB model must not stack on earlier phases'
         hyb = phase_hybrid(dev)
+    if "held_mla" in phases:
+        _free_card()
+        phase_held_mla(dev)
+    if "mla" in phases:
+        _free_card()
+        phase_mla(dev)
+    if "dense" in phases:
+        phase_dense(dev)
     if kern is not None and eng is not None and tb is not None and hyb is not None:
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot

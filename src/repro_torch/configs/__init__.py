@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the exact published config;
 ``get_smoke_config(name)`` returns a same-family reduced config that runs
 on the CPU in seconds.  The values are copies of the JAX package's
-registry; the remaining seven architectures arrive with their model
-families.
+registry, in its order; the remaining three architectures (the vision
+and audio encoders, xLSTM) arrive with their model families.
 """
 
 from __future__ import annotations
@@ -17,14 +17,22 @@ from ..models.config import ModelConfig, SHAPES, ShapeConfig, shape_applicable
 ARCH_IDS: List[str] = [
     "stablelm_1_6b",
     "internlm2_20b",
+    "qwen1_5_110b",
+    "llama3_405b",
     "jamba_1_5_large_398b",
+    "kimi_k2_1t_a32b",
+    "deepseek_v2_lite_16b",
 ]
 
 # CLI aliases (assignment spelling -> module name)
 ALIASES: Dict[str, str] = {
     "stablelm-1.6b": "stablelm_1_6b",
     "internlm2-20b": "internlm2_20b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "llama3-405b": "llama3_405b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 

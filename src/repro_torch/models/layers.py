@@ -5,8 +5,11 @@ paths run: ``embed``, ``rmsnorm``, ``rope``, ``_proj_qkv``,
 ``attention_full`` and ``attention_decode`` (the slot engine's prefill
 and decode), ``attention_decode_q8`` with ``_dq8_kv`` (decode over the
 int8 slot cache; JAX's ``_q8_kv`` is the paged pools' spec, so the port
-quantizes with :func:`repro_torch.kernels.ops.quantize_kv`), ``mlp`` and
-``unembed``, with the ``init_*`` functions of their weights.
+quantizes with :func:`repro_torch.kernels.ops.quantize_kv`), DeepSeek's
+multi-head latent attention (``init_mla``, ``_mla_qkv``, ``_mla_expand``,
+``mla_full`` with its compressed ``{"c_kv", "k_rope"}`` cache, and
+``mla_decode``), ``mlp`` and ``unembed``, with the ``init_*`` functions of
+their weights.
 Parameters are plain nested dicts of tensors with the
 JAX package's names, shapes and dtypes; the matrix products stay
 ``x @ w`` (outside any kernel, as the JAX package left them to XLA),
@@ -67,17 +70,27 @@ class Init:
 
         A tensor of more than :data:`WHOLE_DRAW` elements is drawn in
         slabs along its first axis, so the float32 temporary stays near
-        1 GiB (a full-width MoE expert stack would need 12.9 GB).
+        1 GiB (a full-width MoE expert stack would need 12.9 GB); where one
+        index of the first axis holds more than that (a stack of such
+        expert tensors over superblocks), each index is drawn in slabs of
+        its own, in order.
         """
-        std = 1.0 / math.sqrt(max(1, fan_in))
-        rows = max(1, WHOLE_DRAW // math.prod(shape[1:]))
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
-        for i in range(0, shape[0], rows):
-            n = min(rows, shape[0] - i)
-            w = torch.randn((n,) + tuple(shape[1:]), generator=self.gen,
-                            device=self.device, dtype=torch.float32)
-            out[i:i + n] = w * std
+        self._fill(out, 1.0 / math.sqrt(max(1, fan_in)))
         return out
+
+    def _fill(self, out: torch.Tensor, std: float) -> None:
+        inner = tuple(out.shape[1:])
+        if inner and math.prod(inner) > WHOLE_DRAW:
+            for sub in out:
+                self._fill(sub, std)
+            return
+        rows = max(1, WHOLE_DRAW // math.prod(inner))
+        for i in range(0, out.shape[0], rows):
+            n = min(rows, out.shape[0] - i)
+            w = torch.randn((n,) + inner, generator=self.gen, device=self.device,
+                            dtype=torch.float32)
+            out[i:i + n] = w * std
 
     def ones(self, shape: Shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
@@ -165,6 +178,19 @@ def attention_full(
     return out, {"k": k, "v": v}
 
 
+def write_at_lengths(cache: torch.Tensor, new: torch.Tensor,
+                     lengths: torch.Tensor) -> None:
+    """Write row b of ``new`` (B, ...) into ``cache`` (B, S_max, ...) at
+    position ``lengths[b]``, **in place**; a row whose length has reached
+    ``S_max`` writes nothing (JAX's one-hot of an out-of-range index is
+    all zeros)."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    at = lengths.long().clamp(max=S - 1)
+    keep = (lengths >= S).view((B,) + (1,) * (new.dim() - 1))
+    cache[rows, at] = torch.where(keep, cache[rows, at], new.to(cache.dtype))
+
+
 def attention_decode(
     p: Params,
     cfg: ModelConfig,
@@ -183,17 +209,13 @@ def attention_decode(
     an out-of-range index is all zeros.
     """
     B = x.shape[0]
-    S = cache_k.shape[1]
     q, k, v = _proj_qkv(p, cfg, x, x)
     if use_rope:
         pos = lengths[:, None]
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-    rows = torch.arange(B, device=x.device)
-    at = lengths.long().clamp(max=S - 1)
-    keep = (lengths >= S)[:, None, None]
-    for cache, new in ((cache_k, k), (cache_v, v)):
-        cache[rows, at] = torch.where(keep, cache[rows, at], new[:, 0].to(cache.dtype))
+    write_at_lengths(cache_k, k[:, 0], lengths)
+    write_at_lengths(cache_v, v[:, 0], lengths)
     out = ops.decode_attention(q[:, 0], cache_k, cache_v, (lengths + 1).to(torch.int32))
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, cache_k, cache_v
@@ -219,7 +241,6 @@ def attention_decode_q8(
     the compute dtype and goes through the slot decode-attention kernel.
     """
     B = x.shape[0]
-    S = cache["k"].shape[1]
     q, k, v = _proj_qkv(p, cfg, x, x)
     if use_rope:
         pos = lengths[:, None]
@@ -227,18 +248,106 @@ def attention_decode_q8(
         k = rope(k, pos, cfg.rope_theta)
     kq, ks = ops.quantize_kv(k[:, 0])     # (B, K, hd), (B, K)
     vq, vs = ops.quantize_kv(v[:, 0])
-    rows = torch.arange(B, device=x.device)
-    at = lengths.long().clamp(max=S - 1)
-    keep = lengths >= S
     for name, new in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
-        arr = cache[name]
-        mask = keep.view((B,) + (1,) * (new.dim() - 1))
-        arr[rows, at] = torch.where(mask, arr[rows, at], new)
+        write_at_lengths(cache[name], new, lengths)
     k_deq = _dq8_kv(cache["k"], cache["k_s"], cfg.tdtype)
     v_deq = _dq8_kv(cache["v"], cache["v_s"], cfg.tdtype)
     out = ops.decode_attention(q[:, 0], k_deq, v_deq, (lengths + 1).to(torch.int32))
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+def init_mla(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
+    """MLA projections: ``wq``, the KV down-projection ``w_dkv`` to the
+    latent plus the shared rope key, its up-projections ``w_uk``/``w_uv``,
+    and ``wo`` (fan-in: the first axis of each unstacked shape)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    lora = m.kv_lora_rank
+    return {
+        "wq": init.dense(lead + (d, h * qd), fan_in=d),
+        "w_dkv": init.dense(lead + (d, lora + m.rope_head_dim), fan_in=d),
+        "w_uk": init.dense(lead + (lora, h * m.nope_head_dim), fan_in=lora),
+        "w_uv": init.dense(lead + (lora, h * m.v_head_dim), fan_in=lora),
+        "wo": init.dense(lead + (h * m.v_head_dim, d), fan_in=h * m.v_head_dim),
+    }
+
+
+def _mla_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Project to MLA q and the compressed kv; returns (q_nope, q_rope,
+    c_kv, k_rope), the rope keys through a head axis of 1."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    q = (x @ p["wq"]).reshape(B, S, h, qd)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    dkv = x @ p["w_dkv"]
+    c_kv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand(p: Params, cfg: ModelConfig, c_kv: torch.Tensor,
+                k_rope: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand the compressed cache into per-head K/V (B, S, H, ·)."""
+    m = cfg.mla
+    B, S, _ = c_kv.shape
+    h = cfg.n_heads
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, h, m.nope_head_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, h, m.v_head_dim)
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, h, m.rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def mla_full(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,               # (B, S, d)
+    positions: torch.Tensor,       # (B, S)
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence MLA (prefill) through the flash kernel at head dims
+    nope + rope / v (DeepSeek: 192 / 128).  Returns (out, the compressed
+    cache ``{"c_kv", "k_rope"}``)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    k, v = _mla_expand(p, cfg, c_kv, k_rope)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    out = ops.attention(q, k, v, causal=True, scale=scale)
+    out = out.reshape(B, S, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,               # (B, 1, d)
+    cache_c: torch.Tensor,         # (B, S_max, kv_lora_rank)
+    cache_r: torch.Tensor,         # (B, S_max, rope_head_dim)
+    lengths: torch.Tensor,         # (B,) int32 tokens already in cache
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token MLA decode over the expanded cache through the slot
+    decode kernel at head dims nope + rope / v; returns (out, cache_c,
+    cache_r), the new latent written in place at ``lengths[b]``.  (The
+    engine decodes MLA with the absorbed form in ``transformer.py``.)"""
+    m = cfg.mla
+    B = x.shape[0]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, lengths[:, None])
+    write_at_lengths(cache_c, c_kv[:, 0], lengths)
+    write_at_lengths(cache_r, k_rope[:, 0], lengths)
+    k, v = _mla_expand(p, cfg, cache_c, cache_r)
+    q = torch.cat([q_nope, q_rope], dim=-1)[:, 0]
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    out = ops.decode_attention(q, k, v, (lengths + 1).to(torch.int32), scale=scale)
+    out = out.reshape(B, 1, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    return out, cache_c, cache_r
 
 
 # ---------------------------------------------------------------------------

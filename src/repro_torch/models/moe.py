@@ -7,7 +7,11 @@ Port of ``init_moe``, ``_routing`` and ``moe_dense`` of
 
 - float32 router softmax, top-k, gates renormalized to sum to one;
 - each chosen expert's gated MLP in the model dtype;
-- the experts' outputs weighted and summed in float32, then cast.
+- the experts' outputs weighted and summed in float32, then cast;
+- the shared experts (DeepSeek, Kimi), when the config has them, as one
+  gated MLP of width ``n_shared * d_ff_expert`` over every token, added
+  to the cast routed sum in the model dtype (JAX's order: in bf16 the
+  other order gives other bits).
 
 :func:`moe_dense` runs every expert on every token (the oracle the tests
 hold the port against).  :func:`moe_block` computes the same function and
@@ -26,24 +30,28 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import Init, Params, Shape
+from .layers import Init, Params, Shape, init_mlp, mlp
 
 
 def init_moe(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
     """Router and expert weights, stacked over ``lead``.
 
     The expert tensors use the JAX package's default fan-in, the first
-    axis of the unstacked shape (the expert count).  Shared experts
-    (DeepSeek, Kimi) are not ported: the model rejects configs with them.
+    axis of the unstacked shape (the expert count).  With ``n_shared``
+    shared experts the tree gains ``shared``: a gated MLP's
+    ``w_gate``/``w_up``/``w_down`` of width ``n_shared * d_ff_expert``.
     """
     m = cfg.moe
     d, E, f = cfg.d_model, m.n_experts, m.d_ff_expert
-    return {
+    p = {
         "router": init.dense(lead + (d, E), fan_in=d),
         "w_gate": init.dense(lead + (E, d, f), fan_in=E),
         "w_up": init.dense(lead + (E, d, f), fan_in=E),
         "w_down": init.dense(lead + (E, f, d), fan_in=E),
     }
+    if m.n_shared > 0:
+        p["shared"] = init_mlp(init, d, m.n_shared * f, lead)
+    return p
 
 
 def _routing(p: Params, cfg: ModelConfig,
@@ -68,6 +76,8 @@ def moe_dense(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     u = torch.einsum("td,edf->tef", x2d, p["w_up"])
     y_e = torch.einsum("tef,efd->ted", F.silu(h) * u, p["w_down"])
     y = torch.einsum("ted,te->td", y_e.float(), comb).to(x.dtype)
+    if m.n_shared > 0:
+        y = y + mlp(p["shared"], x2d)
     return y.reshape(B, S, d)
 
 
@@ -98,4 +108,7 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         y.index_put_((t_e,), (act @ p["w_down"][e]).float() * gate[start:start + n, None],
                      accumulate=True)
         start += n
-    return y.to(x.dtype).reshape(B, S, d)
+    y = y.to(x.dtype)
+    if m.n_shared > 0:
+        y = y + mlp(p["shared"], x2d)
+    return y.reshape(B, S, d)

@@ -5,9 +5,11 @@ layout (``layer_kind``, ``superblock_len``, ``_scan_layout``),
 ``init_params``, the layer in its full-sequence and decode forms
 (``_apply_layer_full``, ``_apply_layer_decode``, ``_apply_ffn``),
 ``forward``, and the slot engine's cache functions ``init_cache``,
-``prefill`` and ``decode_step``.  A layer's mixer is GQA attention or
-Mamba (:mod:`.ssm`), its FFN a gated MLP or a mixture of experts
-(:mod:`.moe`): the dense family and the hybrid (Jamba) family.
+``prefill`` and ``decode_step``.  A layer's mixer is GQA attention,
+DeepSeek's multi-head latent attention (MLA) or Mamba (:mod:`.ssm`), its
+FFN a gated MLP (a leading ``dense_mlp`` layer of an MoE model included)
+or a mixture of experts with optional shared experts (:mod:`.moe`): the
+dense, MoE and hybrid (Jamba) families.
 
 Parameters and caches form the same trees as the JAX package's:
 ``embedding``, ``lm_head``, ``final_norm``, unstacked prefix layers
@@ -15,15 +17,19 @@ Parameters and caches form the same trees as the JAX package's:
 and ``blocks[str(j)]`` with every leaf stacked over superblocks on axis
 0.  An attention layer's slot cache is ``{"k", "v"}`` ``(B, max_len, K,
 hd)`` (int8 K/V beside float32 scales ``k_s``/``v_s`` with
-``kv_cache_dtype="int8"``), a Mamba layer's ``{"conv", "ssm"}``; in
-``blocks`` each gains a leading superblock axis.
+``kv_cache_dtype="int8"``), an MLA layer's the compressed latent
+``{"c_kv": (B, max_len, kv_lora_rank), "k_rope": (B, max_len,
+rope_head_dim)}`` in the compute dtype (whatever ``kv_cache_dtype``), a
+Mamba layer's ``{"conv", "ssm"}``; in ``blocks`` each gains a leading
+superblock axis.
 
 In PyTorch's idiom, the ``lax.scan`` over superblocks is a Python loop
-over per-layer views, and ``decode_step`` writes the new K/V and Mamba
-states into the cache **in place** (it still returns the cache, with
-``lengths`` a new tensor).  The other mixers (MLA, cross attention,
-mLSTM, sLSTM) and the encoder are not ported yet and raise
-``NotImplementedError``.
+over per-layer views, and ``decode_step`` writes the new K/V, latents
+and Mamba states into the cache **in place** (it still returns the
+cache, with ``lengths`` a new tensor).  MLA decodes in the latent space
+(``_mla_decode_absorbed``, plain PyTorch as in the JAX package).  The
+other mixers (cross attention, mLSTM, sLSTM) and the encoder are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -99,21 +105,18 @@ def _scan_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-MIXERS = ("attn", "mamba")
-FFNS = ("mlp", "moe", "none")
+MIXERS = ("attn", "mla", "mamba")
+FFNS = ("mlp", "dense_mlp", "moe", "none")
 
 
 def _check_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
     """The scan layout of a config whose every layer the port runs.
 
     Every entry point calls this first, so the layer functions below may
-    assume attention or Mamba mixers and MLP or MoE FFNs (without shared
-    experts or leading dense layers).
+    assume attention, MLA or Mamba mixers and MLP or MoE FFNs.
     """
     if cfg.encoder is not None or cfg.family == "audio":
         raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
-    if cfg.moe is not None and cfg.moe.n_shared:
-        raise NotImplementedError(f"shared experts {NOT_PORTED}")
     for i in range(cfg.n_layers):
         mixer, ffn = layer_kind(cfg, i).split("+")
         if mixer not in MIXERS or ffn not in FFNS:
@@ -126,12 +129,16 @@ def _init_layer(init: L.Init, cfg: ModelConfig, kind: str, lead: Tuple[int, ...]
     p: Params = {"norm1": L.init_rmsnorm(init, cfg.d_model, lead)}
     if mixer == "attn":
         p["attn"] = L.init_attention(init, cfg, lead)
+    elif mixer == "mla":
+        p["attn"] = L.init_mla(init, cfg, lead)
     else:
         p["mamba"] = S.init_mamba(init, cfg, lead)
     if ffn != "none":
         p["norm2"] = L.init_rmsnorm(init, cfg.d_model, lead)
     if ffn == "mlp":
         p["mlp"] = L.init_mlp(init, cfg.d_model, cfg.d_ff, lead)
+    elif ffn == "dense_mlp":
+        p["mlp"] = L.init_mlp(init, cfg.d_model, cfg.moe.d_ff_dense or cfg.d_ff, lead)
     elif ffn == "moe":
         p["moe"] = M.init_moe(init, cfg, lead)
     return p
@@ -143,8 +150,8 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
     Parameters
     ----------
     cfg : ModelConfig
-        A config whose layers are attention or Mamba mixers with MLP or
-        MoE FFNs.
+        A config whose layers are attention, MLA or Mamba mixers with MLP
+        or MoE FFNs.
     seed : int
         Seed of the ``torch.Generator`` the weights are drawn from.
     device : str or torch.device, optional
@@ -175,8 +182,9 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
 # forward building blocks
 # ---------------------------------------------------------------------------
 def _apply_ffn(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm FFN with residual (the JAX version's ``decoding`` switch
-    selects a sharded decode MLP, which is not ported)."""
+    """Pre-norm FFN with residual: a gated MLP (``mlp``, ``dense_mlp``) or
+    the MoE block (the JAX version's ``decoding`` switch selects a sharded
+    decode MLP, which is not ported)."""
     _, ffn = kind.split("+")
     if ffn == "none":
         return x
@@ -220,11 +228,14 @@ def _apply_layer_full(
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence layer; returns (x, cache contribution): ``{"k", "v"}``
-    of an attention layer, the final ``{"conv", "ssm"}`` of a Mamba one."""
+    of an attention layer, ``{"c_kv", "k_rope"}`` of an MLA one, the final
+    ``{"conv", "ssm"}`` of a Mamba one."""
     mixer, _ = kind.split("+")
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
         out, cache = L.attention_full(p["attn"], cfg, h, positions, causal=causal)
+    elif mixer == "mla":
+        out, cache = L.mla_full(p["attn"], cfg, h, positions)
     else:
         out, cache = S.mamba_full(p["mamba"], cfg, h)
     x = _apply_ffn(p, cfg, kind, x + out)
@@ -246,6 +257,8 @@ def _apply_layer_decode(
         out, st = S.mamba_decode(p["mamba"], cfg, h, cache)
         cache["conv"].copy_(st["conv"])
         cache["ssm"].copy_(st["ssm"])
+    elif mixer == "mla":
+        out = _mla_decode_absorbed(p["attn"], cfg, h, cache, lengths)
     elif cfg.kv_cache_dtype == "int8":
         out, cache = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
     else:
@@ -254,6 +267,47 @@ def _apply_layer_decode(
         cache = {"k": ck, "v": cv}
     x = _apply_ffn(p, cfg, kind, x + out)
     return x, cache
+
+
+def _mla_decode_absorbed(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                    # (B, 1, d)
+    cache: Dict[str, torch.Tensor],     # {"c_kv": (B, S_max, lora), "k_rope": (B, S_max, rope)}
+    lengths: torch.Tensor,              # (B,) int32 tokens already in cache
+) -> torch.Tensor:
+    """MLA decode with weight absorption: attention runs in the compressed
+    latent space and the per-head K/V are never built; returns the
+    layer's output.
+
+    The JAX function line for line: ``q_lat`` in the model dtype, the
+    logits, mask (``arange(S_max) < lengths + 1``) and softmax in float32
+    over the whole ``S_max``, the latent context through ``w_uv``, cast,
+    then ``wo``.  The new latent and rope key are written **in place** at
+    ``lengths[b]`` (nothing for a row at ``S_max``, as JAX's one-hot).
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    h = cfg.n_heads
+    q_nope, q_rope, c_kv_new, k_rope_new = L._mla_qkv(p, cfg, x, lengths[:, None])
+    cache_c, cache_r = cache["c_kv"], cache["k_rope"]
+    L.write_at_lengths(cache_c, c_kv_new[:, 0], lengths)
+    L.write_at_lengths(cache_r, k_rope_new[:, 0], lengths)
+    # absorb W_uk into q:  q' = q_nope @ W_uk^T  -> latent space
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.nope_head_dim)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)          # (B, H, lora)
+    S_max = cache_c.shape[1]
+    c32 = cache_c.float()
+    logits = torch.einsum("bhl,bsl->bhs", q_lat.float(), c32)
+    logits = logits + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(), cache_r.float())
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    mask = torch.arange(S_max, device=x.device)[None, :] < (lengths + 1)[:, None]
+    bias = torch.where(mask, 0.0, -1e30)
+    w = torch.softmax(logits * scale + bias[:, None, :], dim=-1)
+    ctx = torch.einsum("bhs,bsl->bhl", w, c32)                         # latent context
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bhl,lhv->bhv", ctx, w_uv.float())               # (B, H, v)
+    return out.reshape(B, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +365,12 @@ def init_cache(
     An attention layer's ``k``/``v`` are ``(B, max_len, K, hd)`` zeros in
     the model's compute dtype, or int8 zeros beside float32 scales
     ``k_s``/``v_s`` ``(B, max_len, K)`` that start at **zero** (the paged
-    pools' scales start at one) with ``kv_cache_dtype="int8"``.  A Mamba
-    layer's state is zeros (:func:`repro_torch.models.ssm.mamba_init_state`).
-    Leaves under ``blocks`` gain a leading superblock axis.
+    pools' scales start at one) with ``kv_cache_dtype="int8"``.  An MLA
+    layer's ``c_kv`` ``(B, max_len, kv_lora_rank)`` and ``k_rope`` ``(B,
+    max_len, rope_head_dim)`` are zeros in the compute dtype, int8 or not
+    (as in JAX).  A Mamba layer's state is zeros
+    (:func:`repro_torch.models.ssm.mamba_init_state`).  Leaves under
+    ``blocks`` gain a leading superblock axis.
     """
     n_prefix, pat, n_sb = _check_layers(cfg)
     dev = resolve_device(device)
@@ -321,6 +378,12 @@ def init_cache(
     def layer_cache(kind: str, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
         if kind.startswith("mamba"):
             return S.mamba_init_state(cfg, batch, cfg.tdtype, dev, lead)
+        if kind.startswith("mla"):
+            m = cfg.mla
+            return {"c_kv": torch.zeros(lead + (batch, max_len, m.kv_lora_rank),
+                                        dtype=cfg.tdtype, device=dev),
+                    "k_rope": torch.zeros(lead + (batch, max_len, m.rope_head_dim),
+                                          dtype=cfg.tdtype, device=dev)}
         shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.hd)
         if cfg.kv_cache_dtype == "int8":
             return {
@@ -346,8 +409,13 @@ def _place(cfg: ModelConfig, dst: Dict[str, torch.Tensor],
            src: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A prefill contribution in a fresh layer cache: the prompt's K/V in
     its first positions (quantized on an int8 cache, JAX's
-    ``place_attn_q8``), or a Mamba layer's final state in place of the
-    initial one."""
+    ``place_attn_q8``), an MLA layer's latents in their first positions,
+    or a Mamba layer's final state in place of the initial one."""
+    if "c_kv" in src:
+        Sq = src["c_kv"].shape[-2]
+        for name in ("c_kv", "k_rope"):
+            dst[name].narrow(-2, 0, Sq).copy_(src[name])
+        return dst
     if "k" not in src:
         return src
     Sq = src["k"].shape[-3]
@@ -388,8 +456,9 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step for the whole batch; returns (logits (B, V), cache).
 
-    The K/V caches and Mamba states are written in place; the returned
-    dict is ``cache`` with ``lengths`` replaced by ``lengths + 1``.
+    The K/V caches, MLA latents and Mamba states are written in place;
+    the returned dict is ``cache`` with ``lengths`` replaced by
+    ``lengths + 1``.
     """
     _check_layers(cfg)
     if tokens.dim() == 1:

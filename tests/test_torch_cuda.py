@@ -15,6 +15,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
+import dataclasses
+
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
@@ -142,7 +144,7 @@ def _off16(t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [64, 100, 2048, 8192])
+@pytest.mark.parametrize("d", [64, 100, 2048, 7168, 8192, 16384])
 @pytest.mark.parametrize("rows", [0, 1, 8, 64, 386, 512])
 def test_rmsnorm_kernel_at_the_main_paths_rows_and_widths(dev, rows, d, dtype, misaligned):
     """Every row count and width of the main path and the smoke configs,
@@ -884,8 +886,10 @@ def test_bf16_engines_take_the_tensor_core_bodies(dev, arch):
 # ---------------------------------------------------------------------------
 # (H, K, hd): the smoke configs (g 1 and 3), stablelm-1.6b, internlm2-20b,
 # Jamba-1.5-Large and a group of 16 (two row groups a kv head)
+# (64, 8, 128): Jamba-1.5-Large, Kimi-K2 and Qwen1.5-110B (g = 8);
+# (128, 8, 128): Llama-3-405B (g = 16, one full tensor-core row group)
 SPLIT_WIDTHS = [(4, 4, 16), (6, 2, 16), (32, 32, 64), (48, 8, 128), (64, 8, 128),
-                (32, 2, 64)]
+                (32, 2, 64), (128, 8, 128)]
 DECODE_KINDS = ["slot", "paged", "int8"]
 
 
@@ -1127,3 +1131,100 @@ def test_engines_take_the_split_decode_bodies(dev, arch, dtype):
         counts, splits = ops.launch_counts(), ops.split_launch_counts()
         assert sum(splits.values()) > 0
         assert all(splits[name] == counts[name] for name in ops.SPLIT_KERNELS), (counts, splits)
+
+
+# ---------------------------------------------------------------------------
+# MLA, shared experts and leading dense layers (DeepSeek-V2-Lite, Kimi-K2)
+# ---------------------------------------------------------------------------
+def _deepseek_smoke_at_mla_head_dims():
+    """DeepSeek-smoke with DeepSeek-V2-Lite's MLA head dims: q/k 128 + 64
+    = 192 and v 128, so its prefill takes flash at 192 / 128."""
+    cfg = get_smoke_config("deepseek_v2_lite_16b").with_(dtype="float32")
+    return cfg.with_(mla=dataclasses.replace(cfg.mla, nope_head_dim=128, rope_head_dim=64,
+                                             v_head_dim=128))
+
+
+@pytest.mark.gpu
+def test_mla_prefill_runs_flash_at_192_128(dev):
+    """A DeepSeek-smoke prefill at MLA's head dims on the card against the
+    CPU: logits and the compressed caches to the float32 tolerance, flash
+    once a layer through its CUDA-core body, and the absorbed decode step
+    after it."""
+    from repro_torch.models import decode_step, prefill
+
+    cfg = _deepseek_smoke_at_mla_head_dims()
+    params = init_params(cfg, seed=3, device="cpu")
+    toks = torch.tensor([list(range(3, 40)), list(range(50, 87))], dtype=torch.int32)
+    out = {}
+    for d in ("cpu", dev):
+        ops.reset_launch_counts()
+        lg, cache = prefill(_to(params, d), cfg, toks.to(d), max_len=64)
+        counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+        lg2, cache = decode_step(_to(params, d), cfg, cache, toks[:, 0].to(d))
+        out[str(d)] = (lg.cpu(), lg2.cpu(), cache["blocks"]["0"]["c_kv"].cpu(),
+                       cache["prefix_0"]["k_rope"].cpu())
+    torch.cuda.synchronize()
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert counts["flash_attention"] == cfg.n_layers and tcs["flash_attention"] == 0
+    assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
+
+
+def _to(params, d):
+    from repro_torch.bridge import params_to
+
+    return params_to(params, d)
+
+
+def _card_and_cpu_tokens(make_engine, cfg, prompts, dev):
+    """Greedy tokens of an engine on the CPU and on the card (same float32
+    weights), with more requests than slots, and the card run's launches."""
+    params = init_params(cfg, seed=3, device="cpu")
+    outs = {}
+    for d in ("cpu", dev):
+        ops.reset_launch_counts()
+        eng = make_engine(cfg, params, d)
+        out, pending = {}, list(enumerate(prompts))
+        while pending or eng.batch_size or getattr(eng, "waiting", None):
+            while pending and eng.can_admit():
+                i, p = pending.pop(0)
+                assert eng.admit(Request(
+                    rid=i, prompt=p, max_new_tokens=6 + i,
+                    on_finish=lambda r, out=out: out.__setitem__(r.rid, list(r.out_tokens))))
+            eng.step()
+        outs[str(d)] = out
+    torch.cuda.synchronize()
+    assert outs["cpu"] == outs[str(dev)] and len(outs["cpu"]) == len(prompts)
+    return eng, ops.launch_counts()
+
+
+PROMPTS = [[1, 2, 3], list(range(4, 30)), [7] * 9, list(range(40, 57)), [5, 6]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "kimi_k2_1t_a32b"])
+def test_mla_and_shared_expert_slot_engines_on_card_match_cpu_tokens(dev, arch):
+    """float32 DeepSeek-smoke (MLA, a leading dense layer, shared experts)
+    and Kimi-smoke (GQA, shared expert) through ``LLMEngine``: card and CPU
+    give equal greedy tokens; MLA decodes with no attention kernel."""
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    eng, counts = _card_and_cpu_tokens(
+        lambda c, p, d: LLMEngine(c, max_batch=3, max_len=64, params=p, device=d),
+        cfg, PROMPTS, dev)
+    n = cfg.n_layers
+    assert counts["flash_attention"] == n * eng.admissions
+    assert counts["decode_attention"] == (0 if cfg.mla else n) * eng.decode_steps
+    assert counts["rmsnorm"] == (2 * n + 1) * (eng.admissions + eng.decode_steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "llama3_405b", "qwen1_5_110b"])
+def test_new_paged_engines_on_card_match_cpu_tokens(dev, arch):
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    eng, counts = _card_and_cpu_tokens(
+        lambda c, p, d: PagedLLMEngine(c, max_seqs=3, max_len=64, page_size=8,
+                                       prefill_chunk=8, params=p, device=d),
+        cfg, PROMPTS, dev)
+    n = cfg.n_layers
+    assert counts["paged_decode_attention"] == n * eng.decode_steps
+    assert counts["paged_prefill_attention"] == n * eng.prefill_chunks
