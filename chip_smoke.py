@@ -120,7 +120,37 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    expert) at their published widths in bf16, one at a time, each through
    ``PagedLLMEngine`` with 4 requests of 96-384 prompt tokens and 16 new
    tokens, launches matched, every paged prefill call through the
-   tensor-core body and every decode call through the split body.
+   tensor-core body and every decode call through the split body;
+12. ``held_xlstm`` — xLSTM-350M at its published widths in float32, cut
+   to its first 8 layers (one superblock: 7 mLSTM and 1 sLSTM cells, the
+   sLSTM's recurrence ``r_izfo`` seeded non-zero): the same weights and 3
+   requests through ``LLMEngine`` on the card and on the CPU must give the
+   same greedy tokens, with a freed slot re-used mid-stream;
+13. ``xlstm``  — the whole xLSTM-350M (24 layers, bf16, 1.2 GB) through
+   ``LLMEngine``: 4 requests of 64-256 prompt tokens and 32 new tokens,
+   launches matched (RMSNorm once a layer plus the final norm per
+   admission and step, no attention kernel), a profiled decode window,
+   then LLMSched over one xLSTM slot replica (6 planning jobs at the
+   testbed's token scale 4);
+14. ``held_encdec`` — Whisper-tiny whole (4 encoder and 4 decoder layers,
+   1500 frames) and Llama-3.2-Vision-90B at its published widths cut to
+   its first 5 layers (one superblock, the cross layer last; ~26 GB,
+   which the host holds too), float32, seeded random ``enc_input``:
+   prefill and 8 greedy tokens for 2 prompts through ``prefill`` /
+   ``decode_step`` on the card and on the CPU must give the same tokens;
+15. ``encdec`` — Whisper-tiny whole (4 prompts of 16-64 tokens, 32 new
+   tokens) and Vision cut to its first 10 layers (2 superblocks, cross
+   layers at 4 and 9, 21.3 GB; 4 prompts of 128-512 tokens, 16 new
+   tokens) in bf16 through ``prefill`` (one prompt at a time) and batched
+   ``decode_step``s, the JAX package's entry points for these families
+   (its engines take no encoder input): launches matched, every flash call
+   on the tensor-core body, every decode call on the split body; the
+   encoder's and the cross K/V's times and a profiled decode window.
+   The ``kernels`` phase holds and times (``timing_bf16_encdec``) flash
+   bidirectional at Whisper's encoder (Sq = Sk = 1500, H = K = 6, hd 64),
+   at Sq = 1 over Sk = 1500 (Whisper) and 1601 (Vision: H = 64, K = 8, hd
+   128) and at Vision's cross prefill (Sq = 256), NaN past Sk; slot
+   decode at Whisper's widths; RMSNorm at 4 x 1024 and 4 x 384.
 
 The ``testbed`` phase also runs the ``ladder3`` cascade fleet: the
 stablelm-1.6b, internlm2-20b and Kimi-K2 smoke configs on three paged
@@ -191,7 +221,7 @@ SFU_EXP_PER_CLOCK_PER_SM = 16
 # host seconds between a traced window's edges and the work it measures
 TRACE_PAD_S = 0.01
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
-          "held_mla", "mla", "dense")
+          "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec")
 # run only when named: the RMSNorm and scan timings alone (``kernels`` has them)
 EXTRA_PHASES = ("timing",)
 KERNEL_META = {
@@ -1274,6 +1304,112 @@ def _mla_dense_rows(dev, errs, cases) -> dict:
     return rows
 
 
+# (label, B, Sq, Sk, H, K, hd): flash, bidirectional, at the encoder
+# families' shapes (1500 = 23 * 64 + 28 and 1601 = 25 * 64 + 1 frames /
+# patches: ragged tails)
+ENCDEC_FLASH = (("whisper-tiny encoder", 1, 1500, 1500, 6, 6, 64),
+                ("whisper-tiny cross decode", 4, 1, 1500, 6, 6, 64),
+                ("vision-90b cross decode", 4, 1, 1601, 64, 8, 128),
+                ("vision-90b cross prefill", 1, 256, 1601, 64, 8, 128))
+ENCDEC_RMSNORM = ((4, 1024), (4, 384))
+
+
+def _encdec_rows(dev, errs, cases) -> dict:
+    """The kernels at the xLSTM, VLM and Whisper paths' shapes, each held
+    against its plain version in bf16 and f32 and timed in bf16 beside one
+    library call and its bound, inputs from a generator of their own:
+
+    - flash, bidirectional (:data:`ENCDEC_FLASH`), k and v the first Sk
+      rows of buffers whose rows past Sk hold NaN once the plain check is
+      done (the output must not move by a bit), beside SDPA;
+    - slot decode at Whisper's widths (H = K = 6, hd 64, g = 1), B = 4,
+      S_max = 256, tails NaN, beside SDPA with a length mask;
+    - RMSNorm at 4 x 1024 (xLSTM decode) and 4 x 384 (Whisper), beside
+      ``F.rms_norm``.
+
+    Every bf16 flash call here takes the tensor-core body and every decode
+    call the split body (but the misaligned ``other_body`` calls)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(23)
+    rows = {}
+    launches0, tc0 = ops.launch_counts(), ops.tc_launch_counts()
+    split0 = ops.split_launch_counts()
+    es, dt = 2, torch.bfloat16
+    f32_flash = 0
+
+    def flash_row(label, q, k, v, B, Sq, Sk, H, K, hd):
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        nb, fl = bound(es * (2 * B * Sq * H * hd + 2 * B * Sk * K * hd),
+                       4 * B * H * hd * Sq * Sk, dt)
+        return dict(**_times(lambda: flash_attention(q, k, v, causal=False),
+                             lambda: R.attention_ref(q, k, v, causal=False),
+                             lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                    enable_gqa=H > K)),
+                    bound_ms=nb, bound_by=fl,
+                    shape=f"{label}: B={B} Sq={Sq} Sk={Sk} bidirectional H={H} K={K} "
+                          f"hd={hd}")
+
+    for label, B, Sq, Sk, H, K, hd in ENCDEC_FLASH:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kb, vb = _on(dev, dtype, *(rng.normal(size=sh).astype(np.float32) for sh in
+                                          ((B, Sq, H, hd), (B, Sk + 29, K, hd),
+                                           (B, Sk + 29, K, hd))))
+            k, v = kb[:, :Sk], vb[:, :Sk]
+            got = flash_attention(q, k, v, causal=False)
+            errs["flash_attention"] = max(errs["flash_attention"], _err(
+                got, R.attention_ref(q, k, v, causal=False), dtype))
+            kb[:, Sk:], vb[:, Sk:] = float("nan"), float("nan")
+            check(torch.equal(flash_attention(q, k, v, causal=False), got),
+                  f"flash output changed under NaN past Sk ({label}, {dtype})")
+            cases.append(("flash", label, str(dtype), Sq, Sk))
+            f32_flash += 2 * (dtype == torch.float32)
+        rows[f"flash_attention {label}"] = flash_row(label, q, k, v, B, Sq, Sk, H, K, hd)
+    # slot decode at Whisper's widths
+    B, S, H, hd = 4, 256, 6, 64
+    lens = np.array([1, 17, 100, 256], np.int32)
+    tail = torch.from_numpy(np.arange(S)[None, :] >= lens[:, None]).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kc, vc = _on(dev, dtype, *(rng.normal(size=sh).astype(np.float32)
+                                      for sh in ((B, H, hd), (B, S, H, hd), (B, S, H, hd))))
+        got = decode_attention(q, kc, vc, ln)
+        errs["decode_attention"] = max(errs["decode_attention"], _err(
+            got, R.decode_attention_ref(q, kc, vc, ln), dtype))
+        kc[tail], vc[tail] = float("nan"), float("nan")
+        check(torch.equal(decode_attention(q, kc, vc, ln), got),
+              f"slot decode output changed under NaN tails (whisper-tiny, {dtype})")
+        cases.append(("slot decode", "whisper-tiny", str(dtype), B))
+    lens = np.array([50, 70, 90, 96], np.int32)
+    q, kc, vc = _on(dev, dt, *(rng.normal(size=sh).astype(np.float32)
+                               for sh in ((B, H, hd), (B, S, H, hd), (B, S, H, hd))))
+    ln = torch.from_numpy(lens).to(dev)
+    row = _slot_decode_row(q, kc, vc, ln, lens, dev, f"whisper-tiny: B={B} S_max={S} "
+                           f"H=K={H} hd={hd} tokens={int(lens.sum())}")
+    rows["decode_attention whisper-tiny"] = row
+    for r, d in ENCDEC_RMSNORM:
+        _check_rmsnorm(rng, dev, errs, cases, d, (1, r, 64))
+        rows[f"rmsnorm {r}x{d}"] = _rmsnorm_row(dev, r, d)
+    launches, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    splits = ops.split_launch_counts()
+    n_fa = launches["flash_attention"] - launches0["flash_attention"]
+    tc_fa = tcs["flash_attention"] - tc0["flash_attention"]
+    n_dec = launches["decode_attention"] - launches0["decode_attention"]
+    split_dec = splits["decode_attention"] - split0["decode_attention"]
+    check(tc_fa == n_fa - f32_flash > 0,
+          f"a bf16 flash call missed the tensor-core body: {tc_fa} of {n_fa}")
+    check(split_dec == n_dec - row["other_body_calls"] > 0,
+          f"a slot decode call missed the split body: {split_dec} of {n_dec}")
+    rows["launched"] = {"flash_attention": n_fa, "tc": tc_fa, "decode_attention": n_dec,
+                        "split": split_dec, "other_body": row["other_body_calls"]}
+    return rows
+
+
 def _tc_scaling(dev) -> dict:
     """What sets the tensor-core bodies' times, bf16, device time by the
     profiler: flash over one kv head (H = K = 1, hd = 64, causal), where
@@ -1591,6 +1727,7 @@ def phase_kernels(dev) -> dict:
               for v in timed_split.values()),
           f"a timed decode call missed the split body: {timed_split}")
     mla_dense = _mla_dense_rows(dev, errs, cases)
+    encdec = _encdec_rows(dev, errs, cases)
     norm_scan = phase_timing(dev, emit_line=False)
     timing["ssm_scan"] = norm_scan.pop("ssm_scan")
     sweeps = {"rmsnorm_sweep": _rmsnorm_sweep(dev)}
@@ -1598,6 +1735,7 @@ def phase_kernels(dev) -> dict:
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, **norm_scan, **sweeps,
            "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
            "timing_bf16_wide": wide, "timing_bf16_mla_dense": mla_dense,
+           "timing_bf16_encdec": encdec,
            "timed_tc": timed_tc, "timed_split": timed_split,
            "tc_scaling": scaling, "decode_split_sweep": split_sweep,
            "peaks": "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"}
@@ -1941,24 +2079,33 @@ def _host_events(prof) -> dict:
 
 
 def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
-    """Trace ``n_steps`` steady decode steps at batch ``len(reqs)`` with
-    torch.profiler: device time by kernel, the share of the window the
-    device idled, RMSNorm's and the scan's device time and share of the
-    busy time (``kernel_shares``), and the host's kernel launches, syncs
-    and memcpys a step.  Works for the paged and the slot engine."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Trace ``n_steps`` steady decode steps of an engine at batch
+    ``len(reqs)`` (:func:`_profile_window`).  Works for the paged and the
+    slot engine."""
     for r in reqs:
         check(eng.admit(r), "profile: admission refused")
     while getattr(eng, "prefilling", None):   # the slot engine prefills in admit()
         eng.step()
     for _ in range(2):
         eng.step()
+    return _profile_window(eng.step, n_steps,
+                           f"{n_steps} decode steps, batch {len(reqs)}, "
+                           f"{len(reqs[0].prompt)}-token prompts, {type(eng).__name__}")
+
+
+def _profile_window(step, n_steps: int, window: str) -> dict:
+    """Trace ``n_steps`` calls of ``step`` with torch.profiler: device time
+    by kernel, the share of the window the device idled, the device time
+    and share of the busy time of RMSNorm, the scan, the attention
+    tensor-core body and the split decode body (``kernel_shares``), and the
+    host's kernel launches, syncs and memcpys a step."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(TRACE_PAD_S)   # (see device_ms)
@@ -1972,7 +2119,7 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
     busy_ms = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     shares = {}
-    for kernel in ("rmsnorm_kernel", "ssm_scan_kernel"):
+    for kernel in ("rmsnorm_kernel", "ssm_scan_kernel", "attention_tc_kernel", "decode_split"):
         hits = [(t, n) for name, (t, n) in by_kernel.items() if kernel in name]
         ms = sum(t for t, _ in hits)
         shares[kernel] = {"ms": ms, "count": sum(n for _, n in hits),
@@ -1983,8 +2130,7 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
         **{f"host_{k}_per_step": n / n_steps for k, n in calls.items()},
         "top_host_ops_ms": [{"name": e.key, "self_ms": e.self_cpu_time_total / 1e3,
                              "count": e.count} for e in host],
-        "window": f"{n_steps} decode steps, batch {len(reqs)}, "
-                  f"{len(reqs[0].prompt)}-token prompts, {type(eng).__name__}",
+        "window": window,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "device_events": sum(n for _, n in by_kernel.values()),
@@ -2025,15 +2171,28 @@ def _stalled(signum, frame):
     raise Stalled(f"testbed run did not finish within {TESTBED_LIMIT_S} s")
 
 
+def _norms_per_pass(cfg) -> int:
+    """RMSNorm launches of one prefill or decode pass over a config: each
+    layer's ``norm1``, its ``norm2`` where it has an FFN (not xLSTM's
+    cells), a Whisper decoder layer's ``norm_x``, and the final norm."""
+    from repro_torch.models import layer_kind
+
+    if cfg.family == "audio":
+        return 3 * cfg.n_layers + 1
+    return 1 + sum(2 if layer_kind(cfg, i).split("+")[1] != "none" else 1
+                   for i in range(cfg.n_layers))
+
+
 def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: str) -> None:
     """Exact launch accounting of slot engines: per admission, flash
     attention once an attention or MLA layer and the scan once a Mamba
     layer; per decode step, slot decode attention once an attention layer
     (MLA decodes in the latent space, with no kernel) and the scan once a
-    Mamba layer; RMSNorm twice a layer plus once for both; the paged
-    kernels never; flash through the tensor-core body in bf16 (MLA's
-    192 / 128 through the CUDA-core body); every decode call through the
-    split-context body."""
+    Mamba layer; RMSNorm once a layer, once more a layer with an FFN, and
+    once for the final norm, in both (xLSTM's cells run no other kernel);
+    the paged kernels never; flash through the tensor-core body in bf16
+    (MLA's 192 / 128 through the CUDA-core body); every decode call
+    through the split-context body."""
     from repro_torch.models import layer_kind
 
     mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
@@ -2045,10 +2204,10 @@ def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: s
           f"{what}: slot decode launches {counts} vs {steps} decode steps")
     check(counts["ssm_scan"] == n_mamba * (adm + steps),
           f"{what}: ssm_scan launches {counts} vs {adm + steps} admissions and steps")
-    check(counts["rmsnorm"] == (2 * cfg.n_layers + 1) * (adm + steps),
+    check(counts["rmsnorm"] == _norms_per_pass(cfg) * (adm + steps),
           f"{what}: rmsnorm launches {counts} vs {adm + steps} admissions and steps")
-    used = (("flash_attention", "rmsnorm") + (("decode_attention",) if n_attn else ())
-            + (("ssm_scan",) if n_mamba else ()))
+    used = (("rmsnorm",) + (("flash_attention",) if n_attn + n_mla else ())
+            + (("decode_attention",) if n_attn else ()) + (("ssm_scan",) if n_mamba else ()))
     check(all(counts[k] > 0 for k in used), f"{what}: a kernel never ran: {counts}")
     check(all(v == 0 for k, v in counts.items() if k not in used),
           f"{what}: a kernel off the slot path ran: {counts}")
@@ -2579,6 +2738,351 @@ def phase_dense(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases: held_xlstm and xlstm (xLSTM-350M through the slot engine)
+# ---------------------------------------------------------------------------
+XLSTM_ARCH = "xlstm_350m"
+XLSTM_JOBS = 6
+
+
+def _set_recurrence(params, dev, seed: int) -> None:
+    """Every sLSTM cell's diagonal recurrence ``r_izfo`` (drawn as zeros, as
+    in JAX) set to seeded normal values of spread 0.5, in place, so that the
+    held checks run the recurrence."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for blk in params["blocks"].values():
+        r = blk.get("cell", {}).get("r_izfo")
+        if r is not None:
+            r.copy_(torch.randn(r.shape, generator=gen, device=dev) * 0.5)
+
+
+def phase_held_xlstm(dev) -> dict:
+    """xLSTM-350M at full width in float32, cut to its first 8 layers (one
+    superblock: 7 mLSTM + 1 sLSTM cells, ~1.1 GB), the sLSTM recurrence
+    seeded non-zero: the same weights and 3 requests through ``LLMEngine``
+    on the card and on the CPU must give the same greedy tokens, with a
+    freed slot re-used mid-stream."""
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config(XLSTM_ARCH).with_(n_layers=8, dtype="float32")
+    t0 = time.perf_counter()
+    gpu_params = init_params(cfg, seed=1, device=dev)
+    _set_recurrence(gpu_params, dev, seed=2)
+    cpu_params = params_to(gpu_params, "cpu")
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in (24, 41, 57)]
+    logits, states = {}, {}
+    for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+        toks = torch.tensor([prompts[1]], dtype=torch.int32, device=d)
+        lg, cache = prefill(params, cfg, toks, max_len=128)
+        lg2, cache = decode_step(params, cfg, cache, torch.tensor([prompts[1][0]], device=d))
+        logits[name] = torch.cat([lg.float().cpu(), lg2.float().cpu()])
+        slstm = str(cfg.xlstm.slstm_every - 1)
+        states[name] = {n: cache["blocks"][j][n].cpu() for j, n in (("0", "C"), (slstm, "h"))}
+    outs, secs, _ = _held_slot_runs(cfg, gpu_params, cpu_params, dev, prompts, (8, 5, 8),
+                                    "held_xlstm")
+    res = {"model": "xlstm-350m widths, 8 layers (7 mlstm + 1 slstm, one superblock), "
+                    "r_izfo seeded non-zero, float32, TF32 off, slot engine",
+           "tokens_equal": outs["cuda"] == outs["cpu"],
+           "n_tokens": sum(len(v) for v in outs["cuda"].values()),
+           "max_logit_gap": float((logits["cuda"] - logits["cpu"]).abs().max()),
+           "max_state_gap": {n: float((states["cuda"][n] - states["cpu"][n]).abs().max())
+                             for n in ("C", "h")},
+           "logits": "41-token prefill and one decode step", "init_s": init_s,
+           "seconds": secs}
+    emit("held_xlstm", **res)
+    check(len(outs["cuda"]) == len(prompts), "held_xlstm: requests missing")
+    check(res["tokens_equal"], "held_xlstm: card and CPU engines disagree")
+    return res
+
+
+def phase_xlstm(dev) -> dict:
+    """The whole xLSTM-350M (24 layers: 21 mLSTM + 3 sLSTM cells, bf16,
+    1.2 GB) through ``LLMEngine.admit``/``step``: 4 requests of 64-256
+    prompt tokens and 32 new tokens each, every launch counted and matched
+    (RMSNorm once a layer plus the final norm per admission and step, no
+    attention kernel: the cells are plain PyTorch, as JAX's ``lax.scan``);
+    then a profiled decode window and LLMSched over one xLSTM slot replica
+    (6 planning jobs at the testbed's token scale)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, layer_kind, prefill
+    from repro_torch.serving import LLMEngine, Request, ServeConfig, build_engines
+
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(25)
+    lens = rng.integers(64, 257, size=4)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+    toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+    lg, cache = prefill(params, cfg, toks, max_len=512)
+    lg2, _ = decode_step(params, cfg, cache, lg.argmax(-1))
+    check(lg.shape == lg2.shape == (1, cfg.vocab) and bool(torch.isfinite(lg).all())
+          and bool(torch.isfinite(lg2).all()), "xlstm: logits not finite")
+    state_mb = sum(t[:, 0].numel() * t.element_size() for blk in cache["blocks"].values()
+                   for t in blk.values()) / 1e6
+    del cache
+    eng = LLMEngine(cfg, max_batch=4, max_len=512, params=params, device=dev)
+    run = _serve_slot(eng, [Request(rid=i, prompt=p, max_new_tokens=32)
+                            for i, p in enumerate(prompts)], "xlstm")
+    n = cfg.n_layers
+    run.update(model=f"{cfg.name}, published widths, all {n} layers, bf16",
+               layer_kinds={k: sum(1 for i in range(n) if layer_kind(cfg, i) == k)
+                            for k in dict.fromkeys(layer_kind(cfg, i) for i in range(n))},
+               weights_gb=_weights_gb(params), state_mb_per_slot=state_mb, init_s=init_s)
+    emit("xlstm", **run)
+    del eng
+    prof = _profile_decode(
+        LLMEngine(cfg, max_batch=4, max_len=512, params=params, device=dev),
+        [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=128).tolist(),
+                 max_new_tokens=64) for i in range(4)])
+    emit("profile", model=cfg.name, **prof)
+    slot_cfg = ServeConfig(engine="slot", replicas=1, max_len=1024, **TESTBED_COMMON)
+    engines = build_engines(cfg, slot_cfg, params=params, device=dev)
+    tb = _testbed_run("llmsched", _profile_store(), engines, slot_cfg, jobs=XLSTM_JOBS)
+    tb["token_scale"] = slot_cfg.token_scale
+    emit("testbed", **tb)
+    return {"launches": run["launches"], "run": run, "profile": prof, "testbed": tb}
+
+
+# ---------------------------------------------------------------------------
+# phases: held_encdec and encdec (Whisper-tiny and Llama-3.2-Vision-90B
+# through prefill / decode_step with enc_input)
+# ---------------------------------------------------------------------------
+WHISPER_ARCH = "whisper_tiny"
+VISION_ARCH = "llama3_2_vision_90b"
+
+
+def _enc_input(cfg, B: int, dev, dtype, seed: int) -> torch.Tensor:
+    """Seeded normal frames / patch embeddings ``(B, n_ctx, d)`` on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, cfg.encoder.n_ctx, cfg.d_model, generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype)
+
+
+def _greedy(params, cfg, toks, enc, n_new: int, max_len: int):
+    """Prefill ``toks`` with ``enc``, then ``n_new - 1`` greedy decode steps:
+    the tokens ``(B, n_new)`` and every step's logits (float32, host)."""
+    from repro_torch.models import decode_step, prefill
+
+    lg, cache = prefill(params, cfg, toks, max_len=max_len, enc_input=enc)
+    seq, lgs = [lg.argmax(-1)], [lg.float().cpu()]
+    for _ in range(n_new - 1):
+        lg, cache = decode_step(params, cfg, cache, seq[-1])
+        seq.append(lg.argmax(-1))
+        lgs.append(lg.float().cpu())
+    return torch.stack(seq, 1).cpu(), torch.stack(lgs, 1)
+
+
+def phase_held_encdec(dev) -> dict:
+    """Whisper-tiny whole (4 encoder and 4 decoder layers over 1500 frames)
+    and Llama-3.2-Vision-90B at its published widths cut to its first 5
+    layers (4 attn+mlp and the cross+mlp layer over 1601 patches; ~26 GB,
+    which the host holds too), each in float32 with seeded random
+    ``enc_input``: prefill and 8 greedy tokens for 2 prompts through
+    ``prefill`` / ``decode_step`` on the card and on the CPU must give the
+    same tokens."""
+    from repro_torch.bridge import params_to
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    for arch, layers, n_tok in ((WHISPER_ARCH, None, 37), (VISION_ARCH, 5, 29)):
+        _free_card()
+        full = get_config(arch)
+        cfg = full.with_(dtype="float32", **({"n_layers": layers} if layers else {}))
+        t0 = time.perf_counter()
+        gpu_params = init_params(cfg, seed=1, device=dev)
+        cpu_params = params_to(gpu_params, "cpu")
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(26)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, n_tok)).astype(np.int32))
+        enc = _enc_input(cfg, 2, dev, torch.float32, seed=27)
+        seqs, logits, secs = {}, {}, {}
+        for name, params, d in (("cuda", gpu_params, dev), ("cpu", cpu_params, "cpu")):
+            t1 = time.perf_counter()
+            seqs[name], logits[name] = _greedy(params, cfg, toks.to(d), enc.to(d), 8, 64)
+            secs[name] = time.perf_counter() - t1
+        equal = torch.equal(seqs["cuda"], seqs["cpu"])
+        res = {"model": f"{full.name}, published widths, "
+                        f"{cfg.n_layers} of {full.n_layers} layers"
+                        + (f", encoder {cfg.encoder.n_layers} layers" if arch == WHISPER_ARCH
+                           else "") + ", float32, TF32 off, prefill / decode_step",
+               "enc_input": list(enc.shape), "tokens_equal": equal,
+               "n_tokens": seqs["cuda"].numel(),
+               "max_logit_gap": float((logits["cuda"] - logits["cpu"]).abs().max()),
+               "logits": f"{n_tok}-token prefill and 7 decode steps, batch 2",
+               "weights_gb": _weights_gb(gpu_params), "init_s": init_s, "seconds": secs}
+        emit("held_encdec", **res)
+        check(equal, f"held_encdec {arch}: card and CPU tokens disagree")
+        out[arch] = res
+        del gpu_params, cpu_params
+    _free_card()
+    return out
+
+
+def _batch_caches(caches):
+    """One request's prefill caches concatenated along the batch axis (axis 1
+    under ``blocks`` and ``__cross``, axis 0 for ``lengths``), as a slot
+    engine would hold them: rows of different prompt lengths."""
+    def cat(items, axis):
+        if isinstance(items[0], dict):
+            return {k: cat([c[k] for c in items], axis) for k in items[0]}
+        if isinstance(items[0], tuple):
+            return tuple(cat([c[i] for c in items], axis) for i in range(len(items[0])))
+        return torch.cat(items, dim=axis)
+
+    return {key: cat([c[key] for c in caches], 0 if key == "lengths" else 1)
+            for key in caches[0]}
+
+
+def _check_encdec_launches(counts, tcs, splits, cfg, prefills: int, steps: int,
+                           what: str) -> None:
+    """Exact launches of a VLM or Whisper run: a prefill runs flash once a
+    self-attention layer and once a cross layer (and once a Whisper encoder
+    layer), a decode step flash once a cross layer (Sq = 1) and slot decode
+    once a self-attention layer; RMSNorm once a norm; every bf16 flash call
+    on the tensor-core body, every decode call on the split body."""
+    from repro_torch.models import layer_kind
+
+    n = cfg.n_layers
+    if cfg.family == "audio":
+        n_self = n_cross = n
+        e = cfg.encoder.n_layers
+        enc_flash, enc_norms = e, 2 * e + 1
+    else:
+        n_cross = sum(1 for i in range(n) if layer_kind(cfg, i).startswith("cross"))
+        n_self, enc_flash, enc_norms = n - n_cross, 0, 0
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = prefills * (enc_flash + n_self + n_cross) + steps * n_cross
+    want["decode_attention"] = steps * n_self
+    want["rmsnorm"] = prefills * (enc_norms + _norms_per_pass(cfg)) + steps * _norms_per_pass(cfg)
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    _check_tc(counts, tcs, cfg, what)
+    _check_split(counts, splits, what)
+
+
+def _serve_encdec(params, cfg, prompts, enc, new_tokens: int, max_len: int, what: str):
+    """Each prompt prefilled alone with its row of ``enc`` (``prefill``), the
+    caches batched, then greedy ``decode_step``s for the batch; every call
+    ends in ``torch.cuda.synchronize()``.  Launches counted from 0 and
+    matched exactly.  Returns (the run's numbers, the batched cache, the
+    next tokens)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, prefill
+
+    dev = enc.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    pre_s, caches, first = 0.0, [], []
+    for i, p in enumerate(prompts):
+        toks = torch.tensor([p], dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        lg, c = prefill(params, cfg, toks, max_len=max_len, enc_input=enc[i:i + 1])
+        torch.cuda.synchronize()
+        pre_s += time.perf_counter() - t0
+        check(lg.shape == (1, cfg.vocab) and bool(torch.isfinite(lg).all()),
+              f"{what}: prefill logits not finite")
+        caches.append(c)
+        first.append(lg.argmax(-1))
+    cache = _batch_caches(caches)
+    del caches
+    nxt, step_ms = torch.cat(first), []
+    for _ in range(new_tokens - 1):
+        t0 = time.perf_counter()
+        lg, cache = decode_step(params, cfg, cache, nxt)
+        nxt = lg.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(lg).all()), f"{what}: decode logits not finite")
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    splits = ops.split_launch_counts()
+    _check_encdec_launches(counts, tcs, splits, cfg, len(prompts), len(step_ms), what)
+    B = len(prompts)
+    return {"requests": B, "prompt_tokens": sum(map(len, prompts)),
+            "new_tokens": B * new_tokens, "prefills": B, "decode_steps": len(step_ms),
+            "launches": counts, "tc_launches": tcs, "split_launches": splits,
+            "prefill_tok_s": sum(map(len, prompts)) / pre_s,
+            "decode_tok_s": B * len(step_ms) / (sum(step_ms) / 1e3),
+            "p50_step_ms": statistics.median(step_ms),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "lengths": cache["lengths"].tolist()}, cache, nxt
+
+
+def _host_clock_ms(fn, reps: int = 5) -> float:
+    """Median host time of ``fn()`` ended by ``torch.cuda.synchronize()``."""
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(spans)
+
+
+def phase_encdec(dev) -> dict:
+    """Whisper-tiny whole and Llama-3.2-Vision-90B at published widths cut to
+    its first 10 layers (2 superblocks, cross layers at 4 and 9; 21.3 GB) in
+    bf16 through ``prefill`` and ``decode_step`` with seeded ``enc_input``:
+    Whisper 4 prompts of 16-64 tokens and 32 new tokens, Vision 4 prompts of
+    128-512 tokens and 16 new tokens; launches exact, every flash call on
+    the tensor-core body and every decode call on the split body; the
+    encoder's and the cross K/V's times (host clock, synchronized); a
+    profiled window of 8 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, encode, init_params, layer_kind
+    from repro_torch.models.transformer import _cross_kvs
+
+    out = {}
+    plan = ((WHISPER_ARCH, None, (16, 65), 32, 256), (VISION_ARCH, 10, (128, 513), 16, 1024))
+    for arch, layers, span, new_tokens, max_len in plan:
+        _free_card()
+        full = get_config(arch)
+        cfg = full.with_(**({"n_layers": layers} if layers else {}))
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(28)
+        prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+                   for n in rng.integers(*span, size=4)]
+        enc = _enc_input(cfg, 4, dev, cfg.tdtype, seed=29)
+        run, cache, nxt = _serve_encdec(params, cfg, prompts, enc, new_tokens, max_len, arch)
+        enc_out = enc[:1]
+        if cfg.family == "audio":
+            run["encoder_ms"] = _host_clock_ms(lambda: encode(params, cfg, enc[:1]))
+            enc_out = encode(params, cfg, enc[:1])
+        run["cross_kv_ms"] = _host_clock_ms(lambda: _cross_kvs(params, cfg, enc_out))
+        state = {"cache": cache, "nxt": nxt}
+
+        def step():
+            lg, state["cache"] = decode_step(params, cfg, state["cache"], state["nxt"])
+            state["nxt"] = lg.argmax(-1)
+
+        prof = _profile_window(step, 8, f"8 decode steps, batch 4, {cfg.name} "
+                                        "prefill / decode_step")
+        run.update(model=f"{full.name}, published widths, {cfg.n_layers} of {full.n_layers} "
+                         "layers" + (f", encoder {cfg.encoder.n_layers} layers"
+                                     if cfg.family == "audio" else "") + ", bf16",
+                   enc_input=list(enc.shape),
+                   layer_kinds=[layer_kind(cfg, i) for i in range(cfg.n_layers)],
+                   weights_gb=_weights_gb(params), init_s=init_s)
+        emit("encdec", **run)
+        emit("profile", model=cfg.name, **prof)
+        out[arch] = {"run": run, "profile": prof}
+        del params, cache, state, enc, enc_out
+    _free_card()
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2640,6 +3144,16 @@ def main(argv=None) -> int:
         phase_mla(dev)
     if "dense" in phases:
         phase_dense(dev)
+    if "held_xlstm" in phases:
+        _free_card()
+        phase_held_xlstm(dev)
+    if "xlstm" in phases:
+        _free_card()
+        phase_xlstm(dev)
+    if "held_encdec" in phases:
+        phase_held_encdec(dev)
+    if "encdec" in phases:
+        phase_encdec(dev)
     if kern is not None and eng is not None and tb is not None and hyb is not None:
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot

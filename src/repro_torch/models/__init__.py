@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense family's slot and paged serving paths, and
-the hybrid (Jamba) family's slot path."""
+"""Model zoo of the port: every family's slot path (dense, MoE with MLA,
+hybrid Jamba, xLSTM, the VLM and Whisper with their encoder input), and the
+dense family's paged path."""
 
 from .config import (
     SHAPES,
@@ -14,6 +15,7 @@ from .config import (
 )
 from .transformer import (
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -25,6 +27,6 @@ from .transformer import (
 __all__ = [
     "SHAPES", "EncoderConfig", "MLAConfig", "MambaConfig", "MoEConfig",
     "ModelConfig", "ShapeConfig", "XLSTMConfig", "shape_applicable",
-    "decode_step", "forward", "init_cache", "init_params", "layer_kind",
+    "decode_step", "encode", "forward", "init_cache", "init_params", "layer_kind",
     "prefill", "superblock_len",
 ]

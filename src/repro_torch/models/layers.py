@@ -1,11 +1,13 @@
-"""Transformer layers of the dense family: plain functions on tensors.
+"""Transformer layers: plain functions on tensors.
 
-The subset of ``repro/models/layers.py`` the dense family's serving
-paths run: ``embed``, ``rmsnorm``, ``rope``, ``_proj_qkv``,
-``attention_full`` and ``attention_decode`` (the slot engine's prefill
-and decode), ``attention_decode_q8`` with ``_dq8_kv`` (decode over the
-int8 slot cache; JAX's ``_q8_kv`` is the paged pools' spec, so the port
-quantizes with :func:`repro_torch.kernels.ops.quantize_kv`), DeepSeek's
+The subset of ``repro/models/layers.py`` the serving paths run:
+``embed``, ``rmsnorm``, ``rope``, ``_proj_qkv``, ``attention_full`` and
+``attention_decode`` (the slot engine's prefill and decode),
+``attention_decode_q8`` with ``_dq8_kv`` (decode over the int8 slot
+cache; JAX's ``_q8_kv`` is the paged pools' spec, so the port quantizes
+with :func:`repro_torch.kernels.ops.quantize_kv`), cross-attention over
+precomputed encoder K/V (``init_attention(cross=True)``, ``cross_kv``,
+``cross_attention``: the VLM's and Whisper's decoders), DeepSeek's
 multi-head latent attention (``init_mla``, ``_mla_qkv``, ``_mla_expand``,
 ``mla_full`` with its compressed ``{"c_kv", "k_rope"}`` cache, and
 ``mla_decode``), ``mlp`` and ``unembed``, with the ``init_*`` functions of
@@ -129,7 +131,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 # GQA attention projections
 # ---------------------------------------------------------------------------
-def init_attention(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
+def init_attention(init: Init, cfg: ModelConfig, lead: Shape = (),
+                   cross: bool = False) -> Params:
+    """GQA projections; a ``cross`` layer (keys and values from the
+    encoder) has no QKV bias, whatever ``qkv_bias``."""
     d, hd = cfg.d_model, cfg.hd
     h, k = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -138,7 +143,7 @@ def init_attention(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
         "wv": init.dense(lead + (d, k * hd), fan_in=d),
         "wo": init.dense(lead + (h * hd, d), fan_in=h * hd),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = init.zeros(lead + (h * hd,))
         p["bk"] = init.zeros(lead + (k * hd,))
         p["bv"] = init.zeros(lead + (k * hd,))
@@ -255,6 +260,31 @@ def attention_decode_q8(
     out = ops.decode_attention(q[:, 0], k_deq, v_deq, (lengths + 1).to(torch.int32))
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, cache
+
+
+def cross_attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                                 # (B, S, d)
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],       # (k, v): (B, S_enc, K, hd)
+) -> torch.Tensor:
+    """Decoder queries over precomputed encoder K/V: bidirectional, no
+    RoPE, through the flash kernel with Sq != Sk (Sq = 1 in decode)."""
+    B, S, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, h, hd)
+    k, v = enc_kv
+    out = ops.attention(q, k, v, causal=False)
+    return out.reshape(B, S, h * hd) @ p["wo"]
+
+
+def cross_kv(p: Params, cfg: ModelConfig,
+             enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross layer's K/V ``(B, S_enc, K, hd)`` of the encoder output."""
+    B, Se, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

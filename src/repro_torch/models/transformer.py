@@ -1,35 +1,48 @@
-"""Decoder layout, weights and slot-cache forward passes (dense and hybrid).
+"""Decoder layout, weights and slot-cache forward passes of all 10 configs.
 
 From ``repro/models/transformer.py``: the layer-kind and superblock
 layout (``layer_kind``, ``superblock_len``, ``_scan_layout``),
 ``init_params``, the layer in its full-sequence and decode forms
-(``_apply_layer_full``, ``_apply_layer_decode``, ``_apply_ffn``),
-``forward``, and the slot engine's cache functions ``init_cache``,
-``prefill`` and ``decode_step``.  A layer's mixer is GQA attention,
-DeepSeek's multi-head latent attention (MLA) or Mamba (:mod:`.ssm`), its
-FFN a gated MLP (a leading ``dense_mlp`` layer of an MoE model included)
-or a mixture of experts with optional shared experts (:mod:`.moe`): the
-dense, MoE and hybrid (Jamba) families.
+(``_apply_layer_full``, ``_apply_layer_decode``, ``_apply_ffn``, and
+Whisper's ``_audio_dec_layer_full`` / ``_audio_dec_layer_decode``), the
+encoder (``encode``, ``_cross_kvs``), ``forward``, and the cache functions
+``init_cache``, ``prefill`` and ``decode_step``.  A layer's mixer is GQA
+attention, cross-attention over encoder K/V, DeepSeek's multi-head latent
+attention (MLA), Mamba or an xLSTM cell (mLSTM, sLSTM; :mod:`.ssm`), its
+FFN a gated MLP (a leading ``dense_mlp`` layer of an MoE model included),
+a mixture of experts with optional shared experts (:mod:`.moe`) or none
+(xLSTM).  A Whisper decoder layer is self-attention, cross-attention
+under ``norm_x`` and the MLP.
 
 Parameters and caches form the same trees as the JAX package's:
 ``embedding``, ``lm_head``, ``final_norm``, unstacked prefix layers
-``prefix_{i}`` (every layer, when the pattern does not tile the depth)
-and ``blocks[str(j)]`` with every leaf stacked over superblocks on axis
-0.  An attention layer's slot cache is ``{"k", "v"}`` ``(B, max_len, K,
-hd)`` (int8 K/V beside float32 scales ``k_s``/``v_s`` with
-``kv_cache_dtype="int8"``), an MLA layer's the compressed latent
+``prefix_{i}`` (every layer, when the pattern does not tile the depth),
+``blocks[str(j)]`` with every leaf stacked over superblocks on axis 0,
+and Whisper's encoder ``encoder`` (stacked over its layers) and
+``enc_norm["g"]``.  An attention layer's slot cache is ``{"k", "v"}``
+``(B, max_len, K, hd)`` (int8 K/V beside float32 scales ``k_s``/``v_s``
+with ``kv_cache_dtype="int8"``), an MLA layer's the compressed latent
 ``{"c_kv": (B, max_len, kv_lora_rank), "k_rope": (B, max_len,
 rope_head_dim)}`` in the compute dtype (whatever ``kv_cache_dtype``), a
-Mamba layer's ``{"conv", "ssm"}``; in ``blocks`` each gains a leading
-superblock axis.
+Mamba layer's ``{"conv", "ssm"}``, an xLSTM layer's float32 recurrent
+state (mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``) and a
+cross layer's ``{}``; in ``blocks`` each gains a leading superblock axis.
+The VLM's and Whisper's caches add ``"__cross"``: for each cross position
+``j`` the encoder K/V ``(n_sb, B, S_enc, K, hd)``, computed once.
 
 In PyTorch's idiom, the ``lax.scan`` over superblocks is a Python loop
 over per-layer views, and ``decode_step`` writes the new K/V, latents
-and Mamba states into the cache **in place** (it still returns the
+and recurrent states into the cache **in place** (it still returns the
 cache, with ``lengths`` a new tensor).  MLA decodes in the latent space
-(``_mla_decode_absorbed``, plain PyTorch as in the JAX package).  The
-other mixers (cross attention, mLSTM, sLSTM) and the encoder are not
-ported yet and raise ``NotImplementedError``.
+(``_mla_decode_absorbed``, plain PyTorch as in the JAX package).
+
+Two deliberate departures from the JAX functions: ``prefill`` builds the
+cross K/V from the encoder output its own ``forward`` computed (JAX's
+``init_cache(params=, enc_input=)`` runs the encoder a second time, to
+the same values), and an ``audio`` config with an int8 KV cache raises
+``NotImplementedError`` (JAX decodes its int8 cache through the float
+decode, with undefined results).  ``enc_input`` is cast to the model
+dtype for both families (JAX casts the VLM's patches only).
 """
 
 from __future__ import annotations
@@ -47,8 +60,9 @@ from . import ssm as S
 from .config import ModelConfig
 
 Params = Dict[str, Any]
-
-NOT_PORTED = "is not ported yet (ROADMAP queue 1, remaining architectures)"
+KV = Tuple[torch.Tensor, torch.Tensor]
+#: the families whose decoder attends to an encoder's output
+ENC_FAMILIES = ("vlm", "audio")
 
 
 # ---------------------------------------------------------------------------
@@ -105,34 +119,19 @@ def _scan_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-MIXERS = ("attn", "mla", "mamba")
-FFNS = ("mlp", "dense_mlp", "moe", "none")
-
-
-def _check_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
-    """The scan layout of a config whose every layer the port runs.
-
-    Every entry point calls this first, so the layer functions below may
-    assume attention, MLA or Mamba mixers and MLP or MoE FFNs.
-    """
-    if cfg.encoder is not None or cfg.family == "audio":
-        raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED}")
-    for i in range(cfg.n_layers):
-        mixer, ffn = layer_kind(cfg, i).split("+")
-        if mixer not in MIXERS or ffn not in FFNS:
-            raise NotImplementedError(f"layer kind {layer_kind(cfg, i)!r} {NOT_PORTED}")
-    return _scan_layout(cfg)
-
-
 def _init_layer(init: L.Init, cfg: ModelConfig, kind: str, lead: Tuple[int, ...]) -> Params:
     mixer, ffn = kind.split("+")
     p: Params = {"norm1": L.init_rmsnorm(init, cfg.d_model, lead)}
-    if mixer == "attn":
-        p["attn"] = L.init_attention(init, cfg, lead)
+    if mixer in ("attn", "cross"):
+        p["attn"] = L.init_attention(init, cfg, lead, cross=mixer == "cross")
     elif mixer == "mla":
         p["attn"] = L.init_mla(init, cfg, lead)
-    else:
+    elif mixer == "mamba":
         p["mamba"] = S.init_mamba(init, cfg, lead)
+    elif mixer == "mlstm":
+        p["cell"] = S.init_mlstm(init, cfg, lead)
+    else:
+        p["cell"] = S.init_slstm(init, cfg, lead)
     if ffn != "none":
         p["norm2"] = L.init_rmsnorm(init, cfg.d_model, lead)
     if ffn == "mlp":
@@ -144,14 +143,25 @@ def _init_layer(init: L.Init, cfg: ModelConfig, kind: str, lead: Tuple[int, ...]
     return p
 
 
+def _init_decoder_layer_for_audio(init: L.Init, cfg: ModelConfig,
+                                  lead: Tuple[int, ...]) -> Params:
+    """Whisper decoder layer: self-attn + cross-attn + mlp."""
+    d = cfg.d_model
+    return {"norm1": L.init_rmsnorm(init, d, lead),
+            "attn": L.init_attention(init, cfg, lead),
+            "norm_x": L.init_rmsnorm(init, d, lead),
+            "xattn": L.init_attention(init, cfg, lead, cross=True),
+            "norm2": L.init_rmsnorm(init, d, lead),
+            "mlp": L.init_mlp(init, d, cfg.d_ff, lead)}
+
+
 def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Params:
-    """Random weights of a dense or hybrid decoder, drawn on ``device``.
+    """Random weights of any of the 10 configs, drawn on ``device``.
 
     Parameters
     ----------
     cfg : ModelConfig
-        A config whose layers are attention, MLA or Mamba mixers with MLP
-        or MoE FFNs.
+        The model.
     seed : int
         Seed of the ``torch.Generator`` the weights are drawn from.
     device : str or torch.device, optional
@@ -164,7 +174,7 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
         The parameter tree (the JAX package also returns sharding specs;
         the port has none yet).
     """
-    n_prefix, pat, n_sb = _check_layers(cfg)
+    n_prefix, pat, n_sb = _scan_layout(cfg)
     init = L.Init(seed, cfg.tdtype, resolve_device(device))
     params: Params = L.init_embed(init, cfg)
     params["final_norm"] = L.init_rmsnorm(init, cfg.d_model)
@@ -172,9 +182,15 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
         params[f"prefix_{i}"] = _init_layer(init, cfg, layer_kind(cfg, i), ())
     if n_sb > 0:
         params["blocks"] = {
-            str(j): _init_layer(init, cfg, layer_kind(cfg, n_prefix + j), (n_sb,))
+            str(j): (_init_decoder_layer_for_audio(init, cfg, (n_sb,))
+                     if cfg.family == "audio"
+                     else _init_layer(init, cfg, layer_kind(cfg, n_prefix + j), (n_sb,)))
             for j in range(pat)
         }
+    if cfg.family == "audio":
+        # the conv frontend is a stub: the encoder's inputs are frames
+        params["encoder"] = _init_layer(init, cfg, "attn+mlp", (cfg.encoder.n_layers,))
+        params["enc_norm"] = {"g": L.init_rmsnorm(init, cfg.d_model)}
     return params
 
 
@@ -202,21 +218,28 @@ def _layer_views(tree: Dict[str, Any], s: int) -> Dict[str, Any]:
     }
 
 
-def _layers(params: Params, cfg: ModelConfig, cache: Optional[Dict[str, Any]] = None):
-    """Every layer in order: ``(name, kind, weights, cache)``.
+def _layers(params: Params, cfg: ModelConfig, cache: Optional[Dict[str, Any]] = None,
+            cross: Optional[Dict[str, KV]] = None):
+    """Every layer in order: ``(name, kind, weights, cache, enc_kv)``.
 
-    ``name`` is ``prefix_{i}`` or ``blocks/{j}`` and the weights and
-    cache are the layer's own (views into the stacked trees).
+    ``name`` is ``prefix_{i}`` or ``blocks/{j}``; the weights and cache
+    are the layer's own (views into the stacked trees), ``enc_kv`` its
+    superblock's view of ``cross[j]`` (or ``None``).  A Whisper decoder
+    layer's kind is ``audio_dec``.
     """
     n_prefix, pat, n_sb = _scan_layout(cfg)
     for i in range(n_prefix):
         key = f"prefix_{i}"
-        yield key, layer_kind(cfg, i), params[key], None if cache is None else cache[key]
-    kinds = [layer_kind(cfg, n_prefix + j) for j in range(pat)]
+        yield key, layer_kind(cfg, i), params[key], None if cache is None else cache[key], None
+    kinds = (["audio_dec"] * pat if cfg.family == "audio"
+             else [layer_kind(cfg, n_prefix + j) for j in range(pat)])
+    cross = cross or {}
     for s in range(n_sb):
         for j in range(pat):
             c = None if cache is None else _layer_views(cache["blocks"][str(j)], s)
-            yield (f"blocks/{j}", kinds[j], _layer_views(params["blocks"][str(j)], s), c)
+            kv = cross.get(str(j))
+            yield (f"blocks/{j}", kinds[j], _layer_views(params["blocks"][str(j)], s), c,
+                   None if kv is None else (kv[0][s], kv[1][s]))
 
 
 def _apply_layer_full(
@@ -225,19 +248,30 @@ def _apply_layer_full(
     kind: str,
     x: torch.Tensor,
     positions: torch.Tensor,
+    enc_kv: Optional[KV] = None,
     causal: bool = True,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence layer; returns (x, cache contribution): ``{"k", "v"}``
-    of an attention layer, ``{"c_kv", "k_rope"}`` of an MLA one, the final
-    ``{"conv", "ssm"}`` of a Mamba one."""
+    of an attention layer (a Whisper decoder layer's self-attention),
+    ``{"c_kv", "k_rope"}`` of an MLA one, the final recurrent state of a
+    Mamba or xLSTM one, ``None`` of a cross layer."""
+    if kind == "audio_dec":
+        return _audio_dec_layer_full(p, cfg, x, positions, enc_kv)
     mixer, _ = kind.split("+")
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    cache = None
     if mixer == "attn":
         out, cache = L.attention_full(p["attn"], cfg, h, positions, causal=causal)
+    elif mixer == "cross":
+        out = L.cross_attention(p["attn"], cfg, h, enc_kv)
     elif mixer == "mla":
         out, cache = L.mla_full(p["attn"], cfg, h, positions)
-    else:
+    elif mixer == "mamba":
         out, cache = S.mamba_full(p["mamba"], cfg, h)
+    elif mixer == "mlstm":
+        out, cache = S.mlstm_full(p["cell"], cfg, h)
+    else:
+        out, cache = S.slstm_full(p["cell"], cfg, h)
     x = _apply_ffn(p, cfg, kind, x + out)
     return x, cache
 
@@ -249,24 +283,54 @@ def _apply_layer_decode(
     x: torch.Tensor,
     cache: Dict[str, torch.Tensor],
     lengths: torch.Tensor,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    enc_kv: Optional[KV] = None,
+) -> torch.Tensor:
     """One-token layer over its slot cache, which is written in place."""
+    if kind == "audio_dec":
+        return _audio_dec_layer_decode(p, cfg, x, cache, lengths, enc_kv)
     mixer, _ = kind.split("+")
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if mixer == "mamba":
-        out, st = S.mamba_decode(p["mamba"], cfg, h, cache)
-        cache["conv"].copy_(st["conv"])
-        cache["ssm"].copy_(st["ssm"])
+    if mixer in ("mamba", "mlstm", "slstm"):
+        if mixer == "mamba":
+            out, st = S.mamba_decode(p["mamba"], cfg, h, cache)
+        else:
+            cell = S.mlstm_full if mixer == "mlstm" else S.slstm_full
+            out, st = cell(p["cell"], cfg, h, state=cache)
+        for name, t in st.items():
+            cache[name].copy_(t)
+    elif mixer == "cross":
+        out = L.cross_attention(p["attn"], cfg, h, enc_kv)
     elif mixer == "mla":
         out = _mla_decode_absorbed(p["attn"], cfg, h, cache, lengths)
     elif cfg.kv_cache_dtype == "int8":
-        out, cache = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
+        out, _ = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
     else:
-        out, ck, cv = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"],
-                                         lengths)
-        cache = {"k": ck, "v": cv}
-    x = _apply_ffn(p, cfg, kind, x + out)
-    return x, cache
+        out, _, _ = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"], lengths)
+    return _apply_ffn(p, cfg, kind, x + out)
+
+
+def _audio_dec_layer_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                          positions: torch.Tensor,
+                          enc_kv: KV) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    out, kv = L.attention_full(p["attn"], cfg, h, positions, causal=True)
+    x = x + out
+    hx = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    x = x + L.cross_attention(p["xattn"], cfg, hx, enc_kv)
+    h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h2), kv
+
+
+def _audio_dec_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                            cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
+                            enc_kv: KV) -> torch.Tensor:
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    out, _, _ = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"], lengths)
+    x = x + out
+    hx = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    x = x + L.cross_attention(p["xattn"], cfg, hx, enc_kv)
+    h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h2)
 
 
 def _mla_decode_absorbed(
@@ -311,30 +375,83 @@ def _mla_decode_absorbed(
 
 
 # ---------------------------------------------------------------------------
+# encoder (Whisper) / cross K/V precompute (VLM and Whisper)
+# ---------------------------------------------------------------------------
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over precomputed (stub) frame embeddings ``(B, S_enc,
+    d)``: bidirectional ``attn+mlp`` layers with RoPE positions, then
+    ``enc_norm``."""
+    B, Se, _ = frames.shape
+    pos = torch.arange(Se, device=frames.device)[None].expand(B, Se)
+    x = frames.to(cfg.tdtype)
+    for s in range(cfg.encoder.n_layers):
+        x, _ = _apply_layer_full(_layer_views(params["encoder"], s), cfg, "attn+mlp", x,
+                                 pos, causal=False)
+    return L.rmsnorm(params["enc_norm"]["g"], x, cfg.norm_eps)
+
+
+def _cross_kvs(params: Params, cfg: ModelConfig, enc_out: torch.Tensor) -> Dict[str, KV]:
+    """Every cross layer's K/V, by pattern position ``j``: ``(k, v)``
+    each ``(n_sb, B, S_enc, K, hd)``, stacked over superblocks."""
+    n_prefix, pat, n_sb = _scan_layout(cfg)
+    out: Dict[str, KV] = {}
+    for j in range(pat):
+        if cfg.family == "audio":
+            name = "xattn"
+        elif layer_kind(cfg, n_prefix + j).startswith("cross"):
+            name = "attn"
+        else:
+            continue
+        kvs = [L.cross_kv(_layer_views(params["blocks"][str(j)][name], s), cfg, enc_out)
+               for s in range(n_sb)]
+        out[str(j)] = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+    return out
+
+
+def _enc_out(params: Params, cfg: ModelConfig,
+             enc_input: Optional[torch.Tensor]) -> torch.Tensor:
+    """What the cross layers attend to: Whisper's encoder output, or the
+    VLM's patch embeddings in the model dtype."""
+    if enc_input is None:
+        raise ValueError(f"config {cfg.name!r} (family {cfg.family!r}) needs enc_input: "
+                         "its cross layers attend to an encoder's output")
+    if cfg.family == "audio":
+        return encode(params, cfg, enc_input)
+    return enc_input.to(cfg.tdtype)
+
+
+# ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,                    # (B, S) int
+    enc_input: Optional[torch.Tensor] = None,  # VLM patches / Whisper frames
     collect_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits (B, S, V), cache or None).
 
     With ``collect_cache`` the cache holds each layer's contribution:
     ``prefix_{i}`` as it is, and ``blocks[j]`` stacked over superblocks
-    as the JAX scan stacks them (K/V ``(n_sb, B, S, K, hd)``, Mamba
-    states ``(n_sb, B, ...)``).
+    as the JAX scan stacks them (K/V ``(n_sb, B, S, K, hd)``, recurrent
+    states ``(n_sb, B, ...)``; nothing for a cross layer), and Whisper's
+    encoder output under ``"__enc_out"``.  The VLM and Whisper need
+    ``enc_input`` (``(B, S_enc, d)``) and raise ``ValueError`` without
+    it, where the JAX function cannot run.
     """
-    _check_layers(cfg)
     B, Sq = tokens.shape
     x = L.embed(params, tokens).to(cfg.tdtype)
     positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+    enc_out, cross = None, {}
+    if cfg.family in ENC_FAMILIES:
+        enc_out = _enc_out(params, cfg, enc_input)
+        cross = _cross_kvs(params, cfg, enc_out)
     caches: Dict[str, Any] = {}
     stacked: Dict[str, list] = {}
-    for name, kind, p, _ in _layers(params, cfg):
-        x, c = _apply_layer_full(p, cfg, kind, x, positions)
-        if not collect_cache:
+    for name, kind, p, _, kv in _layers(params, cfg, cross=cross):
+        x, c = _apply_layer_full(p, cfg, kind, x, positions, enc_kv=kv)
+        if not collect_cache or c is None:
             continue
         if name.startswith("prefix_"):
             caches[name] = c
@@ -347,38 +464,36 @@ def forward(
     if stacked:
         caches["blocks"] = {j: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
                             for j, cs in stacked.items()}
+    if cfg.family == "audio":
+        caches["__enc_out"] = enc_out
     return logits, caches
 
 
 # ---------------------------------------------------------------------------
 # slot caches: allocation, prefill, decode
 # ---------------------------------------------------------------------------
-def init_cache(
-    cfg: ModelConfig,
-    batch: int,
-    max_len: int,
-    device: DeviceLike = None,
-) -> Dict[str, Any]:
-    """Empty slot caches: ``{"lengths": (B,) int32, "prefix_{i}": ...,
-    "blocks": {j: ...}}``, on ``device`` (``None`` means the CUDA device).
+def _check_cache_dtype(cfg: ModelConfig) -> None:
+    if cfg.family == "audio" and cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            f"config {cfg.name!r}: an int8 KV cache for the audio family (JAX decodes "
+            "it through the float decode, with undefined results)")
 
-    An attention layer's ``k``/``v`` are ``(B, max_len, K, hd)`` zeros in
-    the model's compute dtype, or int8 zeros beside float32 scales
-    ``k_s``/``v_s`` ``(B, max_len, K)`` that start at **zero** (the paged
-    pools' scales start at one) with ``kv_cache_dtype="int8"``.  An MLA
-    layer's ``c_kv`` ``(B, max_len, kv_lora_rank)`` and ``k_rope`` ``(B,
-    max_len, rope_head_dim)`` are zeros in the compute dtype, int8 or not
-    (as in JAX).  A Mamba layer's state is zeros
-    (:func:`repro_torch.models.ssm.mamba_init_state`).  Leaves under
-    ``blocks`` gain a leading superblock axis.
-    """
-    n_prefix, pat, n_sb = _check_layers(cfg)
-    dev = resolve_device(device)
+
+def _slot_caches(cfg: ModelConfig, batch: int, max_len: int,
+                 dev: torch.device) -> Dict[str, Any]:
+    """``lengths`` and every layer's empty cache (see :func:`init_cache`)."""
+    _check_cache_dtype(cfg)
+    n_prefix, pat, n_sb = _scan_layout(cfg)
 
     def layer_cache(kind: str, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
-        if kind.startswith("mamba"):
+        mixer = kind.split("+")[0]
+        if mixer == "cross":
+            return {}
+        if mixer == "mamba":
             return S.mamba_init_state(cfg, batch, cfg.tdtype, dev, lead)
-        if kind.startswith("mla"):
+        if mixer in ("mlstm", "slstm"):
+            return S.xlstm_init_state(cfg, batch, mixer == "slstm", dev, lead)
+        if mixer == "mla":
             m = cfg.mla
             return {"c_kv": torch.zeros(lead + (batch, max_len, m.kv_lora_rank),
                                         dtype=cfg.tdtype, device=dev),
@@ -400,8 +515,56 @@ def init_cache(
     for i in range(n_prefix):
         cache[f"prefix_{i}"] = layer_cache(layer_kind(cfg, i), ())
     if n_sb > 0:
-        cache["blocks"] = {str(j): layer_cache(layer_kind(cfg, n_prefix + j), (n_sb,))
-                           for j in range(pat)}
+        cache["blocks"] = {
+            str(j): layer_cache("attn+mlp" if cfg.family == "audio"
+                                else layer_kind(cfg, n_prefix + j), (n_sb,))
+            for j in range(pat)}
+    return cache
+
+
+def init_cache(
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    device: DeviceLike = None,
+    enc_input: Optional[torch.Tensor] = None,
+    params: Optional[Params] = None,
+) -> Dict[str, Any]:
+    """Empty slot caches: ``{"lengths": (B,) int32, "prefix_{i}": ...,
+    "blocks": {j: ...}}``, on ``device`` (``None`` means the CUDA device).
+
+    An attention layer's ``k``/``v`` are ``(B, max_len, K, hd)`` zeros in
+    the model's compute dtype, or int8 zeros beside float32 scales
+    ``k_s``/``v_s`` ``(B, max_len, K)`` that start at **zero** (the paged
+    pools' scales start at one) with ``kv_cache_dtype="int8"``.  An MLA
+    layer's ``c_kv`` ``(B, max_len, kv_lora_rank)`` and ``k_rope`` ``(B,
+    max_len, rope_head_dim)`` are zeros in the compute dtype, int8 or not
+    (as in JAX).  A Mamba layer's state is zeros
+    (:func:`repro_torch.models.ssm.mamba_init_state`), an xLSTM layer's
+    the cell's fresh state (:func:`repro_torch.models.ssm.xlstm_init_state`),
+    a cross layer's ``{}``.  Leaves under ``blocks`` gain a leading
+    superblock axis.  The VLM and Whisper add ``"__cross"``: the cross
+    layers' K/V of ``enc_input`` when ``params`` and ``enc_input`` are
+    given, else zeros of ``encoder.n_ctx`` tokens (a placeholder that
+    ``prefill`` fills in real runs).
+    """
+    dev = resolve_device(device)
+    cache = _slot_caches(cfg, batch, max_len, dev)
+    if cfg.family not in ENC_FAMILIES:
+        return cache
+    if params is not None and enc_input is not None:
+        cache["__cross"] = _cross_kvs(params, cfg, _enc_out(params, cfg, enc_input))
+        return cache
+    n_prefix, pat, n_sb = _scan_layout(cfg)
+    Se = cfg.encoder.n_ctx if cfg.encoder is not None else 0
+    shape = (n_sb, batch, Se, cfg.n_kv_heads, cfg.hd)
+    cross = {str(j): (torch.zeros(shape, dtype=cfg.tdtype, device=dev),
+                      torch.zeros(shape, dtype=cfg.tdtype, device=dev))
+             for j in range(pat)
+             if Se and (cfg.family == "audio"
+                        or layer_kind(cfg, n_prefix + j).startswith("cross"))}
+    if cross:
+        cache["__cross"] = cross
     return cache
 
 
@@ -410,7 +573,7 @@ def _place(cfg: ModelConfig, dst: Dict[str, torch.Tensor],
     """A prefill contribution in a fresh layer cache: the prompt's K/V in
     its first positions (quantized on an int8 cache, JAX's
     ``place_attn_q8``), an MLA layer's latents in their first positions,
-    or a Mamba layer's final state in place of the initial one."""
+    or a recurrent layer's final state in place of the initial one."""
     if "c_kv" in src:
         Sq = src["c_kv"].shape[-2]
         for name in ("c_kv", "k_rope"):
@@ -433,12 +596,23 @@ def prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,                    # (B, S) int
     max_len: int,
+    enc_input: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt, build the decode cache.  Returns (last_logits, cache)."""
+    """Run the prompt, build the decode cache.  Returns (last_logits, cache).
+
+    The VLM's and Whisper's ``"__cross"`` K/V come from the encoder
+    output this prefill's ``forward`` computed (JAX's ``init_cache``
+    encodes ``enc_input`` again, to the same values).
+    """
     B, Sq = tokens.shape
-    logits, run_cache = forward(params, cfg, tokens, collect_cache=True)
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    logits, run_cache = forward(params, cfg, tokens, enc_input=enc_input,
+                                collect_cache=True)
+    cache = _slot_caches(cfg, B, max_len, tokens.device)
     cache["lengths"].fill_(Sq)
+    if cfg.family in ENC_FAMILIES:
+        enc_out = run_cache.pop("__enc_out", None)
+        cache["__cross"] = _cross_kvs(params, cfg, _enc_out(params, cfg, enc_input)
+                                      if enc_out is None else enc_out)
     for key, c in run_cache.items():
         if key == "blocks":
             for j, blk in c.items():
@@ -456,17 +630,17 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step for the whole batch; returns (logits (B, V), cache).
 
-    The K/V caches, MLA latents and Mamba states are written in place;
-    the returned dict is ``cache`` with ``lengths`` replaced by
-    ``lengths + 1``.
+    The K/V caches, MLA latents and recurrent states are written in place;
+    cross layers read ``cache["__cross"]``; the returned dict is ``cache``
+    with ``lengths`` replaced by ``lengths + 1``.
     """
-    _check_layers(cfg)
+    _check_cache_dtype(cfg)
     if tokens.dim() == 1:
         tokens = tokens[:, None]
     lengths = cache["lengths"]
     x = L.embed(params, tokens).to(cfg.tdtype)
-    for _, kind, p, c in _layers(params, cfg, cache):
-        x, _ = _apply_layer_decode(p, cfg, kind, x, c, lengths)
+    for _, kind, p, c, kv in _layers(params, cfg, cache, cache.get("__cross")):
+        x = _apply_layer_decode(p, cfg, kind, x, c, lengths, enc_kv=kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params, x, cfg.tie_embeddings)
     cache["lengths"] = lengths + 1

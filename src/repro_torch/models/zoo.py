@@ -40,7 +40,7 @@ class TierSpec:
 
 
 #: Per-architecture tier economics, keyed by the registry arch id
-#: (``repro_torch.configs.ARCH_IDS`` lists the ported ones).
+#: (``repro_torch.configs.ARCH_IDS``).
 MODEL_TIERS: Dict[str, TierSpec] = {
     "whisper_tiny":         TierSpec(0.05, 0.30, 0.45),
     "xlstm_350m":           TierSpec(0.06, 0.35, 0.50),

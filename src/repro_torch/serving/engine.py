@@ -16,8 +16,11 @@ The host logic is the JAX engine's, line for line.  The model runs
 eagerly on ``device`` (the CUDA device unless the caller passes
 ``device="cpu"``): prefill through the flash-attention kernel, decode
 through the slot decode-attention kernel, Mamba layers (the hybrid
-family) through the selective-scan kernel in both, and the caches and
-Mamba states are written in place.
+family) through the selective-scan kernel in both, xLSTM cells in plain
+PyTorch, and the caches and recurrent states are written in place.  The
+VLM and Whisper families are refused: the engines pass no encoder input
+(the JAX engine fails on them), so they run through the model functions
+with ``enc_input``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from ..models import decode_step, init_cache, init_params, prefill
 from ..models.config import ModelConfig
+from ..models.transformer import ENC_FAMILIES
 
 
 @dataclass
@@ -65,6 +69,15 @@ class Request:
 
     def done(self) -> bool:
         return self.finished_at >= 0
+
+
+def refuse_encoder_families(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a VLM or Whisper config: the engines take no
+    encoder input, which their cross layers need."""
+    if cfg.family in ENC_FAMILIES:
+        raise ValueError(f"config {cfg.name!r} (family {cfg.family!r}) needs encoder "
+                         "input, which the engines do not take; use the model "
+                         "functions with enc_input")
 
 
 class LatencyProfileMixin:
@@ -108,7 +121,8 @@ class LLMEngine(LatencyProfileMixin):
     Parameters
     ----------
     cfg : ModelConfig
-        A dense- or hybrid-family model config.
+        A model config of a family with no encoder (not ``vlm`` or
+        ``audio``: :func:`refuse_encoder_families`).
     max_batch : int, optional
         Slots: the most requests held at once.
     max_len : int, optional
@@ -146,6 +160,7 @@ class LLMEngine(LatencyProfileMixin):
         greedy: bool = True,
         device: DeviceLike = None,
     ) -> None:
+        refuse_encoder_families(cfg)
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len

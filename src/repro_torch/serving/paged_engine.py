@@ -76,7 +76,7 @@ from ..models.paged import (
     supports_paged,
 )
 from ..models.transformer import _scan_layout
-from .engine import LatencyProfileMixin, Request
+from .engine import LatencyProfileMixin, Request, refuse_encoder_families
 from .paged_cache import PageAllocator, TRASH_PAGE
 from .prefix_cache import RadixPrefixIndex
 
@@ -234,6 +234,7 @@ class PagedLLMEngine(LatencyProfileMixin):
         kv_dtype: Optional[str] = None,
         device: DeviceLike = None,
     ) -> None:
+        refuse_encoder_families(cfg)
         if not supports_paged(cfg):
             raise ValueError(
                 f"config {cfg.name!r} is not paged-KV compatible; "

@@ -1176,10 +1176,12 @@ def _to(params, d):
     return params_to(params, d)
 
 
-def _card_and_cpu_tokens(make_engine, cfg, prompts, dev):
+def _card_and_cpu_tokens(make_engine, cfg, prompts, dev, params=None):
     """Greedy tokens of an engine on the CPU and on the card (same float32
-    weights), with more requests than slots, and the card run's launches."""
-    params = init_params(cfg, seed=3, device="cpu")
+    weights, seed 3 unless given), with more requests than slots, and the
+    card run's launches."""
+    if params is None:
+        params = init_params(cfg, seed=3, device="cpu")
     outs = {}
     for d in ("cpu", dev):
         ops.reset_launch_counts()
@@ -1228,3 +1230,115 @@ def test_new_paged_engines_on_card_match_cpu_tokens(dev, arch):
     n = cfg.n_layers
     assert counts["paged_decode_attention"] == n * eng.decode_steps
     assert counts["paged_prefill_attention"] == n * eng.prefill_chunks
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM, VLM and Whisper families: kernels at their shapes, models
+# ---------------------------------------------------------------------------
+# (B, Sq, Sk, H, K, hd): Whisper's encoder (Sq = Sk = 1500 = 23 * 64 + 28),
+# its cross-attention in prefill and decode, the VLM's cross-attention in
+# prefill and decode over 1601 = 25 * 64 + 1 patches
+CROSS_CASES = [(1, 1500, 1500, 6, 6, 64), (2, 37, 1500, 6, 6, 64), (4, 1, 1500, 6, 6, 64),
+               (1, 256, 1601, 64, 8, 128), (4, 1, 1601, 64, 8, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd", CROSS_CASES)
+def test_flash_bidirectional_at_encoder_shapes_ignores_nan_past_sk(dev, B, Sq, Sk, H, K,
+                                                                   hd, dtype):
+    """Non-causal flash with Sq != Sk (Sq = 1 in decode) over ragged Sk:
+    against the plain version, bf16 on the tensor-core body; k and v are
+    per-superblock views of stacked ``(n_sb, B, S, K, hd)`` buffers whose
+    rows past Sk hold NaN, which must not change the output by a bit."""
+    rng = np.random.default_rng(73)
+    q = _randn(rng, (B, Sq, H, hd), dtype, dev)
+    kb, vb = (_randn(rng, (2, B, Sk + 29, K, hd), dtype, dev) for _ in range(2))
+    k, v = kb[1, :, :Sk], vb[1, :, :Sk]
+    before, tc0 = flash_attention.launches, flash_attention.tc_launches
+    got = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.tc_launches == tc0 + (dtype == BF16)
+    _close(got, R.attention_ref(q, k, v, causal=False), dtype)
+    kb[:, :, Sk:], vb[:, :, Sk:] = float("nan"), float("nan")
+    assert torch.equal(flash_attention(q, kb[1, :, :Sk], vb[1, :, :Sk], causal=False), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slot_decode_kernel_at_whisper_widths(dev, dtype):
+    """H = K = 6, hd = 64 (g = 1): B = 4, S_max = 448, lengths 1, 17, 200
+    and 448, tails NaN; every call through the split body."""
+    rng = np.random.default_rng(74)
+    B, S, H, hd = 4, 448, 6, 64
+    lens = np.array([1, 17, 200, 448], np.int32)
+    q = _randn(rng, (B, H, hd), dtype, dev)
+    kc, vc = _randn(rng, (B, S, H, hd), dtype, dev), _randn(rng, (B, S, H, hd), dtype, dev)
+    ln = torch.from_numpy(lens).to(dev)
+    split0 = decode_attention.split_launches
+    got = decode_attention(q, kc, vc, ln)
+    assert decode_attention.split_launches == split0 + 1
+    _close(got, R.decode_attention_ref(q, kc, vc, ln), dtype)
+    tail = torch.from_numpy(np.arange(S)[None, :] >= lens[:, None]).to(dev)
+    kc[tail], vc[tail] = float("nan"), float("nan")
+    assert torch.equal(decode_attention(q, kc, vc, ln), got)
+
+
+@pytest.mark.gpu
+def test_xlstm_engine_on_card_matches_cpu_tokens(dev):
+    """float32 xLSTM-smoke (3 mLSTM + 1 sLSTM, the recurrence non-zero)
+    through ``LLMEngine``: card and CPU give equal greedy tokens with
+    mid-stream slot re-use; RMSNorm is the only kernel (once a layer plus
+    the final norm per admission and step)."""
+    cfg = get_smoke_config("xlstm_350m").with_(dtype="float32")
+    params = init_params(cfg, seed=3, device="cpu")
+    r = params["blocks"]["3"]["cell"]["r_izfo"]
+    r.copy_(torch.randn(r.shape, generator=torch.Generator().manual_seed(4)) * 0.5)
+    eng, counts = _card_and_cpu_tokens(
+        lambda c, p, d: LLMEngine(c, max_batch=2, max_len=64, params=p, device=d),
+        cfg, PROMPTS, dev, params=params)
+    assert counts["flash_attention"] == counts["decode_attention"] == 0
+    assert counts["rmsnorm"] == (cfg.n_layers + 1) * (eng.admissions + eng.decode_steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_tiny", "llama3_2_vision_90b"])
+def test_encdec_models_on_card_match_cpu(dev, arch):
+    """float32 Whisper-smoke and Vision-smoke with seeded frames / patches:
+    prefill, then 6 greedy ``decode_step``s on the card and on the CPU give
+    equal tokens and logits within the model tolerance; launches exact."""
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    params = init_params(cfg, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    enc = torch.randn(2, cfg.encoder.n_ctx, cfg.d_model, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 11), generator=gen, dtype=torch.int32)
+    from repro_torch.bridge import params_to
+    from repro_torch.models import decode_step, prefill
+
+    outs, logits = {}, {}
+    for d in ("cpu", dev):
+        p = params_to(params, d)
+        ops.reset_launch_counts()
+        lg, cache = prefill(p, cfg, toks.to(d), max_len=32, enc_input=enc.to(d))
+        seq, lgs = [lg.argmax(-1)], [lg]
+        for _ in range(6):
+            lg, cache = decode_step(p, cfg, cache, seq[-1])
+            seq.append(lg.argmax(-1))
+            lgs.append(lg)
+        outs[str(d)] = torch.stack(seq).cpu()
+        logits[str(d)] = torch.stack(lgs).float().cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(outs["cpu"], outs[str(dev)])
+    torch.testing.assert_close(logits[str(dev)], logits["cpu"], atol=1e-4, rtol=1e-4)
+    counts = ops.launch_counts()
+    n = cfg.n_layers
+    if arch == "whisper_tiny":
+        e = cfg.encoder.n_layers
+        assert counts["flash_attention"] == e + 2 * n + 6 * n
+        assert counts["decode_attention"] == 6 * n
+        assert counts["rmsnorm"] == (2 * e + 1) + 7 * (3 * n + 1)
+    else:
+        n_cross = n // cfg.cross_attn_period
+        assert counts["flash_attention"] == n + 6 * n_cross
+        assert counts["decode_attention"] == 6 * (n - n_cross)
+        assert counts["rmsnorm"] == 7 * (2 * n + 1)

@@ -8,8 +8,9 @@ the JAX package and bridged into the port.  These hold
 - ``forward``, ``prefill`` and ``decode_step`` logits and K/V caches;
 - ``PagedLLMEngine`` and ``LLMEngine`` on the CPU against JAX's paged
   and slot engines, token for token;
-- the four registered configs (with DeepSeek-V2-Lite) against JAX's,
-  field for field, and the registry's ids and order;
+- the registered configs against JAX's, field for field, the registry's
+  ids and order, and every one of the 10 smoke configs through the entry
+  points (prefill and decode against ``forward``);
 - the launcher over the ``ladder3`` cascade fleet (stablelm, internlm2
   and Kimi-K2 smoke configs on paged replicas).
 """
@@ -39,6 +40,7 @@ from repro_torch.models import decode_step, forward, init_params, prefill
 from repro_torch.models import layers as TL
 from repro_torch.models.paged import supports_paged
 from repro_torch.serving import LLMEngine, PagedLLMEngine, Request
+from repro_torch.models.zoo import MODEL_TIERS, resolve_tier
 from repro_torch.sim.workloads import TIER_POOLS
 from test_torch_hybrid import SLOT_SCENARIOS, _caches_close, _close, _drive
 
@@ -126,7 +128,7 @@ def test_slot_engine_tokens_match_jax(pair):
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + ["llama3_2_vision_90b", "whisper_tiny", "xlstm_350m"])
 @pytest.mark.parametrize("full", [True, False], ids=["published", "smoke"])
 def test_configs_equal_jax_field_for_field(arch, full):
     get_t = configs.get_config if full else configs.get_smoke_config
@@ -196,12 +198,40 @@ def test_stacked_draws_over_the_limit_come_in_slabs_of_each_index(monkeypatch):
 
 
 def test_registry_lists_seven_ids_in_jax_order():
-    assert len(configs.ARCH_IDS) == 7
-    assert configs.ARCH_IDS == [a for a in jax_configs.ARCH_IDS if a in configs.ARCH_IDS]
+    """The registry is JAX's: all 10 ids in its order (the name dates from
+    when 7 were registered), each resolving to one tier of the zoo."""
+    assert len(configs.ARCH_IDS) == 10
+    assert configs.ARCH_IDS == jax_configs.ARCH_IDS
+    assert configs.ALIASES == jax_configs.ALIASES
     assert set(TIER_POOLS["ladder3"]) <= set(configs.ARCH_IDS)
-    for missing in ("llama3_2_vision_90b", "whisper_tiny", "xlstm_350m"):
-        with pytest.raises(KeyError, match="not ported"):
-            configs.get_config(missing)
+    assert sorted(MODEL_TIERS) == sorted(configs.ARCH_IDS)
+    for arch in configs.ARCH_IDS:
+        assert resolve_tier(configs.get_config(arch).name) == arch
+        assert resolve_tier(configs.get_smoke_config(arch).name) == arch
+
+
+@pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
+def test_every_smoke_config_runs_the_entry_points(arch):
+    """``init_params``, ``forward``, ``prefill`` and ``decode_step`` run
+    each of the 10 smoke configs (float32; seeded encoder input for the VLM
+    and Whisper): prefill of the first 8 tokens, then decode steps on the
+    true next tokens, give ``forward``'s logits (the JAX package's
+    ``test_decode_parity_with_forward``, at the model tolerance)."""
+    cfg = configs.get_smoke_config(arch).with_(dtype="float32")
+    params = init_params(cfg, seed=1, device="cpu")
+    toks = (torch.arange(12, dtype=torch.int32) % cfg.vocab)[None]
+    enc = None
+    if cfg.family in ("vlm", "audio"):
+        enc = torch.randn(1, cfg.encoder.n_ctx, cfg.d_model,
+                          generator=torch.Generator().manual_seed(0))
+    full, _ = forward(params, cfg, toks, enc_input=enc)
+    assert full.shape == (1, 12, cfg.vocab) and bool(torch.isfinite(full).all())
+    last, cache = prefill(params, cfg, toks[:, :8], max_len=32, enc_input=enc)
+    torch.testing.assert_close(last, full[:, 7], atol=MODEL_TOL, rtol=MODEL_TOL)
+    for i in range(8, 12):
+        lg, cache = decode_step(params, cfg, cache, toks[:, i])
+        torch.testing.assert_close(lg, full[:, i], atol=MODEL_TOL, rtol=MODEL_TOL)
+    assert cache["lengths"].tolist() == [12]
 
 
 # ---------------------------------------------------------------------------
