@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (``nvcc``)::
@@ -152,6 +152,30 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    128) and at Vision's cross prefill (Sq = 256), NaN past Sk; slot
    decode at Whisper's widths; RMSNorm at 4 x 1024 and 4 x 384.
 
+16. ``held_train`` — stablelm's smoke widths in float32 (TF32 off), the
+   same weights on the card and on the CPU: the loss, the gradient norm and
+   every gradient leaf of one ``loss_and_grads`` (the card's through the
+   flash and RMSNorm kernels forward and backward, every call counted), and
+   three ``build_train_step`` steps' losses;
+17. ``train``  — stablelm-1.6b whole (24 layers, published widths, bf16,
+   random weights from a seed) through ``repro_torch.launch.train.main``:
+   20 steps at batch 4 x 1024 tokens, once with float32 and once with int8
+   optimizer state; the loss must fall and every flash and RMSNorm call of
+   every step run its kernel forward and backward.  Each run reports step
+   ms (p50), train tok/s, MFU (6 N tokens/s against 989 TFLOP/s, N every
+   parameter), peak GiB, launches a step and the device idle share of 3
+   more steps traced by the profiler.  Then the restart check at 2 layers
+   (published widths, int8 state): a run that checkpoints at step 5 (a
+   temporary directory) and a run that resumes from it give the
+   uninterrupted run's losses for steps 6-10.
+   The ``kernels`` phase holds both backward kernels against their plain
+   backward versions in f32 and bf16 (flash at stablelm's training shape,
+   internlm2-20b's g = 6 / hd 128, a ragged 386 with NaN K/V past Sk that
+   must move no gradient, bidirectional with Sq != Sk; RMSNorm at 4096 and
+   386 x 2048; each deterministic to the bit), the flash forward's LSE
+   output against the plain LSE, and times both at stablelm's training
+   shape beside autograd's backward of SDPA and of ``F.rms_norm``.
+
 The ``testbed`` phase also runs the ``ladder3`` cascade fleet: the
 stablelm-1.6b, internlm2-20b and Kimi-K2 smoke configs on three paged
 replicas behind a ``DeterministicGate`` (strictness 0.8), built by
@@ -206,6 +230,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+STARTED = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data sheet (dense, no sparsity): HBM rate and peak rates
@@ -220,8 +245,14 @@ SSM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SFU_EXP_PER_CLOCK_PER_SM = 16
 # host seconds between a traced window's edges and the work it measures
 TRACE_PAD_S = 0.01
+# the H100 SXM's highest SM clock: a device spin of s seconds is given
+# s * this many cycles (a lower clock only lengthens it)
+SPIN_CLOCK_HZ = 1.98e9
+# the longest device spin ``device_ms`` puts ahead of a window's calls
+SPIN_MAX_S = 0.2
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
-          "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec")
+          "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec",
+          "held_train", "train")
 # run only when named: the RMSNorm and scan timings alone (``kernels`` has them)
 EXTRA_PHASES = ("timing",)
 KERNEL_META = {
@@ -242,6 +273,12 @@ KERNEL_META = {
                                      "src/repro/kernels/paged_attention.py:220"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:70"),
+    # the gradients of kernels 5 and 3, which the JAX package has no
+    # reverse mode for (jax.grad through a Pallas kernel fails)
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:113"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm.py:27"),
 }
 # the kernels of the paged engine's path (by page dtype) and of the
 # testbed's slot path
@@ -250,6 +287,11 @@ PAGED_KERNELS = {
     "int8": ("paged_decode_attention_int8", "paged_prefill_attention_int8", "rmsnorm"),
 }
 SLOT_KERNELS = ("flash_attention", "decode_attention", "rmsnorm")
+# a backward kernel against its plain backward on the same inputs, scaled by
+# max(1, the gradient's largest magnitude): f32 (TF32 off) summation order
+# over up to Sq * g rows (dk, dv) or Sk keys (dq), and over the rows (dgamma);
+# bf16 adds one rounding of each output
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # what an unwritten or recycled slot's scale may hold
 GARBAGE_SCALES = (float("nan"), float("inf"), 1e30)
 # Card against CPU through int8 caches: a K/V value that straddles a
@@ -268,7 +310,9 @@ def _free_card() -> None:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; ``at_s`` is the script's age when it was printed."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - STARTED}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -305,28 +349,39 @@ def time_ms(fn, groups: int = 15, per_group: int = 10) -> float:
 def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     """Device time of one call from ``torch.profiler``: every kernel that
     ``calls`` back-to-back calls launch (after a warm-up), summed by kernel
-    name and divided by ``calls``.  ``device_ms`` is their sum.  The calls
+    name and divided by ``calls``.  ``device_ms`` is their sum,
+    ``device_windows`` the traced windows it took.  The calls
     sit ``TRACE_PAD_S`` inside the traced window on each side: the tracer
     drops a kernel whose device timestamp, mapped onto the host clock, falls
-    outside the window, and that mapping drifts over a long process.  A
-    window whose trace lost events all the same (a kernel seen other than a
-    whole number of times a call) is measured again, up to ``windows``
-    times in all."""
+    outside the window, and that mapping drifts over a long process.  It
+    also drops a kernel whose mapped start precedes its launch's host
+    timestamp, which the drift brings about for a kernel that an idle device
+    starts at once (the flash backward's first ``delta_kernel`` a window).
+    A window whose trace lost events all the same (a kernel seen other than
+    a whole number of times a call) is measured again, up to ``windows``
+    times in all, and each such window first puts a device spin on the
+    stream, longer than the host takes to launch the calls, so that every
+    measured kernel waits in the queue behind it, and ends with as long a
+    pad; the spin, where the trace kept it, is left out of the sums."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     for _ in range(3):
         fn()
+    spin_s = min(SPIN_MAX_S, max(TRACE_PAD_S, 2 * calls * (time.perf_counter() - t0) / 3))
     torch.cuda.synchronize()
-    for _ in range(windows):
+    for window in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_PAD_S)
+            if window:
+                torch.cuda._sleep(int(spin_s * SPIN_CLOCK_HZ))
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(TRACE_PAD_S)
+            time.sleep(max(TRACE_PAD_S, spin_s) if window else TRACE_PAD_S)
         by_kernel = {}
         for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in evt.name:
                 name = evt.name if len(evt.name) < 90 else evt.name[:87] + "..."
                 t, n = by_kernel.get(name, (0.0, 0))
                 by_kernel[name] = (t + evt.time_range.elapsed_us() / 1e3, n + 1)
@@ -335,7 +390,8 @@ def device_ms(fn, calls: int = 20, windows: int = 3) -> dict:
     check(bool(by_kernel) and all(n >= calls and n % calls == 0 for _, n in by_kernel.values()),
           f"the profiler lost kernel events in {windows} windows: {by_kernel}")
     per_call = {k: t / calls for k, (t, _) in by_kernel.items()}
-    return {"device_ms": sum(per_call.values()), "device_kernels": per_call}
+    return {"device_ms": sum(per_call.values()), "device_kernels": per_call,
+            "device_windows": window + 1}
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -441,6 +497,7 @@ def phase_env(build_mod) -> dict:
         "sass_mma": sass,
         "split_bodies": _split_bodies(info["log"], sass),
         "rmsnorm_ssm_ptxas": _ptxas_of(info["log"], _norm_scan_key),
+        "backward_ptxas": _ptxas_of(info["log"], _backward_key),
         "nvidia_smi": smi_line(),
         "device": torch.cuda.get_device_name(0),
         "device_count": torch.cuda.device_count(),
@@ -501,6 +558,20 @@ def _norm_scan_key(name: str):
     if m.group(3) is None:
         return f"{m.group(1)}<{dtype}>"
     return f"{m.group(1)}<{dtype}, {m.group(3)} {'warps' if m.group(1) == 'rmsnorm' else 'lanes'}>"
+
+
+def _backward_key(name: str):
+    """``<kernel><dtype[, HD]>`` of one instantiation of a backward kernel
+    (flash: ``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``; RMSNorm:
+    ``rmsnorm_bwd_kernel``, ``dgamma_kernel``); None for another kernel."""
+    import re
+
+    m = re.search(r"(delta|dkdv|dq|rmsnorm_bwd|dgamma)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                  name)
+    if not m:
+        return None
+    dtype = "f32" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dtype}" + (f", {m.group(3)}>" if m.group(3) else ">")
 
 
 def _ptxas_of(log: str, key_of) -> dict:
@@ -1625,6 +1696,7 @@ def phase_kernels(dev) -> dict:
     _check_int8_kernels(dev, errs, cases)
     _check_decode_edges(dev, errs, cases)
     _check_ssm_scan(dev, errs, cases)
+    bwd = _check_backward_kernels(dev, errs, cases)
     torch.cuda.synchronize()
     rng = timing_rng
 
@@ -1730,10 +1802,11 @@ def phase_kernels(dev) -> dict:
     encdec = _encdec_rows(dev, errs, cases)
     norm_scan = phase_timing(dev, emit_line=False)
     timing["ssm_scan"] = norm_scan.pop("ssm_scan")
+    timing.update(_backward_rows(dev))
     sweeps = {"rmsnorm_sweep": _rmsnorm_sweep(dev)}
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, **norm_scan, **sweeps,
-           "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
+           **bwd, "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
            "timing_bf16_wide": wide, "timing_bf16_mla_dense": mla_dense,
            "timing_bf16_encdec": encdec,
            "timed_tc": timed_tc, "timed_split": timed_split,
@@ -2093,12 +2166,16 @@ def _profile_decode(eng, reqs, n_steps: int = 8) -> dict:
                            f"{len(reqs[0].prompt)}-token prompts, {type(eng).__name__}")
 
 
-def _profile_window(step, n_steps: int, window: str) -> dict:
+SHARE_KERNELS = ("rmsnorm_kernel", "ssm_scan_kernel", "attention_tc_kernel", "decode_split")
+
+
+def _profile_window(step, n_steps: int, window: str, share_kernels=SHARE_KERNELS) -> dict:
     """Trace ``n_steps`` calls of ``step`` with torch.profiler: device time
     by kernel, the share of the window the device idled, the device time
-    and share of the busy time of RMSNorm, the scan, the attention
-    tensor-core body and the split decode body (``kernel_shares``), and the
-    host's kernel launches, syncs and memcpys a step."""
+    and share of the busy time of each of ``share_kernels`` (by default
+    RMSNorm, the scan, the attention tensor-core body and the split decode
+    body; ``kernel_shares``), and the host's kernel launches, syncs and
+    memcpys a step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2119,7 +2196,7 @@ def _profile_window(step, n_steps: int, window: str) -> dict:
     busy_ms = sum(t for t, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     shares = {}
-    for kernel in ("rmsnorm_kernel", "ssm_scan_kernel", "attention_tc_kernel", "decode_split"):
+    for kernel in share_kernels:
         hits = [(t, n) for name, (t, n) in by_kernel.items() if kernel in name]
         ms = sum(t for t, _ in hits)
         shares[kernel] = {"ms": ms, "count": sum(n for _, n in hits),
@@ -3083,6 +3160,369 @@ def phase_encdec(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the trainer's kernels: flash attention and RMSNorm backward
+# ---------------------------------------------------------------------------
+#: (label, B, S_q, S_k, H, K, hd, causal) of the flash backward checks:
+#: stablelm-1.6b's training shape, internlm2-20b's widths (g = 6, hd 128),
+#: a ragged 386, bidirectional with S_q != S_k
+FLASH_BWD_CASES = (("stablelm-1.6b train", 4, 1024, 1024, 32, 32, 64, True),
+                   ("internlm2-20b GQA", 1, 1024, 1024, 48, 8, 128, True),
+                   ("ragged", 1, 386, 386, 32, 32, 64, True),
+                   ("bidirectional", 2, 200, 333, 6, 2, 64, False))
+#: rows x d of the RMSNorm backward checks: a train step's (B = 4, S =
+#: 1024) and a 386-token sequence's, stablelm's d
+RMSNORM_BWD_CASES = ((4096, 2048), (386, 2048))
+
+
+def _bwd_err(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
+    """Max |got - want|, checked against ``BWD_TOL`` scaled by max(1, the
+    largest |want|) plus ``BWD_TOL`` of each |want|."""
+    check(bool(torch.isfinite(got).all()), f"{what}: gradient is not finite")
+    g, w = got.float(), want.float()
+    tol = BWD_TOL[dtype]
+    scale = max(1.0, float(w.abs().max()))
+    excess = (g - w).abs() - (tol * scale + tol * w.abs())
+    check(float(excess.max()) <= 0, f"{what}: outside tolerance {tol} x {scale}: "
+          f"max |err| {float((g - w).abs().max())}")
+    return float((g - w).abs().max())
+
+
+def _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, seed: int):
+    """q, k, v, do from a seeded device generator, and the plain forward's
+    output and LSE (the backward kernel and its plain version read the same)."""
+    from repro_torch.kernels import ref as R
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                   for sh in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd), (B, Sq, H, hd)))
+    return q, k, v, R.attention_ref(q, k, v, causal=causal), \
+        R.attention_lse_ref(q, k, causal=causal), do
+
+
+def _check_backward_kernels(dev, errs, cases) -> dict:
+    """Both backward kernels against their plain backward versions, f32 and
+    bf16: flash at ``FLASH_BWD_CASES`` (and the forward's LSE output against
+    the plain LSE), RMSNorm at ``RMSNORM_BWD_CASES``.  In the ragged case K/V
+    past Sk are NaN (a view into a longer buffer) and no gradient may move.
+    Each kernel's second call must give the first's bits (deterministic)."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    lse_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, Sq, Sk, H, K, hd, causal in FLASH_BWD_CASES:
+            q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, 51)
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], _bwd_err(
+                    a, b, dtype, f"flash_attention_bwd {name} ({label}, {dtype})"))
+            del want
+            again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd is not deterministic ({label}, {dtype})")
+            _, klse = flash_attention(q, k, v, causal=causal, return_lse=True)
+            lse_err = max(lse_err, float((klse - lse).abs().max()))
+            check(lse_err <= 1e-4, f"flash LSE output off the plain LSE: {lse_err}")
+            if label == "ragged":
+                pad = 62
+                kb, vb = (torch.full((B, Sk + pad, K, hd), float("nan"), device=dev,
+                                     dtype=dtype) for _ in range(2))
+                kb[:, :Sk], vb[:, :Sk] = k, v
+                nan = flash_attention_bwd(q, kb[:, :Sk], vb[:, :Sk], o, lse, do, causal=causal)
+                check(all(torch.equal(a, b) for a, b in zip(got, nan)),
+                      f"NaN past Sk moved a gradient ({dtype})")
+                del kb, vb, nan
+            cases.append(("flash_attention_bwd", label, str(dtype)))
+            del q, k, v, o, lse, do, got, again
+        for rows, d in RMSNORM_BWD_CASES:
+            g = torch.Generator(device=dev).manual_seed(52)
+            x = (3 * torch.randn(rows, d, generator=g, device=dev)).to(dtype)
+            gamma = (1 + 0.2 * torch.randn(d, generator=g, device=dev)).to(dtype)
+            dy = torch.randn(rows, d, generator=g, device=dev).to(dtype)
+            got = rmsnorm_bwd(x, gamma, dy)
+            want = R.rmsnorm_bwd_ref(x, gamma, dy)
+            for name, a, b in zip(("dx", "dgamma"), got, want):
+                errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], _bwd_err(
+                    a, b, dtype, f"rmsnorm_bwd {name} ({rows} x {d}, {dtype})"))
+            check(all(torch.equal(a, b) for a, b in zip(got, rmsnorm_bwd(x, gamma, dy))),
+                  f"rmsnorm_bwd is not deterministic ({rows} x {d}, {dtype})")
+            cases.append(("rmsnorm_bwd", rows, d, str(dtype)))
+    torch.cuda.synchronize()
+    return {"lse_max_abs_err": lse_err, "bwd_tol": {str(k): v for k, v in BWD_TOL.items()}}
+
+
+def _backward_rows(dev, B=4, S=1024, H=32, hd=64, n=4096, d=2048) -> dict:
+    """The backward kernels timed at stablelm-1.6b's training shape, bf16:
+    flash (B = 4, S = 1024, causal, H = K = 32, hd 64) and RMSNorm (4096 x
+    2048).  The library calls (timed, never used by the port) are autograd's
+    backward of SDPA and of ``F.rms_norm`` on the same values."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    dt, es = torch.bfloat16, 2
+    rows = {}
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, dt, B, S, S, H, H, hd, True, 53)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = S * (S + 1) // 2
+    nb, fl = bound((8 * B * S * H * hd) * es + 4 * B * H * S, 10 * B * H * hd * pairs, dt)
+    rows["flash_attention_bwd"] = dict(
+        **_times(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                 lambda: R.attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+                 lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)),
+        bound_ms=nb, bound_by=fl, shape=f"B={B} Sq=Sk={S} causal H=K={H} hd={hd}")
+    del q, k, v, o, lse, do, qt, kt, vt, ot, dot
+    g = torch.Generator(device=dev).manual_seed(54)
+    x = torch.randn(n, d, generator=g, device=dev).to(dt)
+    gamma = torch.ones(d, device=dev, dtype=dt)
+    dy = torch.randn(n, d, generator=g, device=dev).to(dt)
+    xl, gl = x.clone().requires_grad_(), gamma.clone().requires_grad_()
+    yl = F.rms_norm(xl, (d,), gl, 1e-5)
+    nb, fl = bound(3 * n * d * es + 2 * d * es, 8 * n * d, dt)
+    rows["rmsnorm_bwd"] = dict(
+        **_times(lambda: rmsnorm_bwd(x, gamma, dy), lambda: R.rmsnorm_bwd_ref(x, gamma, dy),
+                 lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True)),
+        bound_ms=nb, bound_by=fl, shape=f"rows={n} d={d}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases: held_train (card vs CPU, float32) and train (stablelm-1.6b whole)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 20
+#: the learning rate of the train phase's runs, both state types: the JAX
+#: package's int8 AdamW state is unstable (a row-wise int8 v rounds its
+#: small entries to 0, and m / (sqrt(v) + eps) blows up): on the H100 the
+#: whole stablelm-1.6b with int8 state went 12.26 -> 148.4 in 20 steps at
+#: lr 1e-4 and 12.26 -> 19.2 at 3e-5, and fell (12.26 -> 7.67) at 1e-5
+#: (PERF.md); JAX's own launcher diverges at its default 1e-3 on the
+#: llama3 smoke config on the CPU
+TRAIN_LR = "1e-5"
+TRAIN_TRACE_STEPS = 3
+#: the kernels whose device time a traced train step reports: the flash
+#: backward's three launches, RMSNorm's backward's two, and the forwards
+TRAIN_SHARE_KERNELS = ("dkdv_kernel", "dq_kernel", "delta_kernel", "rmsnorm_bwd_kernel",
+                       "dgamma_kernel", "attention_tc_kernel", "rmsnorm_kernel")
+RESTART_LAYERS, RESTART_STEPS, RESTART_AT = 2, 10, 5
+# held_train: card (kernels) against CPU (plain versions), float32 with TF32
+# off: the loss and the gradient norm to summation order, each gradient leaf
+# to BWD_TOL's float32 1e-4 of max(1, its largest magnitude) (summation
+# order through two layers, the kernels' and cuBLAS's against the CPU's)
+HELD_TRAIN_TOL = 1e-5
+# the restart check: the same weights, state, batches and deterministic
+# kernels; the embedding gradient's scatter-add (PyTorch's, atomics) may sum
+# in another order run to run, which moves a bf16 loss by far less than a
+# wrong restore (other batches or state) does; held to this relative gap
+RESTART_TOL = 1e-5
+
+
+def _train_launches(counts, cfg, passes: int, what: str) -> None:
+    """Every flash and RMSNorm call of ``passes`` train-step passes of an
+    attention model ran a kernel forward and backward: flash once a layer,
+    RMSNorm twice a layer plus the final norm, each with its backward."""
+    n = cfg.n_layers
+    want = {"flash_attention": n * passes, "flash_attention_bwd": n * passes,
+            "rmsnorm": (2 * n + 1) * passes, "rmsnorm_bwd": (2 * n + 1) * passes}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{what}: launches {got}, want {want}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    check(not others, f"{what}: unexpected launches {others}")
+
+
+def phase_held_train(dev) -> dict:
+    """stablelm's smoke widths in float32, the same weights on the card and
+    on the CPU: ``loss_and_grads`` (loss, every gradient leaf, the norm) and
+    three ``build_train_step`` steps' losses, the card's through the
+    kernels forward and backward (launches counted)."""
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.optimizer import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.zoo import build_train_step, loss_and_grads
+
+    cfg = get_smoke_config("stablelm_1_6b").with_(dtype="float32")
+    weights = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    opt = OptConfig(lr=1e-3, warmup_steps=5)
+    out = {}
+    for d in ("cpu", dev):
+        rng = np.random.default_rng(0)
+        batches = [{k: t.to(d) for k, t in synthetic_batch(rng, cfg, 8, 64).items()}
+                   for _ in range(3)]
+        p = params_from_numpy(weights, d)
+        ops.reset_launch_counts()
+        loss, grads = loss_and_grads(p, cfg, batches[0])
+        counts = ops.launch_counts()
+        step = build_train_step(cfg, opt)
+        state = init_opt_state(p, opt)
+        losses = []
+        for b in batches:
+            p, state, m = step(p, state, b)
+            losses.append(float(m["loss"]))
+        out[str(d)] = {"loss": float(loss), "grads": [g.cpu() for g in tree_leaves(grads)],
+                       "losses": losses, "counts": counts}
+    torch.cuda.synchronize()
+    c, g = out["cpu"], out[str(dev)]
+    _train_launches(g["counts"], cfg, 1, "held_train")
+    gnorm = {k: float(torch.sqrt(sum(x.double().square().sum() for x in v["grads"])))
+             for k, v in (("cpu", c), ("card", g))}
+    leaf_err = max(_bwd_err(a, b, torch.float32, "held_train gradient")
+                   for a, b in zip(g["grads"], c["grads"]))
+    loss_gap = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    norm_gap = abs(gnorm["card"] - gnorm["cpu"]) / gnorm["cpu"]
+    step_gap = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
+    check(loss_gap <= HELD_TRAIN_TOL and norm_gap <= HELD_TRAIN_TOL,
+          f"held_train: loss gap {loss_gap}, grad-norm gap {norm_gap}")
+    check(step_gap <= 1e-4, f"held_train: three steps' losses part by {step_gap}")
+    res = {"config": cfg.name, "dtype": "float32", "tf32": False, "batch": [8, 64],
+           "loss": {"cpu": c["loss"], "card": g["loss"]}, "loss_rel_gap": loss_gap,
+           "grad_norm": gnorm, "grad_norm_rel_gap": norm_gap, "grad_leaves": len(g["grads"]),
+           "grad_leaf_max_abs_err": leaf_err, "step_losses": {"cpu": c["losses"],
+                                                              "card": g["losses"]},
+           "step_loss_max_rel_gap": step_gap, "launches": g["counts"],
+           "tol": {"loss_and_norm": HELD_TRAIN_TOL, "leaf": BWD_TOL[torch.float32],
+                   "three_steps": 1e-4}}
+    emit("held_train", **res)
+    return res
+
+
+def _param_counts(params) -> dict:
+    emb = sum(params[k].numel() for k in ("embedding", "lm_head") if k in params)
+    total = sum(t.numel() for t in _leaves(params))
+    return {"total": total, "embedding": emb, "non_embedding": total - emb}
+
+
+def _train_run(dev, state_dtype: str) -> dict:
+    """stablelm-1.6b whole through ``repro_torch.launch.train.main``, bf16,
+    ``TRAIN_STEPS`` steps at batch x seq ``TRAIN_BATCH`` x ``TRAIN_SEQ``;
+    then ``TRAIN_TRACE_STEPS`` more steps traced by the profiler."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    report = {}
+    t0 = time.perf_counter()
+    rc = train_mod.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                         "--opt-state", state_dtype, "--lr", TRAIN_LR, "--seed", "0"],
+                        report=report)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cfg, losses = report["cfg"], report["losses"]
+    check(rc == 0 and losses[-1] < losses[0],
+          f"train ({state_dtype}): rc {rc}, loss {losses[0]} -> {losses[-1]}")
+    _train_launches(counts, cfg, TRAIN_STEPS, f"train ({state_dtype})")
+    n = _param_counts(report["params"])
+    step_s = report["step_s"]
+    p50 = statistics.median(step_s)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
+    rng = np.random.default_rng(1)
+    state = {"params": report["params"], "opt": report["opt_state"]}
+
+    def step():
+        batch = train_mod.synthetic_batch(rng, cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+        state["params"], state["opt"], m = report["step_fn"](state["params"], state["opt"],
+                                                             batch)
+        float(m["loss"])
+
+    prof = _profile_window(step, TRAIN_TRACE_STEPS, f"{TRAIN_TRACE_STEPS} train steps",
+                           share_kernels=TRAIN_SHARE_KERNELS)
+    del report, state
+    res = {"state_dtype": state_dtype, "config": cfg.name, "layers": cfg.n_layers,
+           "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": float(TRAIN_LR),
+           "steps": TRAIN_STEPS, "wall_s": wall, "losses": losses,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "step_ms": [t * 1e3 for t in step_s], "step_ms_p50": p50 * 1e3,
+           "train_tok_s": tok_s, "params": n,
+           "mfu": 6 * n["total"] * tok_s / PEAK_FLOPS[torch.bfloat16],
+           "mfu_note": "6 N tokens/s / 989e12, N = embedding + non-embedding parameters",
+           "peak_gib": peak, "launches": counts,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items() if v},
+           "backward_launches_per_step": (counts["flash_attention_bwd"]
+                                          + counts["rmsnorm_bwd"]) / TRAIN_STEPS,
+           "profile": prof}
+    emit("train_run", **{k: v for k, v in res.items() if k != "profile"},
+         device_idle_share=prof["device_idle_share"], profile_wall_ms=prof["wall_ms"],
+         profile_busy_ms=prof["device_busy_ms"], top_kernels_ms=prof["top_kernels_ms"],
+         kernel_shares=prof["kernel_shares"],
+         host_launches_per_step=prof.get("host_launches_per_step"))
+    return res
+
+
+def _restart_check(dev) -> dict:
+    """stablelm-1.6b at published widths cut to ``RESTART_LAYERS`` layers,
+    int8 state, through the launcher: an uninterrupted run of
+    ``RESTART_STEPS`` steps, and a run that checkpoints at ``RESTART_AT``
+    (into a temporary directory, removed after) and a second that resumes
+    from it; the resumed losses must equal the uninterrupted ones."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+
+    cut = get_config(TRAIN_ARCH).with_(n_layers=RESTART_LAYERS)
+    base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--opt-state", "int8", "--lr", TRAIN_LR, "--seed", "0"]
+    real = train_mod.get_config
+    train_mod.get_config = lambda name: cut
+    try:
+        full, first, resumed = {}, {}, {}
+        train_mod.main(base + ["--steps", str(RESTART_STEPS)], report=full)
+        full = full["losses"]
+        _free_card()
+        with tempfile.TemporaryDirectory() as d:
+            ck = ["--ckpt-dir", d, "--ckpt-every", str(RESTART_AT)]
+            train_mod.main(base + ["--steps", str(RESTART_AT)] + ck, report=first)
+            first = first["losses"]
+            _free_card()
+            t0 = time.perf_counter()
+            train_mod.main(base + ["--steps", str(RESTART_STEPS)] + ck, report=resumed)
+            resume_s = time.perf_counter() - t0
+            ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+            start, resumed = resumed["start"], resumed["losses"]
+    finally:
+        train_mod.get_config = real
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[RESTART_AT:]))
+    rerun_gap = max(abs(a - b) / abs(b) for a, b in zip(first, full))
+    check(start == RESTART_AT and len(resumed) == RESTART_STEPS - RESTART_AT
+          and gap <= RESTART_TOL and rerun_gap <= RESTART_TOL,
+          f"restart: resumed at {start}, losses {resumed} against {full[RESTART_AT:]}; "
+          f"first {RESTART_AT} steps {first} against {full[:RESTART_AT]}")
+    return {"layers": RESTART_LAYERS, "state_dtype": "int8", "uninterrupted": full,
+            "checkpointed_run": first, "rerun_max_rel_gap": rerun_gap,
+            "resumed_at": start, "resumed": resumed, "max_rel_gap": gap,
+            "tol": RESTART_TOL, "checkpoint_gb": ckpt_bytes / 1e9,
+            "resume_run_s": resume_s}
+
+
+def phase_train(dev) -> dict:
+    """``train``: stablelm-1.6b whole, bf16, with float32 and with int8
+    optimizer state, then the 2-layer restart check."""
+    runs = {sd: _train_run(dev, sd) for sd in ("float32", "int8")}
+    _free_card()
+    restart = _restart_check(dev)
+    res = {"runs": {k: {x: v[x] for x in ("step_ms_p50", "train_tok_s", "mfu", "peak_gib",
+                                          "first_loss", "last_loss",
+                                          "backward_launches_per_step")}
+                    | {"device_idle_share": v["profile"]["device_idle_share"]}
+                    for k, v in runs.items()},
+           "launches": runs["float32"]["launches"], "restart": restart}
+    emit("train", **res)
+    return res
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3154,16 +3594,26 @@ def main(argv=None) -> int:
         phase_held_encdec(dev)
     if "encdec" in phases:
         phase_encdec(dev)
-    if kern is not None and eng is not None and tb is not None and hyb is not None:
+    if "held_train" in phases:
+        _free_card()
+        phase_held_train(dev)
+    trn = None
+    if "train" in phases:
+        _free_card()
+        trn = phase_train(dev)
+    if all(x is not None for x in (kern, eng, tb, hyb, trn)):
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot
         # kernels' from the testbed's LLMSched slot run, the scan's from the
-        # hybrid phase's LLMEngine run
+        # hybrid phase's LLMEngine run, the backward kernels' from the train
+        # phase's float32-state run
         launches = dict(eng["launches"])
         launches.update({k: tb["llmsched"]["launches"][k]
                          for k in ("flash_attention", "decode_attention")})
         launches.update({k: eng["launches_int8"][k] for k in PAGED_KERNELS["int8"][:2]})
         launches["ssm_scan"] = hyb["launches"]["ssm_scan"]
+        # the trainer's kernels: the train phase's float32-state run
+        launches.update({k: trn["launches"][k] for k in ("flash_attention_bwd", "rmsnorm_bwd")})
         tc_launches = {"flash_attention": tb["llmsched"]["tc_launches"]["flash_attention"],
                        "paged_prefill_attention": eng["tc_launches"]["paged_prefill_attention"],
                        "paged_prefill_attention_int8":

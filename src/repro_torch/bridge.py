@@ -13,6 +13,11 @@ trip through :func:`params_to_numpy` and :func:`params_from_numpy` with
 ``dtype=torch.bfloat16`` is bit-exact too.  int8 arrays (the payload of
 int8 KV pages in migration tickets) and their float32 scale pools cross
 as they are, int8 to int8, bit for bit.
+
+AdamW state crosses through :func:`opt_state_from_numpy` and
+:func:`opt_state_to_numpy`: ``{"step", "mv"}`` with float32 moments or,
+for int8 state, ``QTensor(q int8, s float32)`` pairs (JAX's ``QTensor``
+reaches numpy as a tuple of two arrays), bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .distributed.optimizer import QTensor
 
 Tree = Dict[str, Any]
 #: leaves a model keeps in float32 in a tree of any dtype (Mamba's A_log)
@@ -110,3 +116,49 @@ def params_to(tree: Tree, device: DeviceLike) -> Tree:
         k: params_to(v, dev) if isinstance(v, dict) else v.to(dev)
         for k, v in tree.items()
     }
+
+
+def _mv_from_numpy(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _mv_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # an int8 moment: (q, s), JAX's QTensor or a pair
+        q, s = tree
+        return QTensor(tensor_from_numpy(q, dev), tensor_from_numpy(s, dev))
+    return tensor_from_numpy(tree, dev)
+
+
+def _mv_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _mv_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tensor_to_numpy(t) for t in tree)
+    return tensor_to_numpy(tree)
+
+
+def opt_state_from_numpy(state: Tree, device: DeviceLike = None) -> Tree:
+    """The JAX package's AdamW state (as numpy arrays) as the port's.
+
+    Parameters
+    ----------
+    state : dict
+        ``{"step": int32 scalar, "mv": {...{"m", "v"}}}``, e.g.
+        ``repro.distributed.optimizer.init_opt_state(...)`` mapped through
+        ``np.asarray``; an int8 moment is a ``(q, s)`` pair.
+    device : str or torch.device, optional
+        Target device; ``None`` means the CUDA device.
+
+    Returns
+    -------
+    dict
+        The same state with tensors and :class:`~repro_torch.distributed.
+        optimizer.QTensor` pairs, every value copied bit for bit.
+    """
+    dev = resolve_device(device)
+    return {"step": tensor_from_numpy(np.asarray(state["step"], np.int32), dev),
+            "mv": _mv_from_numpy(state["mv"], dev)}
+
+
+def opt_state_to_numpy(state: Tree) -> Tree:
+    """The port's AdamW state as numpy arrays (``QTensor`` as ``(q, s)``
+    tuples): the reverse of :func:`opt_state_from_numpy`."""
+    return {"step": tensor_to_numpy(state["step"]), "mv": _mv_to_numpy(state["mv"])}

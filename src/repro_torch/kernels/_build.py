@@ -54,12 +54,12 @@ SIGNATURES: Dict[str, List] = {
     "paged_prefill_q8_bf16": [P] * 7 + [I] * 8 + _STRIDES + _SCALE_STRIDES + [F, P],
     "decode_attention_f32": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
     "decode_attention_bf16": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
-    "flash_attention_f32": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
-    "flash_attention_bf16": [P] * 4 + [I] * 9 + [L] * 12 + [F, P],
+    "flash_attention_f32": [P] * 5 + [I] * 9 + [L] * 12 + [F, P],
+    "flash_attention_bf16": [P] * 5 + [I] * 9 + [L] * 12 + [F, P],
     "ssm_scan_f32": [P] * 9 + [I] * 5 + [L] * 12 + [P],
     "ssm_scan_bf16": [P] * 9 + [I] * 5 + [L] * 12 + [P],
     # the tensor-core bodies (csrc/attention_tc.cuh), bf16 only
-    "flash_attention_tc_bf16": [P] * 4 + [I] * 7 + [L] * 9 + [F, P],
+    "flash_attention_tc_bf16": [P] * 5 + [I] * 7 + [L] * 9 + [F, P],
     "paged_prefill_tc_bf16": [P] * 5 + [I] * 8 + [L] * 6 + [F, P],
     "paged_prefill_q8_tc_bf16": [P] * 7 + [I] * 8 + [L] * 12 + [F, P],
     # the split-context decode bodies (csrc/decode_split.cuh), f32 and bf16
@@ -69,6 +69,11 @@ SIGNATURES: Dict[str, List] = {
     "paged_decode_split_bf16": [P] * 6 + [I] * 9 + [L] * 6 + [F, P],
     "paged_decode_q8_split_f32": [P] * 8 + [I] * 9 + [L] * 12 + [F, P],
     "paged_decode_q8_split_bf16": [P] * 8 + [I] * 9 + [L] * 12 + [F, P],
+    # the backward kernels (csrc/flash_attention_bwd.cu, csrc/rmsnorm_bwd.cu)
+    "flash_attention_bwd_f32": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
+    "flash_attention_bwd_bf16": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
+    "rmsnorm_bwd_f32": [P] * 6 + [I] * 3 + [F, P],
+    "rmsnorm_bwd_bf16": [P] * 6 + [I] * 3 + [F, P],
 }
 #: head dims the tensor-core attention body is built for (hd == hd_v)
 TC_HEAD_DIMS = (16, 64, 128)
@@ -104,6 +109,13 @@ RMSNORM_WARPS = (1, 2, 4, 8, 16)
 #: lanes a channel the selective-scan launcher has a form for, and the
 #: states each lane holds (csrc/ssm_scan.cu)
 SSM_LANES = (1, 2, 4)
+#: head dims the flash backward kernel is built for (hd == hd_v)
+BWD_HEAD_DIMS = (16, 64, 128)
+#: widest row the RMSNorm backward kernel takes (gamma and its dgamma
+#: partial, two f32 rows, in a CTA's shared memory), and the CTAs a SM its
+#: row split aims at (csrc/rmsnorm_bwd.cu)
+RMSNORM_BWD_MAX_D = 28672
+RMSNORM_BWD_CTAS_PER_SM = 2
 SSM_STATES_PER_LANE = 4
 SSM_MAX_STATE = 16
 
@@ -124,6 +136,16 @@ def rmsnorm_warps(d: int, dtype: torch.dtype) -> int:
         raise ValueError(f"rmsnorm_warps: no form for d={d}, {dtype}")
     per_warp = 32 * RMSNORM_SLOTS * (16 // (4 if dtype == torch.float32 else 2))
     return next((w for w in RMSNORM_WARPS if w * per_warp >= d), RMSNORM_WARPS[-1])
+
+
+def rmsnorm_bwd_rows(rows: int, sms: int) -> int:
+    """Rows one CTA of the RMSNorm backward kernel walks: an equal run that
+    gives ``RMSNORM_BWD_CTAS_PER_SM`` CTAs to each of the ``sms`` (fewer for
+    fewer rows).  Each CTA leaves one f32 dgamma partial row, summed by a
+    second launch, so the run also sets the scratch (``ceil(rows / run)``
+    rows of d).  Shapes only: the result is the same call after call."""
+    ctas = max(1, min(rows, RMSNORM_BWD_CTAS_PER_SM * sms))
+    return -(-rows // ctas)
 
 
 def ssm_scan_lanes(N: int) -> int:
@@ -319,6 +341,24 @@ def current_stream(device: torch.device) -> int:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a kernel wrapper would hand out an output with no gradient.
+
+    A wrapper's output is a fresh tensor with no ``grad_fn``: called with
+    grad mode on and an input that requires grad, it would cut the graph
+    there and leave every gradient behind it silently wrong.  The
+    differentiable route is :mod:`repro_torch.kernels.ops` (its autograd
+    functions run the wrappers with grad mode off and the backward kernels
+    after them); serving runs without grad.  Checked first, before any
+    other check, so it holds for tensors on every device.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and a kernel wrapper returns an output "
+            "with no gradient; call it through repro_torch.kernels.ops (autograd) or "
+            "under torch.no_grad()")
 
 
 def check(code: int, name: str) -> None:

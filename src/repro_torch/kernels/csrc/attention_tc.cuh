@@ -38,6 +38,10 @@
 // one thread-block cluster: each leaves its f32 partials (unnormalized O,
 // m and l in the log2 domain) in its shared memory, and they merge them
 // through distributed shared memory and round once; no scratch, one launch.
+// LSE (flash, for the backward kernel; null otherwise): with p.lse set, the
+// CTA that writes a row also writes its natural-log log-sum-exp, f32
+// (B, H, Sq): (m + log2(l)) * ln 2 from the log2-domain running max m and
+// sum l (the merged M and L with splits); +inf for a row with no live key.
 // What bounds it on the H100 (chip_smoke.py, PERF.md): a warp that runs
 // alone on its scheduler waits on its own copies, products and exps, so a
 // 64-token tile costs ~1 us to a lone CTA; the bytes bound of a call is
@@ -62,6 +66,7 @@ constexpr int kThreads = 128; // 4 warps
 constexpr int kStages = 3;    // K/V tiles in flight: the ring's depth
 constexpr int kMaxSplits = 8; // context splits of a row block: one cluster
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;        // (B, Sq, H, hd) through (qs0, qs1, qs2), inner stride 1
@@ -71,6 +76,7 @@ struct Params {
   const float* vsc;
   const int* bt;        // paged: the request's block table
   void* out;            // (B, Sq, H, hd) contiguous bf16
+  float* lse;           // flash: (B, H, Sq) f32 row log-sum-exp, or null
   int Sq, Sk, H, K, causal, q_off, ps_shift, P, splits;  // page size 1 << ps_shift
   long long qs0, qs1, qs2;
   long long ks0, ks1, ks2;  // flash: (batch, token, head); paged: (page, slot, head)
@@ -136,6 +142,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// natural-log LSE of a row from its log2-domain max and sum
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : __int_as_float(0x7f800000);
 }
 
 // Element offset of 16-byte chunk c of row t in a swizzled bf16 tile
@@ -562,6 +573,9 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
       for (int j = 0; j < kDB; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
             __floats2bfloat162_rn(o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
+      if (p.lse != nullptr && quad == 0)
+        p.lse[(static_cast<long long>(b) * p.H + kh * g + r % g) * p.Sq + r / g] =
+            row_lse(half ? mB : mA, half ? lB : lA);
     }
   } else {
     // the splits of one row block form a thread-block cluster: each writes
@@ -630,6 +644,8 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
       __nv_bfloat16* dst = out + (tok * p.H + kh * g + r % g) * HD + d4 * 4;
       reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
       reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+      if (p.lse != nullptr && d4 == 0)
+        p.lse[(static_cast<long long>(b) * p.H + kh * g + r % g) * p.Sq + r / g] = row_lse(M, L);
     }
     cluster.sync();  // no block leaves while another still reads its partials
   }

@@ -34,6 +34,10 @@
 // past Sk) by -1e30, give them weight exactly 0, keep V rows past the live
 // range out of p.V (zeroed, or never copied), and return acc / max(l,
 // 1e-30) rounded once to q's dtype.
+// Both take an optional LSE output (a null pointer from serving, which then
+// launches and times as before): with it, the CTA that writes a row also
+// writes the row's natural-log log-sum-exp of its scaled scores, f32
+// (B, H, Sq), which the backward kernel (flash_attention_bwd.cu) reads.
 #include "attention_tc.cuh"
 #include "common.cuh"
 
@@ -48,6 +52,7 @@ __global__ void flash_attention_kernel(
     const T* __restrict__ k,   // (B, Sk, K, hd) via strides
     const T* __restrict__ v,   // (B, Sk, K, hd_v) via strides
     T* __restrict__ out,       // (B, Sq, H, hd_v) contiguous
+    float* __restrict__ lse,   // (B, H, Sq) f32, or null
     int Sq, int Sk, int H, int K, int hd, int hd_v, int causal, int BM,
     long long qs0, long long qs1, long long qs2, long long qs3,
     long long ks0, long long ks1, long long ks2, long long ks3,
@@ -152,12 +157,22 @@ __global__ void flash_attention_kernel(
     const size_t tok = static_cast<size_t>(b) * Sq + row / g;
     out[(tok * H + head) * hd_v + d] = from_f32<T>(acc_s[i] / fmaxf(l_s[r], 1e-30f));
   }
+  if (lse != nullptr) {
+    for (int r = tid; r < rows; r += nt) {
+      const int row = r0 + r;
+      const size_t head = static_cast<size_t>(kh) * g + row % g;
+      const float l = l_s[r];
+      lse[(static_cast<size_t>(b) * H + head) * Sq + row / g] =
+          l > 0.f ? m_s[r] + logf(l) : __int_as_float(0x7f800000);
+    }
+  }
 }
 
 constexpr int kThreads = 256;
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Sk,
            int H, int K, int hd, int hd_v, int causal, int BM, long long qs0, long long qs1,
            long long qs2, long long qs3, long long ks0, long long ks1, long long ks2,
            long long ks3, long long vs0, long long vs1, long long vs2, long long vs3,
@@ -173,7 +188,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid(B * K, (Sq * g + BM - 1) / BM);
   flash_attention_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, K, hd, hd_v, causal, BM, qs0, qs1, qs2, qs3, ks0, ks1,
+      static_cast<T*>(out), lse, Sq, Sk, H, K, hd, hd_v, causal, BM, qs0, qs1, qs2, qs3, ks0, ks1,
       ks2, ks3, vs0, vs1, vs2, vs3, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -182,13 +197,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 }  // namespace repro_torch
 
 #define REPRO_FLASH_ENTRY(NAME, T)                                                         \
-  extern "C" int NAME(const void* q, const void* k, const void* v, void* out, int B,       \
-                      int Sq, int Sk, int H, int K, int hd, int hd_v, int causal, int BM,  \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* out, float* lse,  \
+                      int B, int Sq, int Sk, int H, int K, int hd, int hd_v, int causal, int BM,  \
                       long long qs0, long long qs1, long long qs2, long long qs3,          \
                       long long ks0, long long ks1, long long ks2, long long ks3,          \
                       long long vs0, long long vs1, long long vs2, long long vs3,          \
                       float scale, void* stream) {                                         \
-    return repro_torch::launch<T>(q, k, v, out, B, Sq, Sk, H, K, hd, hd_v, causal, BM, qs0, \
+    return repro_torch::launch<T>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, hd_v, causal, BM, qs0, \
                                   qs1, qs2, qs3, ks0, ks1, ks2, ks3, vs0, vs1, vs2, vs3,   \
                                   scale, stream);                                          \
   }
@@ -198,7 +213,7 @@ REPRO_FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
 
 // the tensor-core body (bf16, hd = hd_v in {16, 64, 128}; see attention_tc.cuh)
 extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out,
-                                       int B, int Sq, int Sk, int H, int K, int hd,
+                                       float* lse, int B, int Sq, int Sk, int H, int K, int hd,
                                        int causal, long long qs0, long long qs1,
                                        long long qs2, long long ks0, long long ks1,
                                        long long ks2, long long vs0, long long vs1,
@@ -208,6 +223,7 @@ extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void*
   p.k = k;
   p.v = v;
   p.out = out;
+  p.lse = lse;
   p.Sq = Sq;
   p.Sk = Sk;
   p.H = H;

@@ -87,6 +87,7 @@ def decode_attention(
     torch.Tensor
         ``(B, H, hd_v)`` in ``q.dtype``.
     """
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     tensors = (q, k_cache, v_cache)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"decode attention kernel takes CUDA tensors on one device, "

@@ -29,7 +29,20 @@ The wrapper takes CUDA tensors only, checks what the kernel accepts,
 allocates the output, launches on the current stream, raises if the
 launch was refused and counts its calls in ``flash_attention.launches``
 and, of those, the calls the tensor-core body served in
-``flash_attention.tc_launches``.
+``flash_attention.tc_launches``.  With ``return_lse`` both bodies also
+write each row's log-sum-exp, which the backward reads.
+
+:func:`flash_attention_bwd` wraps the backward kernel
+(``csrc/flash_attention_bwd.cu``: dq, dk, dv from q, k, v, the output,
+its LSE and the output's gradient; f32 math on the CUDA cores,
+deterministic, causal or bidirectional, ragged, GQA, strided inputs) for
+f32 and bf16 at ``hd == hd_v`` in
+:data:`~repro_torch.kernels._build.BWD_HEAD_DIMS` (:func:`backward_supported`;
+other head dims raise ``NotImplementedError``), counting its calls in
+``flash_attention_bwd.launches``.  The trainer reaches both through
+``ops._FlashAttention``.  Called directly with grad mode on and an input
+that requires grad, the forward wrapper raises (its output has no
+gradient).
 """
 
 from __future__ import annotations
@@ -66,6 +79,13 @@ def uses_tensor_cores(dtype: torch.dtype, shapes, strides, misalign) -> bool:
             and _build.rows_16b(shapes[2], strides[2], misalign[2], 2))
 
 
+def backward_supported(hd: int, hd_v: int) -> bool:
+    """Whether the backward kernel takes a call's head dims (pure Python):
+    ``hd == hd_v`` in ``BWD_HEAD_DIMS`` (stablelm-1.6b's 64, internlm2-20b's
+    and Jamba's 128, the smoke configs' 16)."""
+    return hd == hd_v and hd in _build.BWD_HEAD_DIMS
+
+
 def flash_attention(
     q: torch.Tensor,          # (B, Sq, H, hd)
     k: torch.Tensor,          # (B, Sk, K, hd)
@@ -74,7 +94,8 @@ def flash_attention(
     scale: Optional[float] = None,
     q_offset: int = 0,
     kv_len: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Flash attention with GQA; the semantics of ``ref.attention_ref``.
 
     With ``causal`` query token i sees key tokens 0..i; the ragged tail of
@@ -82,15 +103,19 @@ def flash_attention(
 
     Returns
     -------
-    torch.Tensor
-        ``(B, Sq, H, hd_v)`` in ``q.dtype``.
+    torch.Tensor or tuple of torch.Tensor
+        ``(B, Sq, H, hd_v)`` in ``q.dtype``; with ``return_lse`` also the
+        rows' log-sum-exp ``(B, H, Sq)`` float32 (``ref.attention_lse_ref``).
 
     Raises
     ------
     NotImplementedError
         For ``kv_len``, or a nonzero ``q_offset`` with ``causal``, as the
         TPU kernel does.
+    RuntimeError
+        With grad mode on and an input that requires grad.
     """
+    _build.refuse_grad("flash_attention", q, k, v)
     if kv_len is not None:
         raise NotImplementedError("per-batch kv_len: use ops.attention impl='ref'")
     if causal and q_offset != 0:
@@ -114,6 +139,8 @@ def flash_attention(
                          f"over k {tuple(k.shape)} / v {tuple(v.shape)} "
                          f"(head dims up to {MAX_HEAD_DIM})")
     out = torch.empty((B, Sq, H, hd_v), dtype=dtype, device=dev)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if return_lse else None
+    p_lse = None if lse is None else lse.data_ptr()
     scale = float(scale if scale is not None else hd ** -0.5)
     stream = _build.current_stream(dev)
     pq, pk, pv = q.data_ptr(), k.data_ptr(), v.data_ptr()
@@ -123,20 +150,84 @@ def flash_attention(
     if tc:
         name = "flash_attention_tc_bf16"
         code = _build.entry(name)(
-            pq, pk, pv, out.data_ptr(), B, Sq, Sk, H, K, hd, int(bool(causal)), qs[0],
+            pq, pk, pv, out.data_ptr(), p_lse, B, Sq, Sk, H, K, hd, int(bool(causal)), qs[0],
             qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
         )
     else:
         name = f"flash_attention_{_SUFFIX[dtype]}"
         code = _build.entry(name)(
-            pq, pk, pv, out.data_ptr(), B, Sq, Sk, H, K, hd, hd_v, int(bool(causal)),
+            pq, pk, pv, out.data_ptr(), p_lse, B, Sq, Sk, H, K, hd, hd_v, int(bool(causal)),
             BLOCK_ROWS, *qs, *ks, *vs, scale, stream,
         )
     _build.check(code, name)
     flash_attention.launches += 1
     flash_attention.tc_launches += tc
-    return out
+    return out if lse is None else (out, lse)
 
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,          # (B, Sq, H, hd)
+    k: torch.Tensor,          # (B, Sk, K, hd)
+    v: torch.Tensor,          # (B, Sk, K, hd)
+    o: torch.Tensor,          # (B, Sq, H, hd) the forward's output
+    lse: torch.Tensor,        # (B, H, Sq) f32, the forward's return_lse
+    do: torch.Tensor,         # (B, Sq, H, hd) gradient of o
+    causal: bool = True,
+    scale: Optional[float] = None,
+):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention`; the semantics
+    of ``ref.attention_bwd_ref``.
+
+    q, k, v, o and do are read through their strides; the gradients are
+    contiguous, in the inputs' dtype.  Keys past ``Sk`` are never read.
+
+    Raises
+    ------
+    NotImplementedError
+        For head dims the kernel is not built for (:func:`backward_supported`).
+    """
+    dev, dtype = q.device, q.dtype
+    ts = (q, k, v, o, do)
+    if not all(t.is_cuda and t.device == dev for t in ts + (lse,)):
+        raise ValueError("flash attention backward kernel takes CUDA tensors on one device")
+    if dtype not in _SUFFIX or any(t.dtype != dtype for t in ts):
+        raise ValueError(f"flash attention backward kernel takes f32/bf16 q, k, v, o and "
+                         f"do of one dtype, got {[t.dtype for t in ts]}")
+    if any(t.dim() != 4 for t in ts):
+        raise ValueError("flash attention backward kernel takes (B, S, heads, d) tensors")
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    hd_v = v.shape[3]
+    if not backward_supported(hd, hd_v):
+        raise NotImplementedError(f"flash attention backward: head dims {hd} / {hd_v} "
+                                  f"(built for hd == hd_v in {_build.BWD_HEAD_DIMS})")
+    if (k.shape != (B, Sk, K, hd) or v.shape != (B, Sk, K, hd) or H % K
+            or o.shape != (B, Sq, H, hd) or do.shape != (B, Sq, H, hd)):
+        raise ValueError(f"flash attention backward kernel: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)} do not match")
+    if lse.dtype != torch.float32 or lse.shape != (B, H, Sq) or not lse.is_contiguous():
+        raise ValueError(f"flash attention backward kernel takes a contiguous float32 lse "
+                         f"({B}, {H}, {Sq}), got {lse.dtype} {tuple(lse.shape)}")
+    dq = torch.empty((B, Sq, H, hd), dtype=dtype, device=dev)
+    dk = torch.empty((B, Sk, K, hd), dtype=dtype, device=dev)
+    dv = torch.empty((B, Sk, K, hd), dtype=dtype, device=dev)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    scale = float(scale if scale is not None else hd ** -0.5)
+    name = f"flash_attention_bwd_{_SUFFIX[dtype]}"
+    code = _build.entry(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd,
+        int(bool(causal)), *q.stride(), *k.stride(), *v.stride(), *o.stride(), *do.stride(),
+        scale, _build.current_stream(dev),
+    )
+    _build.check(code, name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

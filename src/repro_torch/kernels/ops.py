@@ -12,6 +12,18 @@ There is no fallback: a CUDA tensor whose kernel fails to build or to
 launch raises, it never goes to the plain version.  The paged attention
 entry points take ``k_scales``/``v_scales`` for int8 pools; on a CUDA
 device those go to the int8 kernels.
+
+Training: when autograd needs a gradient of a CUDA call
+(:func:`needs_grad`), :func:`attention` and :func:`rmsnorm` go through
+the autograd functions :class:`_FlashAttention` and :class:`_RMSNorm`,
+whose forward runs the forward kernel (flash with its LSE output) and
+whose backward runs the backward kernel (``flash_attention_bwd``,
+``rmsnorm_bwd``).  Without grad, the wrappers are called as before, and
+serving's launches do not change.  On the CPU autograd differentiates
+the plain versions, as JAX differentiates its jnp oracles.  The other
+wrappers have no backward kernel: called with grad needed they raise
+(``_build.refuse_grad``), never returning an output cut off from the
+graph.
 """
 
 from __future__ import annotations
@@ -23,12 +35,15 @@ import torch
 from . import _build
 from . import ref as _ref
 from .decode_attention import decode_attention as _da
+from .flash_attention import backward_supported as _fa_backward_supported
 from .flash_attention import flash_attention as _fa
+from .flash_attention import flash_attention_bwd as _fab
 from .paged_attention import paged_decode_attention as _pda
 from .paged_attention import paged_decode_attention_int8 as _pda8
 from .paged_attention import paged_prefill_attention as _ppa
 from .paged_attention import paged_prefill_attention_int8 as _ppa8
 from .rmsnorm import rmsnorm as _rn
+from .rmsnorm import rmsnorm_bwd as _rnb
 from .ssm_scan import ssm_scan as _ss
 
 IMPLS = ("ref", "cuda", "auto")
@@ -42,6 +57,8 @@ KERNELS = {
     "paged_decode_attention_int8": _pda8,
     "paged_prefill_attention_int8": _ppa8,
     "ssm_scan": _ss,
+    "flash_attention_bwd": _fab,
+    "rmsnorm_bwd": _rnb,
 }
 #: the wrappers with a tensor-core body beside their CUDA-core one
 TC_KERNELS = ("flash_attention", "paged_prefill_attention", "paged_prefill_attention_int8")
@@ -55,6 +72,51 @@ def _use_kernel(impl: str, x: torch.Tensor) -> bool:
     if impl == "cuda" and not x.is_cuda:
         raise ValueError(f"impl='cuda' needs a CUDA tensor, got one on {x.device}")
     return impl == "cuda" or (impl == "auto" and x.is_cuda)
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd needs a gradient through a call on ``tensors``:
+    grad mode is on and one of them requires grad (pure Python; the route
+    predicate of :func:`attention` and :func:`rmsnorm`)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention whose gradient is the backward kernel.
+
+    Forward: the flash kernel with its LSE output; saves q, k, v, the
+    output and the LSE.  Backward: ``flash_attention_bwd`` on them.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        out, lse = _fa(q, k, v, causal=causal, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fab(q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm whose gradient is the backward kernel (saves x and gamma)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps: float):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rn(x, gamma, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = _rnb(x, gamma, dy.contiguous(), eps=ctx.eps)
+        return dx, dgamma, None
 
 
 def load_kernels() -> None:
@@ -104,9 +166,20 @@ def attention(
 
     The kernel does not take ``kv_len`` or a causal ``q_offset`` and
     raises ``NotImplementedError`` for them; they are not sent to the
-    plain version instead.
+    plain version instead.  When a gradient is needed it runs through
+    :class:`_FlashAttention`, which raises ``NotImplementedError`` for
+    head dims the backward kernel is not built for.
     """
     if _use_kernel(impl, q):
+        if needs_grad(q, k, v):
+            if kv_len is not None or (causal and q_offset != 0):
+                raise NotImplementedError("flash attention with grad takes no kv_len "
+                                          "and no causal q_offset")
+            if not _fa_backward_supported(q.shape[-1], v.shape[-1]):
+                raise NotImplementedError(
+                    f"flash attention backward: head dims {q.shape[-1]} / "
+                    f"{v.shape[-1]} (built for hd == hd_v in {_build.BWD_HEAD_DIMS})")
+            return _FlashAttention.apply(q, k, v, causal, scale)
         return _fa(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                    kv_len=kv_len)
     return _ref.attention_ref(q, k, v, causal=causal, scale=scale,
@@ -196,6 +269,8 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
             impl: str = "auto") -> torch.Tensor:
     if _use_kernel(impl, x):
+        if needs_grad(x, gamma):
+            return _RMSNorm.apply(x, gamma, eps)
         return _rn(x, gamma, eps=eps)
     return _ref.rmsnorm_ref(x, gamma, eps=eps)
 

@@ -76,6 +76,7 @@ Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 def _check_pools(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                  what: str, scales: Scales = None) -> None:
+    _build.refuse_grad(what, q, k_pages, v_pages, *(scales or ()))
     dev = q.device
     if not (q.is_cuda and k_pages.device == dev and v_pages.device == dev
             and (scales is None or scales[0].device == dev and scales[1].device == dev)):

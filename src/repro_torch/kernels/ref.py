@@ -11,6 +11,13 @@ a NaN in a masked slot still reaches the output: they are not NaN-safe.
 The CUDA kernels replace masked scores and zero masked V rows instead;
 a NaN check therefore compares a kernel with itself on clean versus
 poisoned pages, never with these functions.
+
+The backward versions (:func:`attention_lse_ref`,
+:func:`attention_bwd_ref`, :func:`rmsnorm_bwd_ref`) write the gradients
+out formula by formula in float32, without autograd: they are what the
+backward kernels are held against on the card.  The model's CPU path
+never calls them; there autograd differentiates the forward versions,
+as JAX differentiates its jnp oracles.
 """
 
 from __future__ import annotations
@@ -55,6 +62,70 @@ def attention_ref(
     w = torch.softmax(logits + mask, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return out.reshape(B, Sq, H, hd_v).to(q.dtype)
+
+
+def _attention_scores(q, k, causal, scale):
+    """Scaled f32 scores ``(B, K, g, Sq, Sk)`` with the additive causal mask."""
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    g = H // K
+    qf = (q.float() * scale).reshape(B, Sq, K, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = s + torch.where(kpos > qpos, NEG_INF, 0.0)
+    return s
+
+
+def attention_lse_ref(
+    q: torch.Tensor,            # (B, S_q, H, hd)
+    k: torch.Tensor,            # (B, S_k, K, hd)
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The row log-sum-exp of the scaled, masked scores: ``(B, H, Sq)``
+    float32, natural log (what the flash kernel's optional LSE output
+    holds)."""
+    B, Sq, H, hd = q.shape
+    scale = scale if scale is not None else hd ** -0.5
+    s = _attention_scores(q, k, causal, scale)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,            # (B, S_q, H, hd)
+    k: torch.Tensor,            # (B, S_k, K, hd)
+    v: torch.Tensor,            # (B, S_k, K, hd_v)
+    o: torch.Tensor,            # (B, S_q, H, hd_v) the forward's output
+    lse: torch.Tensor,          # (B, H, S_q) f32 row log-sum-exp
+    do: torch.Tensor,           # (B, S_q, H, hd_v) gradient of o
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of :func:`attention_ref` (no ``kv_len``
+    or ``q_offset``), in q's, k's and v's dtypes.
+
+    Float32, formula by formula: ``P = exp(S - lse)``, ``dV = P^T dO``,
+    ``dP = dO V^T``, ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``,
+    ``dQ = dS K * scale``, ``dK = dS^T Q * scale``; a kv head's ``dK``
+    and ``dV`` sum over its group of query heads.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    hd_v = v.shape[-1]
+    g = H // K
+    scale = scale if scale is not None else hd ** -0.5
+    s = _attention_scores(q, k, causal, scale)                    # (B, K, g, Sq, Sk)
+    p = torch.exp(s - lse.float().reshape(B, K, g, Sq, 1))
+    dof = do.float().reshape(B, Sq, K, g, hd_v)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    dd = (dof * o.float().reshape(B, Sq, K, g, hd_v)).sum(-1)     # (B, Sq, K, g)
+    ds = p * (dp - dd.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.float().reshape(B, Sq, K, g, hd)) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +265,25 @@ def rmsnorm_ref(
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(
+    x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients ``(dx, dgamma)`` of :func:`rmsnorm_ref`, float32 math,
+    cast to x's and gamma's dtypes.
+
+    With ``r = rsqrt(mean(x^2) + eps)`` and ``u = dy * gamma`` (a row of d):
+    ``dx = r * u - x * r^3 * mean(u * x)`` and ``dgamma = sum_rows(dy * x * r)``.
+    """
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    dyf = dy.float().reshape(-1, d)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    u = dyf * gamma.float()
+    dx = r * u - xf * (r * r * r) * torch.mean(u * xf, dim=-1, keepdim=True)
+    dgamma = torch.sum(dyf * xf * r, dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,13 @@ the kernel is ``csrc/rmsnorm.cu``.  The wrapper takes CUDA tensors only
 the CPU through :mod:`repro_torch.kernels.ops`), checks what the kernel
 accepts, allocates the output, takes the warps a row from
 :func:`repro_torch.kernels._build.rmsnorm_warps` and counts its launches
-in ``rmsnorm.launches`` (a call with no rows launches nothing).
+in ``rmsnorm.launches`` (a call with no rows launches nothing).  Called
+with grad mode on and an input that requires grad it raises: its output
+has no gradient (the trainer's route is ``ops._RMSNorm``).
+
+:func:`rmsnorm_bwd` wraps the backward kernel (``csrc/rmsnorm_bwd.cu``:
+dx a row, dgamma through per-CTA f32 partials and a second reduction
+launch, deterministic), counted in ``rmsnorm_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     torch.Tensor
         Same shape and dtype as ``x``.
     """
+    _build.refuse_grad("rmsnorm", x, gamma)
     if not x.is_cuda or gamma.device != x.device:
         raise ValueError(
             f"rmsnorm kernel takes CUDA tensors on one device, got "
@@ -63,3 +70,53 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5):
+    """Gradients ``(dx, dgamma)`` of :func:`rmsnorm`; the semantics of
+    ``ref.rmsnorm_bwd_ref``.
+
+    Parameters
+    ----------
+    x, dy : torch.Tensor
+        ``(..., d)`` contiguous CUDA tensors of one dtype, float32 or
+        bfloat16, ``d <= RMSNORM_BWD_MAX_D``.
+    gamma : torch.Tensor
+        ``(d,)`` scale of the same dtype and device.
+
+    Returns
+    -------
+    tuple of torch.Tensor
+        ``dx`` shaped as x and ``dgamma`` ``(d,)``, in x's dtype.
+    """
+    if not (x.is_cuda and gamma.device == x.device and dy.device == x.device):
+        raise ValueError("rmsnorm backward kernel takes CUDA tensors on one device")
+    if x.dtype not in _SUFFIX or gamma.dtype != x.dtype or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm backward kernel takes f32/bf16 x, gamma and dy of one "
+                         f"dtype, got {x.dtype}, {gamma.dtype}, {dy.dtype}")
+    d = x.shape[-1]
+    if (gamma.shape != (d,) or dy.shape != x.shape or not x.is_contiguous()
+            or not dy.is_contiguous() or not gamma.is_contiguous()
+            or not 1 <= d <= _build.RMSNORM_BWD_MAX_D):
+        raise ValueError(f"rmsnorm backward kernel takes contiguous x and dy (..., d) and "
+                         f"gamma (d,), 1 <= d <= {_build.RMSNORM_BWD_MAX_D}; got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}, {tuple(gamma.shape)}")
+    dx = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return dx, torch.zeros_like(gamma)    # nothing to launch
+    run = _build.rmsnorm_bwd_rows(rows, _build.sm_count(x.device.index))
+    partial = torch.empty((-(-rows // run), d), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty_like(gamma)
+    name = f"rmsnorm_bwd_{_SUFFIX[x.dtype]}"
+    code = _build.entry(name)(
+        x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        dgamma.data_ptr(), rows, d, run, float(eps), _build.current_stream(x.device),
+    )
+    _build.check(code, name)
+    rmsnorm_bwd.launches += 1
+    return dx, dgamma
+
+
+rmsnorm_bwd.launches = 0

@@ -66,6 +66,7 @@ def ssm_scan(
     tuple of torch.Tensor
         ``y (B, T, D)`` in x's dtype and ``h_T (B, D, N)`` float32.
     """
+    _build.refuse_grad("ssm_scan", x, dt, A, Bm, Cm, D, h0)
     tensors = (x, dt, A, Bm, Cm, D) + (() if h0 is None else (h0,))
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError(f"ssm_scan kernel takes CUDA tensors on one device, "

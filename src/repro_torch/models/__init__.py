@@ -20,6 +20,7 @@ from .transformer import (
     init_cache,
     init_params,
     layer_kind,
+    lm_loss,
     prefill,
     superblock_len,
 )
@@ -28,5 +29,5 @@ __all__ = [
     "SHAPES", "EncoderConfig", "MLAConfig", "MambaConfig", "MoEConfig",
     "ModelConfig", "ShapeConfig", "XLSTMConfig", "shape_applicable",
     "decode_step", "encode", "forward", "init_cache", "init_params", "layer_kind",
-    "prefill", "superblock_len",
+    "lm_loss", "prefill", "superblock_len",
 ]

@@ -6,7 +6,8 @@ layout (``layer_kind``, ``superblock_len``, ``_scan_layout``),
 (``_apply_layer_full``, ``_apply_layer_decode``, ``_apply_ffn``, and
 Whisper's ``_audio_dec_layer_full`` / ``_audio_dec_layer_decode``), the
 encoder (``encode``, ``_cross_kvs``), ``forward``, and the cache functions
-``init_cache``, ``prefill`` and ``decode_step``.  A layer's mixer is GQA
+``init_cache``, ``prefill`` and ``decode_step``, and the training loss
+``lm_loss``.  A layer's mixer is GQA
 attention, cross-attention over encoder K/V, DeepSeek's multi-head latent
 attention (MLA), Mamba or an xLSTM cell (mLSTM, sLSTM; :mod:`.ssm`), its
 FFN a gated MLP (a leading ``dense_mlp`` layer of an MoE model included),
@@ -645,3 +646,28 @@ def decode_step(
     logits = L.unembed(params, x, cfg.tie_embeddings)
     cache["lengths"] = lengths + 1
     return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def lm_loss(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                      # (B, S) int
+    targets: torch.Tensor,                     # (B, S) int
+    enc_input: Optional[torch.Tensor] = None,  # VLM patches / Whisper frames
+) -> torch.Tensor:
+    """Mean next-token cross-entropy: float32 logits, logsumexp, the gold
+    logit gathered, mean over every position (a 0-dim float32 tensor).
+
+    ``forward`` writes nothing in place on this path, so autograd
+    differentiates it as it stands; on CUDA tensors its flash attention and
+    RMSNorm calls take the kernels' autograd functions
+    (``repro_torch.kernels.ops``).
+    """
+    logits, _ = forward(params, cfg, tokens, enc_input=enc_input)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -1,15 +1,26 @@
-"""Model-tier cost table: the cascade routing currency of the fleet.
+"""Model-tier cost table and the step builders.
 
-Copy of the tier table of ``repro/models/zoo.py`` (``TierSpec``,
-``MODEL_TIERS``, ``resolve_tier``, ``tier_spec``, ``cost_per_token``);
-the rest of that module (jitted train/serve steps) is JAX and is not
-ported here.  Prices and quality proxies are hand-set, not measured.
+Copy of ``repro/models/zoo.py``'s tier table (``TierSpec``,
+``MODEL_TIERS``, ``resolve_tier``, ``tier_spec``, ``cost_per_token``;
+prices and quality proxies are hand-set, not measured) and of its step
+builders (``build_train_step``, ``build_prefill_step``,
+``build_decode_step``, ``build_forward``).  JAX jits its steps; the port
+runs them eagerly, and the train step's autograd reaches the flash and
+RMSNorm backward kernels on the card (``repro_torch.kernels.ops``).  The
+dry-run shape helpers (``input_specs``, ``param_shapes``,
+``opt_state_shapes``) are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..distributed.optimizer import OptConfig, adamw_update, tree_leaves, tree_unflatten
+from . import transformer as T
+from .config import ModelConfig
 
 
 @dataclass(frozen=True)
@@ -137,3 +148,73 @@ def cost_per_token(name: str) -> Optional[float]:
     """
     spec = tier_spec(name)
     return spec.usd_per_mtok / 1e6 if spec is not None else None
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``jax.value_and_grad`` of :func:`~repro_torch.models.transformer.lm_loss`
+    at ``params``: ``(loss, grads)``, grads a tree shaped as params.
+
+    The loss is taken at aliases of the leaves that require grad
+    (``detach().requires_grad_()``: the same storage, the caller's tensors
+    untouched), so the gradients of a stacked leaf's per-layer views sum
+    into that leaf.  A leaf the loss does not use gets zeros, as JAX gives
+    it.  The graph, the float32 logits' gradient included, is freed before
+    this returns.
+    """
+    flat = tree_leaves(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        loss = T.lm_loss(tree_unflatten(params, leaves), cfg, batch["tokens"],
+                         batch["targets"], enc_input=batch.get("enc_input"))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def build_train_step(cfg: ModelConfig, opt_cfg: Optional[OptConfig] = None):
+    """``train_step(params, opt_state, batch) -> (new_params, new_state,
+    metrics{"loss", "grad_norm", "lr"})``.
+
+    ``batch`` holds ``tokens`` and ``targets`` (and ``enc_input`` for the
+    VLM and Whisper).  The update is in place (JAX donates both trees):
+    the returned trees hold the caller's tensors.
+    """
+    opt_cfg = opt_cfg or OptConfig()
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, cfg, batch)
+        new_params, new_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics["loss"] = loss
+        return new_params, new_state, metrics
+
+    return train_step
+
+
+def build_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None):
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        ml = max_len or (tokens.shape[1] + 8)
+        return T.prefill(params, cfg, tokens, max_len=ml,
+                         enc_input=batch.get("enc_input"))
+
+    return prefill_step
+
+
+def build_decode_step(cfg: ModelConfig):
+    def serve_step(params, batch):
+        return T.decode_step(params, cfg, batch["cache"], batch["tokens"])
+
+    return serve_step
+
+
+def build_forward(cfg: ModelConfig):
+    def fwd(params, batch):
+        logits, _ = T.forward(params, cfg, batch["tokens"],
+                              enc_input=batch.get("enc_input"))
+        return logits
+
+    return fwd

@@ -8,6 +8,12 @@ wrappers choose their split-context body the same way and split each
 row's context by shapes alone.  All are held here on plain tuples.  The last tests hold that :mod:`repro_torch.kernels.ops`
 sends a CPU tensor to :mod:`repro_torch.kernels.ref` and nowhere else: the
 kernels' library is made to raise if anything reaches for it.
+
+The trainer's routes too: ``ops.needs_grad`` (whether a call takes the
+autograd functions ``_FlashAttention`` / ``_RMSNorm``), the head dims the
+flash backward kernel takes, the RMSNorm backward's row split, and the
+raise of every kernel wrapper called directly with an input that
+requires grad (its output would carry no gradient).
 """
 
 import pytest
@@ -20,6 +26,9 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssm_scan as SS
 from repro_torch.kernels.flash_attention import uses_tensor_cores
 from repro_torch.kernels.paged_attention import prefill_splits, prefill_uses_tensor_cores
 
@@ -504,3 +513,132 @@ def test_ops_cuda_route_refuses_cpu_tensors(no_kernels):
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_prefill_attention(q[0], q, q, torch.zeros(2, dtype=torch.int32), 0,
                                     impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the trainer's routes: autograd functions on CUDA tensors, the raise
+# ---------------------------------------------------------------------------
+def test_needs_grad_is_grad_mode_and_an_input_that_requires_it():
+    a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    assert ops.needs_grad(a, b) and not ops.needs_grad(a, a) and not ops.needs_grad()
+    assert ops.needs_grad(None, b) and not ops.needs_grad(None)
+    with torch.no_grad():
+        assert not ops.needs_grad(a, b)
+
+
+@pytest.mark.parametrize("hd,hd_v,want", [
+    (64, 64, True),      # stablelm-1.6b
+    (128, 128, True),    # internlm2-20b, Jamba-1.5-Large
+    (16, 16, True),      # the smoke configs
+    (192, 128, False),   # MLA: queued
+    (32, 32, False), (256, 256, False), (64, 128, False),
+])
+def test_flash_backward_head_dims(hd, hd_v, want):
+    assert FA.backward_supported(hd, hd_v) is want
+
+
+@pytest.mark.parametrize("rows,sms,want", [
+    (4096, 132, 16),     # stablelm-1.6b training, batch 4 x 1024: 256 CTAs
+    (386, 132, 2),       # a 386-token admission's rows: 193 CTAs
+    (1, 132, 1), (264, 132, 1), (265, 132, 2), (10, 4, 2),
+])
+def test_rmsnorm_bwd_rows(rows, sms, want):
+    run = _build.rmsnorm_bwd_rows(rows, sms)
+    assert run == want
+    ctas = -(-rows // run)
+    assert ctas <= _build.RMSNORM_BWD_CTAS_PER_SM * sms and (ctas - 1) * run < rows
+
+
+def _grad_inputs():
+    rng = np.random.default_rng(90)
+    q = _t(rng, (1, 9, 4, 16), F32).requires_grad_()
+    kv = _t(rng, (1, 9, 2, 16), F32)
+    return q, kv
+
+
+def _wrapper_calls(q, kv):
+    """Every kernel wrapper, called directly with ``q`` (which requires grad)."""
+    lens = torch.tensor([5], dtype=torch.int32)
+    pool = kv[0, :8].reshape(2, 4, 2, 16)
+    pq, ps = torch.zeros(2, 4, 2, dtype=torch.int8), torch.ones(2, 4, 2)
+    bt = torch.tensor([[0, 1]], dtype=torch.int32)
+    x = q[0, :, 0]
+    return {
+        "flash_attention": lambda: FA.flash_attention(q, kv, kv),
+        "rmsnorm": lambda: RN.rmsnorm(x, torch.ones(16)),
+        "decode_attention": lambda: DA.decode_attention(q[:, 0], kv, kv, lens),
+        "paged_decode_attention": lambda: PA.paged_decode_attention(q[:, 0], pool, pool, bt,
+                                                                    lens),
+        "paged_decode_attention_int8": lambda: PA.paged_decode_attention_int8(
+            q[:, 0], pq, pq, bt, lens, ps, ps),
+        "paged_prefill_attention": lambda: PA.paged_prefill_attention(q[0], pool, pool,
+                                                                      bt[0], 0),
+        "paged_prefill_attention_int8": lambda: PA.paged_prefill_attention_int8(
+            q[0], pq, pq, bt[0], 0, ps, ps),
+        "ssm_scan": lambda: SS.ssm_scan(x[None], x[None], torch.zeros(16, 4),
+                                        torch.zeros(1, 9, 4), torch.zeros(1, 9, 4),
+                                        torch.zeros(16)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rmsnorm", "decode_attention",
+                                  "paged_decode_attention", "paged_decode_attention_int8",
+                                  "paged_prefill_attention", "paged_prefill_attention_int8",
+                                  "ssm_scan"])
+def test_a_wrapper_called_with_grad_raises(no_kernels, name):
+    """A wrapper's output has no grad_fn, so with grad needed it raises
+    (before it looks at the device); without grad it goes on to its
+    device check (a CPU tensor: ValueError), as before."""
+    q, kv = _grad_inputs()
+    call = _wrapper_calls(q, kv)[name]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        call()
+
+
+def test_backward_wrappers_refuse_cpu_tensors(no_kernels):
+    q, kv = _grad_inputs()
+    q = q.detach()
+    lse = torch.zeros(1, 4, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_bwd(q, kv, kv, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        RN.rmsnorm_bwd(q[0, :, 0], torch.ones(16), q[0, :, 0])
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_attention_on_cpu_differentiates_the_plain_version(no_kernels, dtype, causal):
+    """Autograd of the plain version (the CPU route, as JAX's) gives the
+    plain backward version's gradients."""
+    rng = np.random.default_rng(91)
+    q = _t(rng, (2, 13, 6, 16), dtype).requires_grad_()
+    k = _t(rng, (2, 13, 2, 16), dtype).requires_grad_()
+    v = _t(rng, (2, 13, 2, 16), dtype).requires_grad_()
+    o = ops.attention(q, k, v, causal=causal)
+    assert o.grad_fn is not None and not isinstance(o.grad_fn, ops._FlashAttention)
+    do = _t(rng, o.shape, dtype)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    lse = R.attention_lse_ref(q.detach(), k.detach(), causal=causal)
+    want = R.attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), lse, do,
+                               causal=causal)
+    tol = 3e-5 if dtype == F32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ops_rmsnorm_on_cpu_differentiates_the_plain_version(no_kernels, dtype):
+    rng = np.random.default_rng(92)
+    x = _t(rng, (3, 5, 48), dtype).requires_grad_()
+    g = (1 + 0.2 * _t(rng, (48,), F32)).to(dtype).requires_grad_()
+    y = ops.rmsnorm(x, g)
+    dy = _t(rng, y.shape, dtype)
+    got = torch.autograd.grad(y, (x, g), dy)
+    want = R.rmsnorm_bwd_ref(x.detach(), g.detach(), dy)
+    tol = 3e-5 if dtype == F32 else 2e-2
+    for a, b in zip(got, want):    # dgamma sums 15 rows: 15 roundings' worth of atol
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=tol * 15, rtol=tol)
