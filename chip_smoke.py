@@ -168,13 +168,27 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    (published widths, int8 state): a run that checkpoints at step 5 (a
    temporary directory) and a run that resumes from it give the
    uninterrupted run's losses for steps 6-10.
+   Every bf16 flash call of every step, forward and backward, must take
+   the tensor-core body (``tc_launches``), every float32 one in
+   ``held_train`` the CUDA-core body.
    The ``kernels`` phase holds both backward kernels against their plain
    backward versions in f32 and bf16 (flash at stablelm's training shape,
    internlm2-20b's g = 6 / hd 128, a ragged 386 with NaN K/V past Sk that
    must move no gradient, bidirectional with Sq != Sk; RMSNorm at 4096 and
-   386 x 2048; each deterministic to the bit), the flash forward's LSE
-   output against the plain LSE, and times both at stablelm's training
-   shape beside autograd's backward of SDPA and of ``F.rms_norm``.
+   386 x 2048; each deterministic to the bit; every bf16 flash case through
+   the backward's tensor-core body, every f32 one through its CUDA-core
+   body, and the ragged case once more in bf16 with its inputs off 16
+   bytes, through the bf16 CUDA-core body), the flash forward's LSE output
+   against the plain LSE, and times both at stablelm's training shape
+   beside autograd's backward of SDPA and of ``F.rms_norm``
+   (``timing_bf16``), flash at internlm2-20b's and Jamba's widths and
+   RMSNorm at 512 x 8192 (``timing_bf16_backward_wide``; the RMSNorm rows
+   give the CTAs a SM and rows a CTA the kernel took); ``bwd_witness``
+   gives the bf16 flash backward's and SDPA's backward's errors against
+   the plain backward on each case's inputs (max and norm-relative);
+   ``backward_ptxas`` lists each backward kernel's registers, spills and
+   SASS ``HMMA`` count (the tensor-core dK/dV and dQ kernels must hold
+   ``HMMA`` and spill nothing).
 
 The ``testbed`` phase also runs the ``ladder3`` cascade fleet: the
 stablelm-1.6b, internlm2-20b and Kimi-K2 smoke configs on three paged
@@ -497,7 +511,7 @@ def phase_env(build_mod) -> dict:
         "sass_mma": sass,
         "split_bodies": _split_bodies(info["log"], sass),
         "rmsnorm_ssm_ptxas": _ptxas_of(info["log"], _norm_scan_key),
-        "backward_ptxas": _ptxas_of(info["log"], _backward_key),
+        "backward_ptxas": _backward_ptxas(info["log"], sass),
         "nvidia_smi": smi_line(),
         "device": torch.cuda.get_device_name(0),
         "device_count": torch.cuda.device_count(),
@@ -561,17 +575,49 @@ def _norm_scan_key(name: str):
 
 
 def _backward_key(name: str):
-    """``<kernel><dtype[, HD]>`` of one instantiation of a backward kernel
-    (flash: ``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``; RMSNorm:
-    ``rmsnorm_bwd_kernel``, ``dgamma_kernel``); None for another kernel."""
+    """``<kernel><dtype[, HD or slots[, form]]>`` of one instantiation of a
+    backward kernel (flash: ``delta_kernel``, ``dkdv_kernel``,
+    ``dq_kernel`` and the tensor-core body's ``delta_tc_kernel``,
+    ``dkdv_tc_kernel``, ``dq_tc_kernel``, bf16 only; RMSNorm:
+    ``rmsnorm_bwd_kernel`` by the slots a thread holds and its aligned or
+    checked form, ``dgamma_kernel``), from its mangled or demangled name;
+    None for another kernel."""
     import re
 
-    m = re.search(r"(delta|dkdv|dq|rmsnorm_bwd|dgamma)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
-                  name)
+    kinds = r"(delta|dkdv|dq|rmsnorm_bwd|dgamma)(_tc)?_kernel"
+    m = (re.search(kinds + r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?(?:Lb([01])E)?", name)
+         or re.search(kinds + r"<(float|__nv_bfloat16)?(?:, )?(?:\(int\))?(\d+)?"
+                              r"(?:, (?:\(bool\))?(true|false|1|0))?>", name))
     if not m:
         return None
-    dtype = "f32" if m.group(2) == "f" else "bf16"
-    return f"{m.group(1)}<{dtype}" + (f", {m.group(3)}>" if m.group(3) else ">")
+    dtype = "f32" if m.group(3) in ("f", "float") else "bf16"
+    extra = m.group(4)
+    if extra and m.group(1) == "rmsnorm_bwd":
+        extra += " slots"
+    if m.group(5) is not None:
+        extra += ", aligned" if m.group(5) in ("1", "true") else ", checked"
+    return f"{m.group(1)}{m.group(2) or ''}<{dtype}" + (f", {extra}>" if extra else ">")
+
+
+def _backward_ptxas(log: str, sass) -> dict:
+    """Registers and spill bytes (``ptxas``) of every backward kernel
+    instantiation, with its SASS ``HMMA`` count where the toolkit has
+    ``cuobjdump``: the flash backward's tensor-core dK/dV and dQ kernels
+    must hold ``HMMA`` and spill nothing."""
+    out = _ptxas_of(log, _backward_key)
+    for name, counts in (sass or {}).items():
+        key = _backward_key(name)
+        if key in out:
+            out[key]["HMMA"] = counts["HMMA"]
+    from repro_torch.kernels import _build
+
+    tc = {k: v for k, v in out.items() if k.startswith(("dkdv_tc", "dq_tc"))}
+    check(len(tc) == 2 * len(_build.TC_HEAD_DIMS), f"backward tensor-core kernels: {sorted(tc)}")
+    check(all(v.get("spill_stores", 0) == v.get("spill_loads", 0) == 0 for v in tc.values()),
+          f"a backward tensor-core kernel spills: {tc}")
+    check(sass is None or all(v.get("HMMA", 0) > 0 for v in tc.values()),
+          f"a backward tensor-core kernel without HMMA: {tc}")
+    return out
 
 
 def _ptxas_of(log: str, key_of) -> dict:
@@ -1640,7 +1686,7 @@ def _rmsnorm_sweep(dev) -> dict:
     return out
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, backward_ptxas=None) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_prefill_attention,
@@ -1782,7 +1828,10 @@ def phase_kernels(dev) -> dict:
     wide = _wide_timing(dev, errs)
     scaling = _tc_scaling(dev)
     split_sweep = _decode_split_sweep(dev)
-    # every bf16 call timed above took the tensor-core body
+    timing.update(_backward_rows(dev))
+    backward_wide = _backward_wide(dev)
+    # every bf16 call timed above took the tensor-core body (the flash
+    # backward's too)
     launches, tcs = ops.launch_counts(), ops.tc_launch_counts()
     timed_tc = {k: {"launches": launches[k] - launches0[k], "tc_launches": tcs[k] - tc0[k]}
                 for k in ops.TC_KERNELS}
@@ -1802,11 +1851,11 @@ def phase_kernels(dev) -> dict:
     encdec = _encdec_rows(dev, errs, cases)
     norm_scan = phase_timing(dev, emit_line=False)
     timing["ssm_scan"] = norm_scan.pop("ssm_scan")
-    timing.update(_backward_rows(dev))
     sweeps = {"rmsnorm_sweep": _rmsnorm_sweep(dev)}
     out = {"max_abs_err": errs, "tol": {str(k): v for k, v in TOL.items()},
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, **norm_scan, **sweeps,
            **bwd, "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
+           "backward_ptxas": backward_ptxas, **backward_wide,
            "timing_bf16_wide": wide, "timing_bf16_mla_dense": mla_dense,
            "timing_bf16_encdec": encdec,
            "timed_tc": timed_tc, "timed_split": timed_split,
@@ -3200,25 +3249,86 @@ def _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, seed: int):
         R.attention_lse_ref(q, k, causal=causal), do
 
 
+def _errs_of(got, want) -> dict:
+    """Per gradient (dq, dk, dv): max |got - want| and the norm-relative
+    error ||got - want|| / ||want||."""
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        diff = a.float() - b.float()
+        out[name] = {"max_abs": float(diff.abs().max()),
+                     "rel": float(diff.norm() / b.float().norm())}
+    return out
+
+
+def _sdpa_bwd(q, k, v, do, causal: bool):
+    """Autograd's backward of SDPA on q, k, v of (B, S, heads, hd), GQA by
+    ``enable_gqa``: the library's bf16 backward, a witness of what bf16
+    rounding costs against the plain backward (never used by the port)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                        enable_gqa=q.shape[2] != k.shape[2])
+    grads = torch.autograd.grad(ot, (qt, kt, vt), do.transpose(1, 2).contiguous())
+    return tuple(t.transpose(1, 2) for t in grads)
+
+
+def _off_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view whose base is one element past a 16-byte
+    boundary, so no row of it is 16-byte aligned."""
+    buf = torch.zeros(t.numel() + 1, device=t.device, dtype=t.dtype)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
 def _check_backward_kernels(dev, errs, cases) -> dict:
     """Both backward kernels against their plain backward versions, f32 and
     bf16: flash at ``FLASH_BWD_CASES`` (and the forward's LSE output against
     the plain LSE), RMSNorm at ``RMSNORM_BWD_CASES``.  In the ragged case K/V
     past Sk are NaN (a view into a longer buffer) and no gradient may move.
-    Each kernel's second call must give the first's bits (deterministic)."""
+    Each kernel's second call must give the first's bits (deterministic).
+    Every bf16 flash case takes the backward's tensor-core body, every f32
+    case its CUDA-core body (``tc_launches``); the ragged case in bf16 is
+    also held with its five inputs off 16 bytes, which takes the bf16
+    CUDA-core body.  ``bwd_witness`` gives, for every bf16 flash case, the
+    kernel's and SDPA's backward's errors against the plain backward on the
+    same inputs (max and norm-relative)."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
     lse_err = 0.0
+    witness = {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, B, Sq, Sk, H, K, hd, causal in FLASH_BWD_CASES:
             q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, 51)
+            tc0 = flash_attention_bwd.tc_launches
             got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            check(flash_attention_bwd.tc_launches - tc0 == (dtype == torch.bfloat16),
+                  f"flash_attention_bwd ({label}, {dtype}) took the wrong body")
             want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], _bwd_err(
                     a, b, dtype, f"flash_attention_bwd {name} ({label}, {dtype})"))
+            if dtype == torch.bfloat16:
+                witness[label] = {"kernel": _errs_of(got, want),
+                                  "sdpa": _errs_of(_sdpa_bwd(q, k, v, do, causal), want)}
+            if dtype == torch.bfloat16 and label == "ragged":
+                # the bf16 CUDA-core body: every input off 16 bytes
+                args = [_off_16_bytes(t) for t in (q, k, v, o)] + [lse, _off_16_bytes(do)]
+                n0, tc0 = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
+                off = flash_attention_bwd(*args, causal=causal)
+                check(flash_attention_bwd.launches == n0 + 1
+                      and flash_attention_bwd.tc_launches == tc0,
+                      "flash_attention_bwd off 16 bytes did not take the CUDA-core body")
+                for name, a, b in zip(("dq", "dk", "dv"), off, want):
+                    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], _bwd_err(
+                        a, b, dtype, f"flash_attention_bwd {name} ({label}, off 16 bytes)"))
+                check(all(torch.equal(a, b) for a, b in
+                          zip(off, flash_attention_bwd(*args, causal=causal))),
+                      "flash_attention_bwd off 16 bytes is not deterministic")
+                cases.append(("flash_attention_bwd", f"{label}, off 16 bytes", str(dtype)))
+                del args, off
             del want
             again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -3251,7 +3361,8 @@ def _check_backward_kernels(dev, errs, cases) -> dict:
                   f"rmsnorm_bwd is not deterministic ({rows} x {d}, {dtype})")
             cases.append(("rmsnorm_bwd", rows, d, str(dtype)))
     torch.cuda.synchronize()
-    return {"lse_max_abs_err": lse_err, "bwd_tol": {str(k): v for k, v in BWD_TOL.items()}}
+    return {"lse_max_abs_err": lse_err, "bwd_tol": {str(k): v for k, v in BWD_TOL.items()},
+            "bwd_witness": witness}
 
 
 def _backward_rows(dev, B=4, S=1024, H=32, hd=64, n=4096, d=2048) -> dict:
@@ -3289,8 +3400,68 @@ def _backward_rows(dev, B=4, S=1024, H=32, hd=64, n=4096, d=2048) -> dict:
     rows["rmsnorm_bwd"] = dict(
         **_times(lambda: rmsnorm_bwd(x, gamma, dy), lambda: R.rmsnorm_bwd_ref(x, gamma, dy),
                  lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True)),
-        bound_ms=nb, bound_by=fl, shape=f"rows={n} d={d}")
+        bound_ms=nb, bound_by=fl, shape=f"rows={n} d={d}", **_rmsnorm_bwd_split(x))
     return rows
+
+
+def _rmsnorm_bwd_split(x: torch.Tensor) -> dict:
+    """The slots, CTAs a SM and rows a CTA the RMSNorm backward takes on
+    ``x`` (contiguous, so its form is the aligned one where d allows it)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_aligned
+
+    n, d = x.shape
+    slots = _build.rmsnorm_bwd_slots(d, x.dtype)
+    aligned = rmsnorm_bwd_aligned(d, x.element_size(), x.data_ptr())
+    per_sm = _build.rmsnorm_bwd_ctas_per_sm(x.dtype, d, slots, aligned, x.device.index)
+    return {"slots": slots, "aligned": aligned, "ctas_per_sm": per_sm,
+            "rows_per_cta": _build.rmsnorm_bwd_rows(n, _build.sm_count(x.device.index), per_sm)}
+
+
+def _backward_wide(dev) -> dict:
+    """The backward kernels at the other training widths, bf16: flash at
+    internlm2-20b's (B = 1, S = 1024, H = 48, K = 8, hd 128) and
+    Jamba-1.5-Large's (B = 1, S = 512, H = 64, K = 8, hd 128), causal (the
+    library call: autograd's SDPA backward with K/V expanded to the H
+    heads), RMSNorm at Jamba's 512 x 8192."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    dt, es = torch.bfloat16, 2
+    rows = {}
+    for label, (B, S, H, K, hd) in (("internlm2-20b", (1, 1024, 48, 8, 128)),
+                                    ("jamba-1.5-large", (1, 512, 64, 8, 128))):
+        q, k, v, o, lse, do = _flash_bwd_inputs(dev, dt, B, S, S, H, K, hd, True, 55)
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        pairs = S * (S + 1) // 2
+        nb, fl = bound((4 * B * S * H * hd + 4 * B * S * K * hd) * es + 4 * B * H * S,
+                       10 * B * H * hd * pairs, dt)
+        rows[f"flash_attention_bwd {label}"] = dict(
+            **_times(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                     lambda: R.attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+                     lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)),
+            bound_ms=nb, bound_by=fl, shape=f"B={B} Sq=Sk={S} causal H={H} K={K} hd={hd}")
+        del q, k, v, o, lse, do, qt, kt, vt, ot, dot
+    n, d = 512, 8192
+    g = torch.Generator(device=dev).manual_seed(56)
+    x = torch.randn(n, d, generator=g, device=dev).to(dt)
+    gamma = (1 + 0.2 * torch.randn(d, generator=g, device=dev)).to(dt)
+    dy = torch.randn(n, d, generator=g, device=dev).to(dt)
+    xl, gl = x.clone().requires_grad_(), gamma.clone().requires_grad_()
+    yl = F.rms_norm(xl, (d,), gl, 1e-5)
+    nb, fl = bound(3 * n * d * es + 2 * d * es, 8 * n * d, dt)
+    rows[f"rmsnorm_bwd {n}x{d}"] = dict(
+        **_times(lambda: rmsnorm_bwd(x, gamma, dy), lambda: R.rmsnorm_bwd_ref(x, gamma, dy),
+                 lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True)),
+        bound_ms=nb, bound_by=fl, shape=f"rows={n} d={d}", **_rmsnorm_bwd_split(x))
+    return {"timing_bf16_backward_wide": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -3308,9 +3479,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 20
 TRAIN_LR = "1e-5"
 TRAIN_TRACE_STEPS = 3
 #: the kernels whose device time a traced train step reports: the flash
-#: backward's three launches, RMSNorm's backward's two, and the forwards
-TRAIN_SHARE_KERNELS = ("dkdv_kernel", "dq_kernel", "delta_kernel", "rmsnorm_bwd_kernel",
-                       "dgamma_kernel", "attention_tc_kernel", "rmsnorm_kernel")
+#: backward's three launches (its tensor-core body's, which bf16 training
+#: takes, and its CUDA-core body's), RMSNorm's backward's two, and the
+#: forwards
+TRAIN_SHARE_KERNELS = ("dkdv_tc_kernel", "dq_tc_kernel", "delta_tc_kernel", "dkdv_kernel",
+                       "dq_kernel", "delta_kernel", "rmsnorm_bwd_kernel", "dgamma_kernel",
+                       "attention_tc_kernel", "rmsnorm_kernel")
 RESTART_LAYERS, RESTART_STEPS, RESTART_AT = 2, 10, 5
 # held_train: card (kernels) against CPU (plain versions), float32 with TF32
 # off: the loss and the gradient norm to summation order, each gradient leaf
@@ -3324,10 +3498,12 @@ HELD_TRAIN_TOL = 1e-5
 RESTART_TOL = 1e-5
 
 
-def _train_launches(counts, cfg, passes: int, what: str) -> None:
+def _train_launches(counts, tcs, cfg, passes: int, what: str) -> None:
     """Every flash and RMSNorm call of ``passes`` train-step passes of an
     attention model ran a kernel forward and backward: flash once a layer,
-    RMSNorm twice a layer plus the final norm, each with its backward."""
+    RMSNorm twice a layer plus the final norm, each with its backward; in
+    bf16 every flash call, forward and backward, took the tensor-core body
+    (``tcs``: ``ops.tc_launch_counts()``), in float32 none."""
     n = cfg.n_layers
     want = {"flash_attention": n * passes, "flash_attention_bwd": n * passes,
             "rmsnorm": (2 * n + 1) * passes, "rmsnorm_bwd": (2 * n + 1) * passes}
@@ -3335,6 +3511,10 @@ def _train_launches(counts, cfg, passes: int, what: str) -> None:
     check(got == want, f"{what}: launches {got}, want {want}")
     others = {k: v for k, v in counts.items() if k not in want and v}
     check(not others, f"{what}: unexpected launches {others}")
+    tc = n * passes if cfg.dtype == "bfloat16" else 0
+    got = {k: tcs[k] for k in ("flash_attention", "flash_attention_bwd")}
+    check(got == {"flash_attention": tc, "flash_attention_bwd": tc},
+          f"{what}: tensor-core launches {got}, want {tc} each")
 
 
 def phase_held_train(dev) -> dict:
@@ -3361,7 +3541,7 @@ def phase_held_train(dev) -> dict:
         p = params_from_numpy(weights, d)
         ops.reset_launch_counts()
         loss, grads = loss_and_grads(p, cfg, batches[0])
-        counts = ops.launch_counts()
+        counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
         step = build_train_step(cfg, opt)
         state = init_opt_state(p, opt)
         losses = []
@@ -3369,10 +3549,10 @@ def phase_held_train(dev) -> dict:
             p, state, m = step(p, state, b)
             losses.append(float(m["loss"]))
         out[str(d)] = {"loss": float(loss), "grads": [g.cpu() for g in tree_leaves(grads)],
-                       "losses": losses, "counts": counts}
+                       "losses": losses, "counts": counts, "tcs": tcs}
     torch.cuda.synchronize()
     c, g = out["cpu"], out[str(dev)]
-    _train_launches(g["counts"], cfg, 1, "held_train")
+    _train_launches(g["counts"], g["tcs"], cfg, 1, "held_train")
     gnorm = {k: float(torch.sqrt(sum(x.double().square().sum() for x in v["grads"])))
              for k, v in (("cpu", c), ("card", g))}
     leaf_err = max(_bwd_err(a, b, torch.float32, "held_train gradient")
@@ -3418,12 +3598,12 @@ def _train_run(dev, state_dtype: str) -> dict:
                          "--opt-state", state_dtype, "--lr", TRAIN_LR, "--seed", "0"],
                         report=report)
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     cfg, losses = report["cfg"], report["losses"]
     check(rc == 0 and losses[-1] < losses[0],
           f"train ({state_dtype}): rc {rc}, loss {losses[0]} -> {losses[-1]}")
-    _train_launches(counts, cfg, TRAIN_STEPS, f"train ({state_dtype})")
+    _train_launches(counts, tcs, cfg, TRAIN_STEPS, f"train ({state_dtype})")
     n = _param_counts(report["params"])
     step_s = report["step_s"]
     p50 = statistics.median(step_s)
@@ -3448,7 +3628,7 @@ def _train_run(dev, state_dtype: str) -> dict:
            "train_tok_s": tok_s, "params": n,
            "mfu": 6 * n["total"] * tok_s / PEAK_FLOPS[torch.bfloat16],
            "mfu_note": "6 N tokens/s / 989e12, N = embedding + non-embedding parameters",
-           "peak_gib": peak, "launches": counts,
+           "peak_gib": peak, "launches": counts, "tc_launches": tcs,
            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items() if v},
            "backward_launches_per_step": (counts["flash_attention_bwd"]
                                           + counts["rmsnorm_bwd"]) / TRAIN_STEPS,
@@ -3518,7 +3698,8 @@ def phase_train(dev) -> dict:
                                           "backward_launches_per_step")}
                     | {"device_idle_share": v["profile"]["device_idle_share"]}
                     for k, v in runs.items()},
-           "launches": runs["float32"]["launches"], "restart": restart}
+           "launches": runs["float32"]["launches"],
+           "tc_launches": runs["float32"]["tc_launches"], "restart": restart}
     emit("train", **res)
     return res
 
@@ -3553,8 +3734,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     signal.signal(signal.SIGALRM, _stalled)
     dev = torch.device("cuda", 0)
-    phase_env(_build)
-    kern = phase_kernels(dev) if "kernels" in phases else None
+    env = phase_env(_build)
+    kern = phase_kernels(dev, env["backward_ptxas"]) if "kernels" in phases else None
     if "timing" in phases:
         phase_timing(dev)
     from repro_torch.configs import get_config
@@ -3617,7 +3798,8 @@ def main(argv=None) -> int:
         tc_launches = {"flash_attention": tb["llmsched"]["tc_launches"]["flash_attention"],
                        "paged_prefill_attention": eng["tc_launches"]["paged_prefill_attention"],
                        "paged_prefill_attention_int8":
-                           eng["tc_launches_int8"]["paged_prefill_attention_int8"]}
+                           eng["tc_launches_int8"]["paged_prefill_attention_int8"],
+                       "flash_attention_bwd": trn["tc_launches"]["flash_attention_bwd"]}
         split_launches = {
             "decode_attention": tb["llmsched"]["split_launches"]["decode_attention"],
             "paged_decode_attention": eng["split_launches"]["paged_decode_attention"],

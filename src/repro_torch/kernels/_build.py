@@ -72,8 +72,11 @@ SIGNATURES: Dict[str, List] = {
     # the backward kernels (csrc/flash_attention_bwd.cu, csrc/rmsnorm_bwd.cu)
     "flash_attention_bwd_f32": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
     "flash_attention_bwd_bf16": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
-    "rmsnorm_bwd_f32": [P] * 6 + [I] * 3 + [F, P],
-    "rmsnorm_bwd_bf16": [P] * 6 + [I] * 3 + [F, P],
+    "flash_attention_bwd_tc_bf16": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
+    "rmsnorm_bwd_f32": [P] * 6 + [I] * 5 + [F, P],
+    "rmsnorm_bwd_bf16": [P] * 6 + [I] * 5 + [F, P],
+    "rmsnorm_bwd_ctas_per_sm_f32": [I] * 3 + [P],
+    "rmsnorm_bwd_ctas_per_sm_bf16": [I] * 3 + [P],
 }
 #: head dims the tensor-core attention body is built for (hd == hd_v)
 TC_HEAD_DIMS = (16, 64, 128)
@@ -109,13 +112,17 @@ RMSNORM_WARPS = (1, 2, 4, 8, 16)
 #: lanes a channel the selective-scan launcher has a form for, and the
 #: states each lane holds (csrc/ssm_scan.cu)
 SSM_LANES = (1, 2, 4)
-#: head dims the flash backward kernel is built for (hd == hd_v)
+#: head dims the flash backward kernel is built for (hd == hd_v); bf16 calls
+#: with 16-byte rows take its tensor-core body at each of them
 BWD_HEAD_DIMS = (16, 64, 128)
-#: widest row the RMSNorm backward kernel takes (gamma and its dgamma
-#: partial, two f32 rows, in a CTA's shared memory), and the CTAs a SM its
-#: row split aims at (csrc/rmsnorm_bwd.cu)
+#: widest row the RMSNorm backward kernel takes (the part of a row past its
+#: register slots keeps its f32 dgamma partial in a CTA's shared memory),
+#: and the 16-byte vectors of a row one of its threads can hold in
+#: registers (csrc/rmsnorm_bwd.cu)
 RMSNORM_BWD_MAX_D = 28672
-RMSNORM_BWD_CTAS_PER_SM = 2
+RMSNORM_BWD_SLOTS = (1, 2, 4)
+#: threads of that kernel's CTA, which holds one row at a time
+RMSNORM_BWD_THREADS = 256
 SSM_STATES_PER_LANE = 4
 SSM_MAX_STATE = 16
 
@@ -138,14 +145,48 @@ def rmsnorm_warps(d: int, dtype: torch.dtype) -> int:
     return next((w for w in RMSNORM_WARPS if w * per_warp >= d), RMSNORM_WARPS[-1])
 
 
-def rmsnorm_bwd_rows(rows: int, sms: int) -> int:
+def rmsnorm_bwd_rows(rows: int, sms: int, ctas_per_sm: int) -> int:
     """Rows one CTA of the RMSNorm backward kernel walks: an equal run that
-    gives ``RMSNORM_BWD_CTAS_PER_SM`` CTAs to each of the ``sms`` (fewer for
-    fewer rows).  Each CTA leaves one f32 dgamma partial row, summed by a
-    second launch, so the run also sets the scratch (``ceil(rows / run)``
-    rows of d).  Shapes only: the result is the same call after call."""
-    ctas = max(1, min(rows, RMSNORM_BWD_CTAS_PER_SM * sms))
+    gives ``ctas_per_sm`` CTAs to each of the ``sms`` (fewer for fewer
+    rows), so that the launch runs in one wave.  Each CTA leaves one f32
+    dgamma partial row, summed by a second launch (a CTA a 32-column slice,
+    16 warps over the partials), so the run also sets the scratch
+    (``ceil(rows / run)`` rows of d).  Shapes only: the result is the same
+    call after call."""
+    ctas = max(1, min(rows, ctas_per_sm * sms))
     return -(-rows // ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_bwd_ctas_per_sm(dtype: torch.dtype, d: int, slots: int, aligned: bool,
+                            index: int) -> int:
+    """CTAs of the RMSNorm backward kernel's form (``slots``, ``aligned``)
+    at width ``d`` that one SM of CUDA device ``index`` holds at once: the
+    CUDA occupancy of the kernel as ``ptxas`` built it (its registers and
+    shared memory), asked of the launcher.  Two of the aligned one-slot
+    form at 128 registers a thread, one of a form near 170.  Cached: it
+    runs on every launch."""
+    out = ctypes.c_int(0)
+    name = f"rmsnorm_bwd_ctas_per_sm_{'f32' if dtype == torch.float32 else 'bf16'}"
+    with torch.cuda.device(index):
+        check(entry(name)(d, slots, int(aligned), ctypes.addressof(out)), name)
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_bwd_slots(d: int, dtype: torch.dtype) -> int:
+    """16-byte vectors of a row of ``d`` ``dtype`` values (float32 or
+    bfloat16) each thread of the RMSNorm backward kernel holds in
+    registers: the fewest of ``RMSNORM_BWD_SLOTS`` whose slots take the row
+    (one at stablelm-1.6b's d = 2048 in bf16, four at Jamba's 8192), else
+    the most (a wider row streams the rest).  The kernel keeps
+    ``4 / slots`` rows in flight, so a thread's loads in flight stay four
+    vectors of x and four of dy.  The launcher takes it and refuses a value
+    it has no form for.  Cached: it runs on every launch."""
+    if dtype not in (torch.float32, torch.bfloat16) or d < 1:
+        raise ValueError(f"rmsnorm_bwd_slots: no form for d={d}, {dtype}")
+    per_slot = RMSNORM_BWD_THREADS * (16 // (4 if dtype == torch.float32 else 2))
+    return next((s for s in RMSNORM_BWD_SLOTS if s * per_slot >= d), RMSNORM_BWD_SLOTS[-1])
 
 
 def ssm_scan_lanes(N: int) -> int:

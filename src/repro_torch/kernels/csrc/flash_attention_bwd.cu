@@ -11,35 +11,60 @@
 // S = 1024, causal, H = K = 32, hd = 64) the five products of the gradient
 // over the 524,800 live (query, key) pairs a head are 43 GFLOP, 0.043 ms at
 // the bf16 tensor-core rate, against 0.025 ms for the bytes (q, k, v, o,
-// dout, lse in; dq, dk, dv out). This body does not reach that: it is the
-// simple, deterministic first form, f32 math on the CUDA cores (a later PR
-// moves its products to the tensor cores).
+// dout, lse in; dq, dk, dv out). Recomputing S and dP in the dQ pass makes
+// the work seven products, ~64 GFLOP over the live 64 x 64 tiles.
 //
-// Design (FlashAttention-2's backward, three launches, no atomics, so the
-// result is the same bit for bit run after run):
-// 1. delta: D = rowsum(dout * o) a (batch, head, token) row, one warp a row,
-//    into an f32 scratch (B, H, Sq) the wrapper allocates;
-// 2. dk/dv: one CTA per (batch, kv head, block of kBN keys). The query-head
+// Three launches, no atomics, so the result is the same bit for bit run
+// after run (FlashAttention-2's backward):
+// 1. delta: D = rowsum(dout * o) a (batch, head, token) row into an f32
+//    scratch (B, H, Sq) the wrapper allocates;
+// 2. dk/dv: one CTA per (batch, kv head, block of keys). The query-head
 //    group is folded into the query rows as in the forward (row r is token
 //    r / g of head kh*g + r % g), so the CTA walks the row blocks of the
 //    whole group (causal: only those whose tokens reach its keys), and for
 //    each recomputes P = exp(S*scale - lse) and dP = dout V^T, and adds
 //    dV += P^T dout and dK += dS^T Q with dS = P * (dP - D). Its dk and dv
 //    stay in registers over the walk and are written once;
-// 3. dq: one CTA per block of kBM folded query rows (the forward's grid),
-//    walking the key blocks it sees (causal: up to its last row's token),
-//    dQ += dS K, written once.
-// Tiles are staged in shared memory as f32 (bf16 widened as it is read), 256
-// threads a CTA as a 16 x 16 grid, each thread a 4 x 4 patch of a 64 x 64
-// product (rows ty + 16 i, columns tx + 16 j: one row pair a warp, so the
-// row operand is a broadcast and the column operand conflict-free through a
-// padded row stride). q, k, v, o and dout are read through their strides
-// ((B, S, heads, d)); dq, dk, dv are contiguous, rounded once from f32.
+// 3. dq: one CTA per block of folded query rows (the forward's grid, longest
+//    first), walking the key blocks it sees (causal: up to its last row's
+//    token), dQ += dS K, written once.
 // Masking as in the forward: a key at or past Sk, or (causal) past the row's
 // token, and a row past Sq*g, have P = 0 by select; keys past Sk and rows
 // past the end are never read (zeros are staged), so garbage there, even
-// NaN, moves no gradient. Head dims 16, 64, 128 with hd == hd_v; the wrapper
-// refuses others.
+// NaN, moves no gradient. dq, dk, dv are contiguous, rounded once from f32.
+// Head dims 16, 64, 128 with hd == hd_v; the wrapper refuses others.
+//
+// Two bodies; the wrapper (flash_attention.py, backward_uses_tensor_cores)
+// picks one by shape:
+// - bf16 whose q, k, v, o and dout rows are 16-byte aligned with inner
+//   stride 1: the tensor-core body (entry flash_attention_bwd_tc_bf16),
+//   built from attention_tc.cuh's pieces (mma.sync m16n8k16 bf16 with f32
+//   accumulation, ldmatrix and ldmatrix.trans on XOR-swizzled tiles,
+//   cp.async with zero-fill). 128 threads, 4 warps of 16 rows each.
+//   - delta: 16-byte loads, hd / 8 lanes a row;
+//   - dk/dv: 64 keys a CTA, 16 a warp. K and V stay resident in shared
+//     memory; the walk's Q, dout, LSE and D tiles come through a
+//     double-buffered cp.async ring. A warp computes S^T = K Q^T and
+//     dP^T = V dout^T (its 16 keys x the block's rows) directly, so P^T and
+//     dS^T are already A operands in registers for dV += P^T dout and
+//     dK += dS^T Q (dout and Q through ldmatrix.trans): P and dS are
+//     rounded once to bf16 there, as FlashAttention-2 and SDPA's backward
+//     do, with no trip through shared memory. Steps of 32 rows (64 at hd
+//     16), so the f32 dk, dv, S^T and dP^T fit the registers without
+//     spilling;
+//   - dq: 64 rows a CTA, 16 a warp, Q and dout resident in shared memory,
+//     K and V tiles of 64 keys through the ring; S and dP on the tensor
+//     cores, dS rounded once to bf16 as the A operand of dQ += dS K (K
+//     through ldmatrix.trans).
+// - f32, and bf16 with rows off 16 bytes or strided inner dims: the
+//   CUDA-core body, f32 math (held_train runs the card in f32 against the
+//   CPU). Tiles are staged in shared memory as f32 (bf16 widened as it is
+//   read), 256 threads a CTA as a 16 x 16 grid, each thread a 4 x 4 patch of
+//   a 64 x 64 product (rows ty + 16 i, columns tx + 16 j: one row pair a
+//   warp, so the row operand is a broadcast and the column operand
+//   conflict-free through a padded row stride); q, k, v, o and dout are read
+//   through their strides ((B, S, heads, d)).
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace repro_torch {
@@ -373,10 +398,477 @@ int launch(const BwdParams& p, int hd, void* stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16)
+// ---------------------------------------------------------------------------
+namespace tcb {
+
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::exp2_approx;
+using tc::ldsm_x4;
+using tc::ldsm_x4_t;
+using tc::mma_bf16;
+using tc::pack_bf16;
+using tc::smem_addr;
+using tc::swz;
+
+constexpr int kThreads = 128;  // 4 warps, 16 rows (keys or folded rows) each
+constexpr int kTile = 64;      // keys of a dk/dv CTA, rows of a dq CTA, keys a dq step
+constexpr int kStages = 2;     // the walk's tiles in flight: double-buffered
+
+// folded query rows a step of the dk/dv walk: 32 at hd 64 and 128. Each
+// thread holds the f32 dk and dv (hd / 2 registers each) and S^T and dP^T
+// (rows / 2 each): at hd 128 32 rows keep them in registers, at hd 64 they
+// take 164 registers a thread (chip_smoke.py's env line), so three CTAs
+// share a SM where 64 rows left two
+template <int HD>
+struct KV {
+  static constexpr int kRows = HD >= 64 ? 32 : 64;
+  static constexpr uint32_t kKeyTile = kTile * HD * 2;    // bytes of K (or V)
+  static constexpr uint32_t kRowTile = kRows * HD * 2;    // bytes of Q (or dout) a step
+  static constexpr uint32_t kStage = 2 * kRowTile + 2 * kRows * sizeof(float);
+  static constexpr size_t kBytes = 2 * kKeyTile + kStages * kStage;
+};
+
+template <int HD>
+struct Q {
+  static constexpr uint32_t kTileBytes = kTile * HD * 2;  // bytes of one [64][HD] tile
+  static constexpr size_t kBytes = (2 + 2 * kStages) * static_cast<size_t>(kTileBytes);
+};
+
+// Copy rows [r0, r0 + ROWS) of a (B, S, heads, HD) bf16 tensor into a
+// swizzled [ROWS][HD] tile, 16 bytes a copy: with FOLDED (q, dout) row r is
+// token r / g of head kh*g + r % g, else (k, v) token r of head kh. Rows at
+// or past `limit` are zero-filled and never read.
+template <int HD, int ROWS, bool FOLDED>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const void* src, const long long* st,
+                                          int b, int kh, int g, int r0, int limit) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kStep = kThreads / kChunks;
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(src) + b * st[0];
+  const int c = threadIdx.x % kChunks;
+#pragma unroll
+  for (int t = threadIdx.x / kChunks; t < ROWS; t += kStep) {
+    const int row = r0 + t;
+    const bool live = row < limit;
+    const __nv_bfloat16* s = base;
+    if (live) {
+      s += c * 8;
+      if (FOLDED)
+        s += (row / g) * st[1] + static_cast<long long>(kh * g + row % g) * st[2];
+      else
+        s += row * st[1] + kh * st[2];
+    }
+    cp_async16(dst + 2 * swz<HD>(t, c), s, live);
+  }
+}
+
+// LSE and D of folded rows [r0, r0 + ROWS) (f32 (B, H, Sq)), ROWS floats
+// each; rows past n_rows are zero-filled (their tiles are masked)
+template <int ROWS>
+__device__ __forceinline__ void copy_stats(uint32_t dst, const BwdParams& p, int b, int kh,
+                                           int g, int r0, int n_rows) {
+  const int t = threadIdx.x;
+  if (t >= 2 * ROWS) return;
+  const int m = t % ROWS;
+  const int row = r0 + m;
+  const bool live = row < n_rows;
+  const float* src = t < ROWS ? p.lse : p.delta;
+  if (live) src += (static_cast<long long>(b) * p.H + kh * g + row % g) * p.Sq + row / g;
+  cp_async4(dst + t * sizeof(float), src, live);
+}
+
+// 1. D = rowsum(dout * o): hd / 8 lanes a (b, token, head) row, 16 bytes each
+template <int HD>
+__global__ void __launch_bounds__(256) delta_tc_kernel(const BwdParams p) {
+  constexpr int L = HD / 8;
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / L;
+  const int c = threadIdx.x % L;
+  const bool live = row < static_cast<long long>(p.B) * p.Sq * p.H;
+  float acc = 0.f;
+  int b = 0, t = 0, h = 0;
+  if (live) {
+    h = static_cast<int>(row % p.H);
+    const long long bt = row / p.H;
+    t = static_cast<int>(bt % p.Sq);
+    b = static_cast<int>(bt / p.Sq);
+    const uint4 o = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.o) + b * p.os[0] + t * p.os[1] + h * p.os[2] + c * 8);
+    const uint4 d = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.dout) + b * p.dos[0] + t * p.dos[1] +
+        h * p.dos[2] + c * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 df = __bfloat1622float2(d2[i]);
+      acc = fmaf(df.x, of.x, acc);
+      acc = fmaf(df.y, of.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && c == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.Sq + t] = acc;
+}
+
+// 2. dk, dv: one CTA per (b * K + kh, block of 64 keys), longest first
+template <int HD>
+__global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S = KV<HD>;
+  constexpr int BM = S::kRows;
+  const int g = p.H / p.K;
+  const int b = blockIdx.x / p.K;
+  const int kh = blockIdx.x - b * p.K;
+  const int n0 = blockIdx.y * kTile;
+  const int n_rows = p.Sq * g;
+  const int causal = p.causal;
+  const float scale_log2 = p.scale * tc::kLog2e;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int lm = lane >> 3;  // ldmatrix: the matrix this lane addresses
+  const int lr = lane & 7;   // ... and its row
+
+  const uint32_t k_s = smem_addr(smem);
+  const uint32_t v_s = k_s + S::kKeyTile;
+  const uint32_t ring = v_s + S::kKeyTile;
+
+  // causal: rows whose token is at least n0 see this block's keys
+  const int rb0 = causal ? (n0 * g) / BM : 0;
+  const int rb_end = (n_rows + BM - 1) / BM;
+  copy_rows<HD, kTile, false>(k_s, p.k, p.ks, b, kh, 1, n0, p.Sk);
+  copy_rows<HD, kTile, false>(v_s, p.v, p.vs, b, kh, 1, n0, p.Sk);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (rb0 + i < rb_end) {
+      const uint32_t st = ring + i * S::kStage;
+      copy_rows<HD, BM, true>(st, p.q, p.qs, b, kh, g, (rb0 + i) * BM, n_rows);
+      copy_rows<HD, BM, true>(st + S::kRowTile, p.dout, p.dos, b, kh, g, (rb0 + i) * BM, n_rows);
+      copy_stats<BM>(st + 2 * S::kRowTile, p, b, kh, g, (rb0 + i) * BM, n_rows);
+    }
+    cp_async_commit();
+  }
+
+  // this thread's two keys (rows of S^T), and the first folded row each sees
+  const int nA = n0 + warp * 16 + (lane >> 2);
+  const int nB = nA + 8;
+  const int lowA = causal ? nA * g : 0;
+  const int lowB = causal ? nB * g : 0;
+  const int n_last = n0 + warp * 16 + 15;  // the warp's last key
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int rb = rb0; rb < rb_end; ++rb) {
+    const int slot = (rb - rb0) % kStages;
+    const int next = rb + kStages - 1;
+    if (next < rb_end) {
+      const uint32_t st = ring + ((next - rb0) % kStages) * S::kStage;
+      copy_rows<HD, BM, true>(st, p.q, p.qs, b, kh, g, next * BM, n_rows);
+      copy_rows<HD, BM, true>(st + S::kRowTile, p.dout, p.dos, b, kh, g, next * BM, n_rows);
+      copy_stats<BM>(st + 2 * S::kRowTile, p, b, kh, g, next * BM, n_rows);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this step's tiles (and K, V) have landed
+    __syncthreads();
+    const uint32_t q_t = ring + slot * S::kStage;
+    const uint32_t do_t = q_t + S::kRowTile;
+    const float* lse_s = reinterpret_cast<const float*>(smem + (q_t - k_s) + 2 * S::kRowTile);
+    const float* dd_s = lse_s + BM;
+    const int r0 = rb * BM;
+
+    // S^T = K Q^T and dP^T = V dout^T: the warp's 16 keys x BM rows
+    float s[BM / 8][4], dp[BM / 8][4];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      const int a_off = 2 * swz<HD>(warp * 16 + (lm & 1) * 8 + lr, 2 * kk + (lm >> 1));
+      ldsm_x4(k_s + a_off, ka[0], ka[1], ka[2], ka[3]);
+      ldsm_x4(v_s + a_off, va[0], va[1], va[2], va[3]);
+#pragma unroll
+      for (int n2 = 0; n2 < BM / 16; ++n2) {
+        const int b_off = 2 * swz<HD>(n2 * 16 + (lm >> 1) * 8 + lr, 2 * kk + (lm & 1));
+        uint32_t f[4];
+        ldsm_x4(q_t + b_off, f[0], f[1], f[2], f[3]);
+        mma_bf16(s[2 * n2], ka, f[0], f[1]);
+        mma_bf16(s[2 * n2 + 1], ka, f[2], f[3]);
+        ldsm_x4(do_t + b_off, f[0], f[1], f[2], f[3]);
+        mma_bf16(dp[2 * n2], va, f[0], f[1]);
+        mma_bf16(dp[2 * n2 + 1], va, f[2], f[3]);
+      }
+    }
+
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), dS^T = P^T (dP^T - D);
+    // a step that crosses the diagonal, the last rows or Sk selects P = 0
+    // for each dead (key, row) pair
+    const bool masked = (causal && r0 < n_last * g) || r0 + BM > n_rows || n_last >= p.Sk;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const int c = j * 8 + quad * 2;
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dd = *reinterpret_cast<const float2*>(dd_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = exp2_approx(fmaf(s[j][e], scale_log2, -((e & 1) ? l.y : l.x) * tc::kLog2e));
+        if (masked) {
+          const int m = r0 + c + (e & 1);
+          const bool live = m >= (e < 2 ? lowA : lowB) && m < n_rows && (e < 2 ? nA : nB) < p.Sk;
+          pv = live ? pv : 0.f;
+        }
+        s[j][e] = pv;
+        dp[j][e] = pv * (dp[j][e] - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+    // the accumulators of two 8-row column blocks are the A operand of a
+    // 16-row k-step: P^T and dS^T rounded once to bf16
+    uint32_t pa[BM / 16][4], sa[BM / 16][4];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+      sa[j >> 1][(j & 1) * 2] = pack_bf16(dp[j][0], dp[j][1]);
+      sa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dp[j][2], dp[j][3]);
+    }
+    // dV += P^T dout and dK += dS^T Q (ldmatrix.trans: k = rows, n = head dims)
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        const int off = 2 * swz<HD>(kk * 16 + (lm & 1) * 8 + lr, 2 * d2 + (lm >> 1));
+        uint32_t f[4];
+        ldsm_x4_t(do_t + off, f[0], f[1], f[2], f[3]);
+        mma_bf16(dv[2 * d2], pa[kk], f[0], f[1]);
+        mma_bf16(dv[2 * d2 + 1], pa[kk], f[2], f[3]);
+        ldsm_x4_t(q_t + off, f[0], f[1], f[2], f[3]);
+        mma_bf16(dk[2 * d2], sa[kk], f[0], f[1]);
+        mma_bf16(dk[2 * d2 + 1], sa[kk], f[2], f[3]);
+      }
+    }
+    __syncthreads();  // the next step's copies reuse this stage
+  }
+  // causal with Sk > Sq: a block of keys no row reaches walks no step, and
+  // its K and V copies must land before the CTA exits
+  cp_async_wait<0>();
+
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? nB : nA;
+    if (key >= p.Sk) continue;
+    const long long base = ((static_cast<long long>(b) * p.Sk + key) * p.K + kh) * HD + quad * 2;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + base + j * 8) =
+          __floats2bfloat162_rn(dk[j][2 * half] * p.scale, dk[j][2 * half + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + base + j * 8) =
+          __floats2bfloat162_rn(dv[j][2 * half], dv[j][2 * half + 1]);
+    }
+  }
+}
+
+// 3. dq: one CTA per (b * K + kh, block of 64 folded rows), longest first.
+// Three CTAs a SM at hd <= 64: ptxas's own register target there spilled a
+// word; at hd 128 the f32 dq takes the registers of two
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD >= 128 ? 1 : 3) dq_tc_kernel(const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S = Q<HD>;
+  const int g = p.H / p.K;
+  const int b = blockIdx.x / p.K;
+  const int kh = blockIdx.x - b * p.K;
+  const int n_rows = p.Sq * g;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int rows = min(kTile, n_rows - r0);
+  const int causal = p.causal;
+  const float scale_log2 = p.scale * tc::kLog2e;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int lm = lane >> 3;
+  const int lr = lane & 7;
+
+  const uint32_t q_s = smem_addr(smem);
+  const uint32_t do_s = q_s + S::kTileBytes;
+  const uint32_t ring = do_s + S::kTileBytes;  // stages of [K tile | V tile]
+
+  // causal: the block's last row sees keys 0 .. its own token
+  const int n_k = causal ? min(p.Sk, (r0 + rows - 1) / g + 1) : p.Sk;
+  const int n_tiles = (n_k + kTile - 1) / kTile;
+  copy_rows<HD, kTile, true>(q_s, p.q, p.qs, b, kh, g, r0, n_rows);
+  copy_rows<HD, kTile, true>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) {
+      const uint32_t st = ring + i * 2 * S::kTileBytes;
+      copy_rows<HD, kTile, false>(st, p.k, p.ks, b, kh, 1, i * kTile, n_k);
+      copy_rows<HD, kTile, false>(st + S::kTileBytes, p.v, p.vs, b, kh, 1, i * kTile, n_k);
+    }
+    cp_async_commit();
+  }
+
+  // this thread's two rows: log2-domain LSE (+inf past the end: P = 0), D,
+  // and the end of the keys each sees
+  const int rA = r0 + warp * 16 + (lane >> 2);
+  const int rB = rA + 8;
+  float lseA = __int_as_float(0x7f800000), lseB = lseA, dA = 0.f, dB = 0.f;
+  if (rA < n_rows) {
+    const long long at = (static_cast<long long>(b) * p.H + kh * g + rA % g) * p.Sq + rA / g;
+    lseA = p.lse[at] * tc::kLog2e;
+    dA = p.delta[at];
+  }
+  if (rB < n_rows) {
+    const long long at = (static_cast<long long>(b) * p.H + kh * g + rB % g) * p.Sq + rB / g;
+    lseB = p.lse[at] * tc::kLog2e;
+    dB = p.delta[at];
+  }
+  const int endA = causal ? min(n_k, rA / g + 1) : n_k;
+  const int endB = causal ? min(n_k, rB / g + 1) : n_k;
+  // a tile that ends at or before the warp's first row's end needs no mask
+  const int end_warp = causal ? min(n_k, (r0 + warp * 16) / g + 1) : n_k;
+
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int next = tile + kStages - 1;
+    if (next < n_tiles) {
+      const uint32_t st = ring + (next % kStages) * 2 * S::kTileBytes;
+      copy_rows<HD, kTile, false>(st, p.k, p.ks, b, kh, 1, next * kTile, n_k);
+      copy_rows<HD, kTile, false>(st + S::kTileBytes, p.v, p.vs, b, kh, 1, next * kTile, n_k);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this tile (and Q, dout) have landed
+    __syncthreads();
+    const uint32_t k_t = ring + (tile % kStages) * 2 * S::kTileBytes;
+    const uint32_t v_t = k_t + S::kTileBytes;
+    const int t0 = tile * kTile;
+
+    // S = Q K^T and dP = dout V^T: the warp's 16 rows x 64 keys
+    float s[kTile / 8][4], dp[kTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      const int a_off = 2 * swz<HD>(warp * 16 + (lm & 1) * 8 + lr, 2 * kk + (lm >> 1));
+      ldsm_x4(q_s + a_off, qa[0], qa[1], qa[2], qa[3]);
+      ldsm_x4(do_s + a_off, oa[0], oa[1], oa[2], oa[3]);
+#pragma unroll
+      for (int n2 = 0; n2 < kTile / 16; ++n2) {
+        const int b_off = 2 * swz<HD>(n2 * 16 + (lm >> 1) * 8 + lr, 2 * kk + (lm & 1));
+        uint32_t f[4];
+        ldsm_x4(k_t + b_off, f[0], f[1], f[2], f[3]);
+        mma_bf16(s[2 * n2], qa, f[0], f[1]);
+        mma_bf16(s[2 * n2 + 1], qa, f[2], f[3]);
+        ldsm_x4(v_t + b_off, f[0], f[1], f[2], f[3]);
+        mma_bf16(dp[2 * n2], oa, f[0], f[1]);
+        mma_bf16(dp[2 * n2 + 1], oa, f[2], f[3]);
+      }
+    }
+
+    // dS = P (dP - D), P = 0 by select past each row's end on a tile that
+    // crosses the diagonal or the last key; rounded once to bf16 A operands
+    const bool masked = t0 + kTile > end_warp;
+    const int col = t0 + quad * 2;
+    uint32_t sa[kTile / 16][4];
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = exp2_approx(fmaf(s[j][e], scale_log2, -(e < 2 ? lseA : lseB)));
+        if (masked) pv = col + j * 8 + (e & 1) < (e < 2 ? endA : endB) ? pv : 0.f;
+        ds[e] = pv * (dp[j][e] - (e < 2 ? dA : dB));
+      }
+      sa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      sa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    // dQ += dS K (ldmatrix.trans: k = keys, n = head dims)
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        uint32_t f[4];
+        ldsm_x4_t(k_t + 2 * swz<HD>(kk * 16 + (lm & 1) * 8 + lr, 2 * d2 + (lm >> 1)), f[0], f[1],
+                  f[2], f[3]);
+        mma_bf16(dq[2 * d2], sa[kk], f[0], f[1]);
+        mma_bf16(dq[2 * d2 + 1], sa[kk], f[2], f[3]);
+      }
+    }
+    __syncthreads();  // the next tile's copies reuse this stage
+  }
+
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rB : rA;
+    if (r >= n_rows) continue;
+    const long long base =
+        ((static_cast<long long>(b) * p.Sq + r / g) * p.H + kh * g + r % g) * HD + quad * 2;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + base + j * 8) =
+          __floats2bfloat162_rn(dq[j][2 * half] * p.scale, dq[j][2 * half + 1] * p.scale);
+  }
+}
+
+template <int HD>
+int launch_hd(const BwdParams& p, cudaStream_t s) {
+  static size_t granted_kv[kMaxDevices] = {};
+  static size_t granted_q[kMaxDevices] = {};
+  cudaError_t err = allow_smem(dkdv_tc_kernel<HD>, KV<HD>::kBytes, granted_kv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(dq_tc_kernel<HD>, Q<HD>::kBytes, granted_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long lanes = static_cast<long long>(p.B) * p.Sq * p.H * (HD / 8);
+  delta_tc_kernel<HD><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int g = p.H / p.K;
+  dkdv_tc_kernel<HD><<<dim3(p.B * p.K, (p.Sk + kTile - 1) / kTile), kThreads, KV<HD>::kBytes,
+                       s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_tc_kernel<HD><<<dim3(p.B * p.K, (p.Sq * g + kTile - 1) / kTile), kThreads, Q<HD>::kBytes,
+                     s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const BwdParams& p, int hd, void* stream) {
+  if (p.B == 0 || p.Sq == 0 || p.Sk == 0 || p.H == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_hd<16>(p, s);
+    case 64: return launch_hd<64>(p, s);
+    case 128: return launch_hd<128>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tcb
+
+
 }  // namespace
 }  // namespace repro_torch
 
-#define REPRO_FLASH_BWD_ENTRY(NAME, T)                                                      \
+#define REPRO_FLASH_BWD_ENTRY(NAME, LAUNCH)                                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* o,          \
                       const void* dout, const float* lse, float* delta, void* dq, void* dk, \
                       void* dv, int B, int Sq, int Sk, int H, int K, int hd, int causal,    \
@@ -413,8 +905,10 @@ int launch(const BwdParams& p, int hd, void* stream) {
       p.dos[i] = st[16 + i];                                                                \
     }                                                                                       \
     p.scale = scale;                                                                        \
-    return repro_torch::launch<T>(p, hd, stream);                                           \
+    return LAUNCH(p, hd, stream);                                                           \
   }
 
-REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_f32, float)
-REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_bf16, __nv_bfloat16)
+REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_f32, repro_torch::launch<float>)
+REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_bf16, repro_torch::launch<__nv_bfloat16>)
+// the tensor-core body: bf16 rows 16-byte aligned, inner stride 1 (the wrapper checks)
+REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_tc_bf16, repro_torch::tcb::launch)

@@ -34,15 +34,20 @@ write each row's log-sum-exp, which the backward reads.
 
 :func:`flash_attention_bwd` wraps the backward kernel
 (``csrc/flash_attention_bwd.cu``: dq, dk, dv from q, k, v, the output,
-its LSE and the output's gradient; f32 math on the CUDA cores,
-deterministic, causal or bidirectional, ragged, GQA, strided inputs) for
-f32 and bf16 at ``hd == hd_v`` in
-:data:`~repro_torch.kernels._build.BWD_HEAD_DIMS` (:func:`backward_supported`;
-other head dims raise ``NotImplementedError``), counting its calls in
-``flash_attention_bwd.launches``.  The trainer reaches both through
-``ops._FlashAttention``.  Called directly with grad mode on and an input
-that requires grad, the forward wrapper raises (its output has no
-gradient).
+its LSE and the output's gradient; deterministic, causal or
+bidirectional, ragged, GQA, strided inputs) for f32 and bf16 at
+``hd == hd_v`` in :data:`~repro_torch.kernels._build.BWD_HEAD_DIMS`
+(:func:`backward_supported`; other head dims raise
+``NotImplementedError``).  It too has two bodies, chosen by shape
+(:func:`backward_uses_tensor_cores`): bf16 whose q, k, v, o and do rows
+are 16-byte aligned with inner stride 1 takes the tensor-core body
+(FlashAttention-2's backward on ``mma.sync``), everything else (f32, rows
+off 16 bytes, strided inner dims) the CUDA-core body in f32 math.  Its
+calls are counted in ``flash_attention_bwd.launches`` and, of those, the
+tensor-core body's in ``flash_attention_bwd.tc_launches``.  The trainer
+reaches both through ``ops._FlashAttention``.  Called directly with grad
+mode on and an input that requires grad, the forward wrapper raises (its
+output has no gradient).
 """
 
 from __future__ import annotations
@@ -77,6 +82,24 @@ def uses_tensor_cores(dtype: torch.dtype, shapes, strides, misalign) -> bool:
     return (_build.rows_16b(shapes[0], strides[0], misalign[0], 2)
             and _build.rows_16b(shapes[1], strides[1], misalign[1], 2)
             and _build.rows_16b(shapes[2], strides[2], misalign[2], 2))
+
+
+def backward_uses_tensor_cores(dtype: torch.dtype, shapes, strides, misalign) -> bool:
+    """Whether the backward's tensor-core body serves a call (else its
+    CUDA-core body).
+
+    Pure Python on what q, k, v, o and do describe: ``dtype``, and their
+    ``shapes``, ``strides`` (in elements) and ``data_ptr() % 16``, each a
+    5-tuple in that order.  True for bf16 with ``hd == hd_v`` in
+    ``TC_HEAD_DIMS`` whose five tensors' rows are 16-byte aligned with
+    inner stride 1.
+    """
+    if dtype != torch.bfloat16:
+        return False
+    hd = shapes[0][-1]
+    if hd != shapes[2][-1] or hd not in _build.TC_HEAD_DIMS:
+        return False
+    return all(_build.rows_16b(sh, st, m, 2) for sh, st, m in zip(shapes, strides, misalign))
 
 
 def backward_supported(hd: int, hd_v: int) -> bool:
@@ -218,7 +241,10 @@ def flash_attention_bwd(
     dv = torch.empty((B, Sk, K, hd), dtype=dtype, device=dev)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     scale = float(scale if scale is not None else hd ** -0.5)
-    name = f"flash_attention_bwd_{_SUFFIX[dtype]}"
+    tc = backward_uses_tensor_cores(dtype, tuple(t.shape for t in ts),
+                                    tuple(t.stride() for t in ts),
+                                    tuple(t.data_ptr() % 16 for t in ts))
+    name = "flash_attention_bwd_tc_bf16" if tc else f"flash_attention_bwd_{_SUFFIX[dtype]}"
     code = _build.entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd,
@@ -227,7 +253,9 @@ def flash_attention_bwd(
     )
     _build.check(code, name)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += tc
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0

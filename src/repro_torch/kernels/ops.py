@@ -61,7 +61,8 @@ KERNELS = {
     "rmsnorm_bwd": _rnb,
 }
 #: the wrappers with a tensor-core body beside their CUDA-core one
-TC_KERNELS = ("flash_attention", "paged_prefill_attention", "paged_prefill_attention_int8")
+TC_KERNELS = ("flash_attention", "paged_prefill_attention", "paged_prefill_attention_int8",
+              "flash_attention_bwd")
 #: the wrappers with a split-context decode body beside their other one
 SPLIT_KERNELS = ("decode_attention", "paged_decode_attention", "paged_decode_attention_int8")
 

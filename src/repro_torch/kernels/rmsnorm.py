@@ -11,8 +11,12 @@ with grad mode on and an input that requires grad it raises: its output
 has no gradient (the trainer's route is ``ops._RMSNorm``).
 
 :func:`rmsnorm_bwd` wraps the backward kernel (``csrc/rmsnorm_bwd.cu``:
-dx a row, dgamma through per-CTA f32 partials and a second reduction
-launch, deterministic), counted in ``rmsnorm_bwd.launches``.
+one pass over x and dy held in registers, dx a row, dgamma through
+per-CTA f32 partials and a second reduction launch, deterministic; the
+slots a thread holds from
+:func:`repro_torch.kernels._build.rmsnorm_bwd_slots`, the form from
+:func:`rmsnorm_bwd_aligned`, the rows a CTA from the form's occupancy),
+counted in ``rmsnorm_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -106,13 +110,19 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     rows = x.numel() // d
     if rows == 0:
         return dx, torch.zeros_like(gamma)    # nothing to launch
-    run = _build.rmsnorm_bwd_rows(rows, _build.sm_count(x.device.index))
+    slots = _build.rmsnorm_bwd_slots(d, x.dtype)
+    aligned = rmsnorm_bwd_aligned(d, x.element_size(), x.data_ptr(), gamma.data_ptr(),
+                                  dy.data_ptr(), dx.data_ptr())
+    index = x.device.index
+    per_sm = _build.rmsnorm_bwd_ctas_per_sm(x.dtype, d, slots, aligned, index)
+    run = _build.rmsnorm_bwd_rows(rows, _build.sm_count(index), per_sm)
     partial = torch.empty((-(-rows // run), d), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     name = f"rmsnorm_bwd_{_SUFFIX[x.dtype]}"
     code = _build.entry(name)(
         x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        dgamma.data_ptr(), rows, d, run, float(eps), _build.current_stream(x.device),
+        dgamma.data_ptr(), rows, d, run, slots, int(aligned), float(eps),
+        _build.current_stream(x.device),
     )
     _build.check(code, name)
     rmsnorm_bwd.launches += 1
@@ -120,3 +130,12 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
 
 
 rmsnorm_bwd.launches = 0
+
+
+def rmsnorm_bwd_aligned(d: int, itemsize: int, *ptrs: int) -> bool:
+    """Whether the RMSNorm backward kernel takes its aligned form (every
+    access one plain 16-byte vector): each of the contiguous tensors' data
+    pointers ``ptrs`` starts on 16 bytes and a row of ``d`` values of
+    ``itemsize`` bytes is a whole number of 16-byte vectors.  The launcher
+    refuses the aligned form where this does not hold."""
+    return d % (16 // itemsize) == 0 and not any(p % 16 for p in ptrs)

@@ -16,11 +16,16 @@ gradient compression are not ported yet (one device).  ``synthetic_batch``
 draws with the same numpy calls, so a seed gives JAX's batches; the
 weights are the port's own draw from ``--seed``.
 
-One deliberate departure: a run resumed at step ``s`` first draws (and
-drops) the ``s`` batches the steps before it took, so step ``s + 1`` sees
-the batch an uninterrupted run gives it and a restart reproduces the
-uninterrupted losses.  The JAX launcher restarts its data stream at the
-first batch on resume.
+Two deliberate departures:
+
+- a run resumed at step ``s`` first draws (and drops) the ``s`` batches
+  the steps before it took, so step ``s + 1`` sees the batch an
+  uninterrupted run gives it and a restart reproduces the uninterrupted
+  losses.  The JAX launcher restarts its data stream at the first batch
+  on resume;
+- a run that resumes at or past ``--steps`` takes no step, prints
+  "nothing to do" and returns 1.  The JAX launcher raises ``IndexError``
+  there (it reads ``losses[0]`` of an empty list).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\

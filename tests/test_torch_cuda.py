@@ -1354,10 +1354,15 @@ def test_encdec_models_on_card_match_cpu(dev, arch):
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (B, S_q, S_k, H, K, hd, causal): stablelm-1.6b's training shape,
 # internlm2-20b's widths (g = 6, hd 128), a ragged 386, bidirectional with
-# S_q != S_k, the smoke widths
+# S_q != S_k, the smoke widths, Jamba-1.5-Large's (g = 8, hd 128), a causal
+# S that is no multiple of the 64-key blocks with g = 3, hd 16 with g = 4,
+# causal with S_q < S_k (key blocks that no row reaches: dk, dv zero there);
+# every bf16 call here takes the tensor-core body
 FLASH_BWD_SHAPES = [(4, 1024, 1024, 32, 32, 64, True), (1, 512, 512, 48, 8, 128, True),
                     (1, 386, 386, 32, 32, 64, True), (2, 200, 333, 6, 2, 64, False),
-                    (2, 37, 37, 4, 4, 16, True)]
+                    (2, 37, 37, 4, 4, 16, True), (1, 512, 512, 64, 8, 128, True),
+                    (2, 333, 333, 12, 4, 64, True), (1, 150, 150, 8, 2, 16, True),
+                    (1, 200, 333, 6, 2, 64, True)]
 
 
 def _bwd_close(got, want, dtype):
@@ -1384,9 +1389,10 @@ def test_flash_bwd_kernel_matches_plain_backward(dev, B, Sq, Sk, H, K, hd, causa
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal)
-    before = flash_attention_bwd.launches
+    before, tc = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.tc_launches == tc + (dtype == torch.bfloat16)
     want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
@@ -1431,8 +1437,42 @@ def test_flash_bwd_kernel_ignores_nan_past_sk_and_takes_strided_inputs(dev, dtyp
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("misalign", ["rows", "base"])
+def test_flash_bwd_kernel_off_16_bytes_takes_the_cuda_core_body(dev, misalign):
+    """bf16 rows that are not 16-byte aligned (q and do sliced from rows of
+    65 head dims, or every input one element past a 16-byte base) go to the
+    CUDA-core body, and match the plain backward as the aligned call does."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    dt = torch.bfloat16
+    B, S, H, K, hd = 1, 200, 6, 2, 64
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, dt, B, S, S, H, K, hd, True)
+    if misalign == "rows":
+        wide = [torch.zeros(B, S, H, hd + 1, device=dev, dtype=dt) for _ in range(2)]
+        wide[0][..., :hd], wide[1][..., :hd] = q, do
+        args = (wide[0][..., :hd], k, v, o, lse, wide[1][..., :hd])
+    else:
+        args = []
+        for t in (q, k, v, o, None, do):
+            if t is None:
+                args.append(lse)
+                continue
+            buf = torch.zeros(t.numel() + 1, device=dev, dtype=dt)
+            buf[1:] = t.flatten()
+            args.append(buf[1:].view(t.shape))
+    before, tc = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
+    got = flash_attention_bwd(*args, causal=True)
+    assert flash_attention_bwd.launches == before + 1 and flash_attention_bwd.tc_launches == tc
+    want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(got, want):
+        _bwd_close(a, b, dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd(*args, causal=True)))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(4096, 2048), (386, 2048), (7, 100), (2, 3, 8192)])
+@pytest.mark.parametrize("shape", [(4096, 2048), (386, 2048), (7, 100), (2, 3, 8192),
+                                   (512, 8192), (16, 28672), (1, 2048), (1, 28672)])
 def test_rmsnorm_bwd_kernel_matches_plain_backward(dev, shape, dtype):
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 

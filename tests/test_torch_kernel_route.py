@@ -11,9 +11,10 @@ kernels' library is made to raise if anything reaches for it.
 
 The trainer's routes too: ``ops.needs_grad`` (whether a call takes the
 autograd functions ``_FlashAttention`` / ``_RMSNorm``), the head dims the
-flash backward kernel takes, the RMSNorm backward's row split, and the
-raise of every kernel wrapper called directly with an input that
-requires grad (its output would carry no gradient).
+flash backward kernel takes and which of its two bodies serves a call,
+the RMSNorm backward's row split and register slots, and the raise of
+every kernel wrapper called directly with an input that requires grad
+(its output would carry no gradient).
 """
 
 import pytest
@@ -537,16 +538,92 @@ def test_flash_backward_head_dims(hd, hd_v, want):
     assert FA.backward_supported(hd, hd_v) is want
 
 
-@pytest.mark.parametrize("rows,sms,want", [
-    (4096, 132, 16),     # stablelm-1.6b training, batch 4 x 1024: 256 CTAs
-    (386, 132, 2),       # a 386-token admission's rows: 193 CTAs
-    (1, 132, 1), (264, 132, 1), (265, 132, 2), (10, 4, 2),
+def _flash_bwd(q_shape, k_shape, v_shape, dtype=BF16, strides=None, misalign=(0,) * 5):
+    """The backward's route for q, k, v and o, do shaped as q (v's head dim)."""
+    o_shape = q_shape[:-1] + v_shape[-1:]
+    shapes = (q_shape, k_shape, v_shape, o_shape, o_shape)
+    return FA.backward_uses_tensor_cores(dtype, shapes, strides or tuple(map(_contig, shapes)),
+                                         misalign)
+
+
+@pytest.mark.parametrize("q,k,v,dtype,want", FLASH_SHAPES)
+def test_flash_backward_route_by_dtype_and_head_dim(q, k, v, dtype, want):
+    """The backward's tensor-core body takes what the forward's takes:
+    bf16 at hd == hd_v in TC_HEAD_DIMS (the training widths: stablelm's 64,
+    internlm2's and Jamba's 128, the smoke configs' 16), never f32."""
+    assert _flash_bwd(q, k, v, dtype) is want
+
+
+def test_flash_backward_route_takes_transposed_views_with_aligned_rows():
+    B, S, H, hd = 2, 150, 12, 64
+    st = (H * S * hd, hd, S * hd, 1)
+    kst = (2 * S * hd, hd, S * hd, 1)
+    assert _flash_bwd((B, S, H, hd), (B, S, 2, hd), (B, S, 2, hd),
+                      strides=(st, kst, kst, st, st))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4])
+def test_flash_backward_route_refuses_misaligned_or_strided_rows(which):
+    """Any one of q, k, v, o and do off the 16-byte grid, with rows 65
+    elements apart or an inner stride of 2 sends the call to the CUDA-core
+    body."""
+    shape = (1, 70, 4, 64)
+    good = _contig(shape)
+    assert _flash_bwd(shape, shape, shape)
+    mis = [0] * 5
+    mis[which] = 2
+    assert not _flash_bwd(shape, shape, shape, misalign=tuple(mis))
+    strides = [good] * 5
+    strides[which] = (70 * 4 * 65, 4 * 65, 65, 1)
+    assert not _flash_bwd(shape, shape, shape, strides=tuple(strides))
+    strides = [good] * 5
+    strides[which] = (70 * 4 * 128, 4 * 128, 128, 2)
+    assert not _flash_bwd(shape, shape, shape, strides=tuple(strides))
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (2048, BF16, 1),     # stablelm-1.6b training: one 16-byte vector a thread
+    (2048, F32, 1 * 2),  # the same width in f32: two
+    (8192, BF16, 4),     # Jamba, internlm2's 6144 too
+    (6144, BF16, 4), (4096, BF16, 2), (100, BF16, 1), (1, F32, 1),
+    (28672, BF16, 4), (28672, F32, 4),   # wider than the slots: the rest streams
 ])
-def test_rmsnorm_bwd_rows(rows, sms, want):
-    run = _build.rmsnorm_bwd_rows(rows, sms)
+def test_rmsnorm_bwd_slots(d, dtype, want):
+    assert _build.rmsnorm_bwd_slots(d, dtype) == want
+
+
+@pytest.mark.parametrize("d,dtype", [(0, BF16), (64, torch.float16)])
+def test_rmsnorm_bwd_slots_refuse_what_has_no_form(d, dtype):
+    with pytest.raises(ValueError, match="no form"):
+        _build.rmsnorm_bwd_slots(d, dtype)
+
+
+@pytest.mark.parametrize("rows,sms,ctas_per_sm,want", [
+    (4096, 132, 2, 16),   # stablelm-1.6b training, batch 4 x 1024: 256 CTAs, two a SM
+    (512, 132, 1, 4),     # Jamba's d = 8192 (four slots): 128 CTAs, one a SM
+    (386, 132, 2, 2),     # a 386-token admission's rows: 193 CTAs
+    (386, 132, 1, 3),
+    (1, 132, 2, 1), (264, 132, 2, 1), (265, 132, 2, 2), (10, 4, 2, 2), (10, 4, 1, 3),
+])
+def test_rmsnorm_bwd_rows(rows, sms, ctas_per_sm, want):
+    run = _build.rmsnorm_bwd_rows(rows, sms, ctas_per_sm)
     assert run == want
     ctas = -(-rows // run)
-    assert ctas <= _build.RMSNORM_BWD_CTAS_PER_SM * sms and (ctas - 1) * run < rows
+    assert ctas <= ctas_per_sm * sms and (ctas - 1) * run < rows
+
+
+@pytest.mark.parametrize("d,itemsize,ptrs,want", [
+    (2048, 2, (0, 4096, 8192, 16), True),     # stablelm's rows, every base on 16 bytes
+    (2048, 4, (0, 16, 32, 48), True),
+    (100, 2, (0, 0, 0, 0), False),            # 100 bf16 values: 12.5 vectors a row
+    (100, 4, (0, 0, 0, 0), True),             # 100 f32 values: 25 vectors
+    (2048, 2, (0, 0, 2, 0), False),           # dy one bf16 past a 16-byte base
+    (2048, 2, (8, 0, 0, 0), False),
+])
+def test_rmsnorm_bwd_aligned(d, itemsize, ptrs, want):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_aligned
+
+    assert rmsnorm_bwd_aligned(d, itemsize, *ptrs) is want
 
 
 def _grad_inputs():

@@ -217,6 +217,21 @@ def test_launcher_trains_on_the_cpu_and_resumes_as_if_uninterrupted(capsys):
     assert resumed["losses"] == full["losses"][5:]
 
 
+def test_launcher_resumed_at_its_last_step_takes_no_step_and_returns_1(capsys):
+    """Resumed at ``--steps`` there is nothing to do: no step, return code 1
+    (the JAX launcher raises IndexError there)."""
+    base = ["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "16"]
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--steps", "2", "--ckpt-dir", d, "--ckpt-every", "2"]
+        assert _run(base + ck)[0] in (0, 1)
+        capsys.readouterr()
+        rc, run = _run(base + ck)
+    out = capsys.readouterr().out
+    assert rc == 1 and run["start"] == 2 and run["losses"] == []
+    assert "nothing to do: resumed at step 2 of 2" in out and "step=" not in out
+
+
 def test_launcher_without_a_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
