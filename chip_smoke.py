@@ -156,7 +156,13 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    same weights on the card and on the CPU: the loss, the gradient norm and
    every gradient leaf of one ``loss_and_grads`` (the card's through the
    flash and RMSNorm kernels forward and backward, every call counted), and
-   three ``build_train_step`` steps' losses;
+   three ``build_train_step`` steps' losses; then each of the ten smoke
+   configs (``families``) the same way at batch 2 x 32: one
+   ``loss_and_grads`` and one ``build_train_step`` step, loss and grad
+   norm within ``HELD_TRAIN_TOL``, every leaf within ``BWD_TOL``, every
+   forward kernel call with its backward (Jamba's scan through
+   ``ssm_scan_bwd`` once a Mamba layer, DeepSeek's MLA through the flash
+   backward at 24 / 16 once a layer);
 17. ``train``  — stablelm-1.6b whole (24 layers, published widths, bf16,
    random weights from a seed) through ``repro_torch.launch.train.main``:
    20 steps at batch 4 x 1024 tokens, once with float32 and once with int8
@@ -189,6 +195,35 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    ``backward_ptxas`` lists each backward kernel's registers, spills and
    SASS ``HMMA`` count (the tensor-core dK/dV and dQ kernels must hold
    ``HMMA`` and spill nothing).
+18. ``train_families`` — the other families' training at published
+   widths, bf16, seeded weights (a ``train_family`` line each):
+   DeepSeek-V2-Lite-16B cut to its first 6 of 27 layers (MLA + the dense
+   MLP, then MLA + 64 experts top-6 + 2 shared) through the launcher with
+   ``get_config`` given the cut, float32 state, 10 steps at 4 x 1024, lr
+   1e-5 (the flash backward at 192 / 128 in every step); Jamba-1.5-Large's
+   first 2 of 72 layers (Mamba + MoE, Mamba + MLP), gradients only (its
+   AdamW state does not fit one card): 3 ``loss_and_grads`` passes at
+   1 x 1024 through the scan's backward kernel; Whisper-tiny (4 x 256) and
+   xLSTM-350M (2 x 32) whole through the launcher, float32 state, 5 steps
+   at lr 1e-3.  Each reports step ms (p50), train tok/s, MFU (6 N_active
+   tokens/s against 989 TFLOP/s; N_active counts top_k / n_experts of the
+   routed experts and leaves out the input embedding, a lookup, unless it
+   is tied to the head), peak GiB, launches a step and, from one traced step,
+   the device idle share and the backward kernels' share of busy time;
+   every loss must fall where steps are taken, Jamba's loss and gradient
+   norm be finite.
+   The ``kernels`` phase holds the scan's backward kernel
+   (``ssm_scan_bwd``) against ``ssm_scan_bwd_ref`` in f32 and bf16 (Jamba's
+   training shape, N 8 and 16, ragged T and D, with and without h0 and
+   dh_T, B and C strided, each checkpoint of the forward equal to the bit
+   to h_T of the forward cut there, reruns bit-equal) and the flash
+   backward at MLA's 24 / 16 and 192 / 128 on its CUDA-core body; it times
+   the scan's backward at Jamba's training shape (``timing_bf16``, row 6b:
+   its bound the exps, f32 operations or bytes) and the flash backward at
+   DeepSeek-V2-Lite's (B = 4, S = 1024, H = K = 16, causal, the shape
+   ``train_families`` gives it; held first against the plain backward in
+   bf16, a rerun bit-equal; ``timing_bf16_backward_mla``, beside autograd's
+   SDPA backward).
 
 The ``testbed`` phase also runs the ``ladder3`` cascade fleet: the
 stablelm-1.6b, internlm2-20b and Kimi-K2 smoke configs on three paged
@@ -266,7 +301,7 @@ SPIN_CLOCK_HZ = 1.98e9
 SPIN_MAX_S = 0.2
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
           "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec",
-          "held_train", "train")
+          "held_train", "train", "train_families")
 # run only when named: the RMSNorm and scan timings alone (``kernels`` has them)
 EXTRA_PHASES = ("timing",)
 KERNEL_META = {
@@ -293,6 +328,9 @@ KERNEL_META = {
                             "src/repro/kernels/flash_attention.py:113"),
     "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                     "src/repro/kernels/rmsnorm.py:27"),
+    # the gradient of kernel 6
+    "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     "src/repro/kernels/ssm_scan.py:70"),
 }
 # the kernels of the paged engine's path (by page dtype) and of the
 # testbed's slot path
@@ -559,13 +597,15 @@ def _sass_mma(build_mod, lib_path: str):
 
 
 def _norm_scan_key(name: str):
-    """``rmsnorm<dtype, W warps>`` or ``ssm_scan<dtype, L lanes>`` of one
-    instantiation of the RMSNorm or selective-scan kernel, from its mangled
+    """``rmsnorm<dtype, W warps>``, ``ssm_scan<dtype, L lanes>`` or
+    ``ssm_scan_bwd<dtype, L lanes>`` of one instantiation of the RMSNorm or
+    selective-scan kernel or the scan's backward, from its mangled
     name (an instantiation without the count, as an older tree's, keeps only
     the dtype); None for another kernel."""
     import re
 
-    m = re.search(r"(rmsnorm|ssm_scan)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?", name)
+    m = re.search(r"(rmsnorm|ssm_scan|ssm_scan_bwd)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                  name)
     if not m:
         return None
     dtype = "f32" if m.group(2) == "f" else "bf16"
@@ -575,8 +615,8 @@ def _norm_scan_key(name: str):
 
 
 def _backward_key(name: str):
-    """``<kernel><dtype[, HD or slots[, form]]>`` of one instantiation of a
-    backward kernel (flash: ``delta_kernel``, ``dkdv_kernel``,
+    """``<kernel><dtype[, HD[, HDV] or slots[, form]]>`` of one instantiation
+    of a backward kernel (flash: ``delta_kernel``, ``dkdv_kernel``,
     ``dq_kernel`` and the tensor-core body's ``delta_tc_kernel``,
     ``dkdv_tc_kernel``, ``dq_tc_kernel``, bf16 only; RMSNorm:
     ``rmsnorm_bwd_kernel`` by the slots a thread holds and its aligned or
@@ -585,8 +625,10 @@ def _backward_key(name: str):
     import re
 
     kinds = r"(delta|dkdv|dq|rmsnorm_bwd|dgamma)(_tc)?_kernel"
-    m = (re.search(kinds + r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?(?:Lb([01])E)?", name)
+    m = (re.search(kinds + r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?",
+                   name)
          or re.search(kinds + r"<(float|__nv_bfloat16)?(?:, )?(?:\(int\))?(\d+)?"
+                              r"(?:, (?:\(int\))?(\d+))?"
                               r"(?:, (?:\(bool\))?(true|false|1|0))?>", name))
     if not m:
         return None
@@ -594,8 +636,10 @@ def _backward_key(name: str):
     extra = m.group(4)
     if extra and m.group(1) == "rmsnorm_bwd":
         extra += " slots"
-    if m.group(5) is not None:
-        extra += ", aligned" if m.group(5) in ("1", "true") else ", checked"
+    if m.group(5) is not None:     # the flash CUDA-core body's HDV
+        extra += f", {m.group(5)}"
+    if m.group(6) is not None:
+        extra += ", aligned" if m.group(6) in ("1", "true") else ", checked"
     return f"{m.group(1)}{m.group(2) or ''}<{dtype}" + (f", {extra}>" if extra else ">")
 
 
@@ -1743,6 +1787,8 @@ def phase_kernels(dev, backward_ptxas=None) -> dict:
     _check_decode_edges(dev, errs, cases)
     _check_ssm_scan(dev, errs, cases)
     bwd = _check_backward_kernels(dev, errs, cases)
+    _check_mla_backward(dev, errs, cases)
+    _check_scan_backward(dev, errs, cases)
     torch.cuda.synchronize()
     rng = timing_rng
 
@@ -1849,6 +1895,10 @@ def phase_kernels(dev, backward_ptxas=None) -> dict:
           f"a timed decode call missed the split body: {timed_split}")
     mla_dense = _mla_dense_rows(dev, errs, cases)
     encdec = _encdec_rows(dev, errs, cases)
+    # the new training kernels' rows (6b; 5b at MLA's head dims, CUDA-core
+    # body, after the tensor-core check above)
+    timing["ssm_scan_bwd"] = _scan_bwd_row(dev)
+    backward_mla = {"flash_attention_bwd deepseek-v2-lite": _mla_backward_row(dev, errs, cases)}
     norm_scan = phase_timing(dev, emit_line=False)
     timing["ssm_scan"] = norm_scan.pop("ssm_scan")
     sweeps = {"rmsnorm_sweep": _rmsnorm_sweep(dev)}
@@ -1856,6 +1906,7 @@ def phase_kernels(dev, backward_ptxas=None) -> dict:
            "ssm_tol": {str(k): v for k, v in SSM_TOL.items()}, **norm_scan, **sweeps,
            **bwd, "cases": len(cases), "nan_invariant": True, "timing_bf16": timing,
            "backward_ptxas": backward_ptxas, **backward_wide,
+           "timing_bf16_backward_mla": backward_mla,
            "timing_bf16_wide": wide, "timing_bf16_mla_dense": mla_dense,
            "timing_bf16_encdec": encdec,
            "timed_tc": timed_tc, "timed_split": timed_split,
@@ -3224,12 +3275,13 @@ FLASH_BWD_CASES = (("stablelm-1.6b train", 4, 1024, 1024, 32, 32, 64, True),
 RMSNORM_BWD_CASES = ((4096, 2048), (386, 2048))
 
 
-def _bwd_err(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
-    """Max |got - want|, checked against ``BWD_TOL`` scaled by max(1, the
-    largest |want|) plus ``BWD_TOL`` of each |want|."""
+def _bwd_err(got: torch.Tensor, want: torch.Tensor, dtype, what: str, tols=BWD_TOL) -> float:
+    """Max |got - want|, checked against ``tols`` (``BWD_TOL``; the scan's
+    backward ``SSM_TOL``) scaled by max(1, the largest |want|) plus the same
+    of each |want|."""
     check(bool(torch.isfinite(got).all()), f"{what}: gradient is not finite")
     g, w = got.float(), want.float()
-    tol = BWD_TOL[dtype]
+    tol = tols[dtype]
     scale = max(1.0, float(w.abs().max()))
     excess = (g - w).abs() - (tol * scale + tol * w.abs())
     check(float(excess.max()) <= 0, f"{what}: outside tolerance {tol} x {scale}: "
@@ -3237,14 +3289,17 @@ def _bwd_err(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
     return float((g - w).abs().max())
 
 
-def _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, seed: int):
+def _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, seed: int, hd_v=None):
     """q, k, v, do from a seeded device generator, and the plain forward's
-    output and LSE (the backward kernel and its plain version read the same)."""
+    output and LSE (the backward kernel and its plain version read the
+    same); ``hd_v``, v's head dim, defaults to hd."""
     from repro_torch.kernels import ref as R
 
+    hd_v = hd_v or hd
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
-                   for sh in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd), (B, Sq, H, hd)))
+                   for sh in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd_v),
+                              (B, Sq, H, hd_v)))
     return q, k, v, R.attention_ref(q, k, v, causal=causal), \
         R.attention_lse_ref(q, k, causal=causal), do
 
@@ -3464,6 +3519,188 @@ def _backward_wide(dev) -> dict:
     return {"timing_bf16_backward_wide": rows}
 
 
+#: (label, B, S_q = S_k, H = K, hd, hd_v) of the flash backward checks at
+#: MLA's head dims, causal: DeepSeek's smoke widths, DeepSeek-V2-Lite's
+#: (one sequence of 386 tokens, and a ragged 100 at B = 2)
+MLA_BWD_CASES = (("deepseek smoke", 2, 37, 4, 24, 16), ("deepseek-v2-lite", 1, 386, 16, 192, 128),
+                 ("deepseek-v2-lite ragged", 2, 100, 16, 192, 128))
+#: (label, B, T, D, N, h0, dh_T) of the scan backward checks: Jamba-1.5-Large's
+#: training shape, the smoke config's N = 8 with h0 and dh_T, ragged T and D,
+#: a T of one step and one past a checkpoint
+SCAN_BWD_CASES = (("jamba train", 1, 1024, 16384, 16, False, False),
+                  ("smoke", 2, 13, 128, 8, True, True),
+                  ("ragged", 3, 37, 100, 16, True, False),
+                  ("ragged N 8", 2, 70, 100, 8, False, True),
+                  ("one step", 4, 1, 16384, 16, True, True),
+                  ("past a checkpoint", 1, 65, 16384, 16, False, True))
+SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _check_mla_backward(dev, errs, cases) -> None:
+    """The flash backward at MLA's head dims (``MLA_BWD_CASES``) against the
+    plain backward, f32 and bf16, causal: every call through the CUDA-core
+    body (no tensor-core launch), each rerun bit-equal."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, S, H, hd, hd_v in MLA_BWD_CASES:
+            q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, S, S, H, H, hd, True, 58,
+                                                    hd_v=hd_v)
+            tc0 = flash_attention_bwd.tc_launches
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            check(flash_attention_bwd.tc_launches == tc0,
+                  f"flash_attention_bwd at {hd} / {hd_v} took the tensor-core body")
+            want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(a.shape == b.shape and a.dtype == dtype, f"flash_attention_bwd {name} "
+                      f"({label}): {a.dtype} {tuple(a.shape)}")
+                errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], _bwd_err(
+                    a, b, dtype, f"flash_attention_bwd {name} ({label}, {dtype})"))
+            check(all(torch.equal(a, b) for a, b in
+                      zip(got, flash_attention_bwd(q, k, v, o, lse, do, causal=True))),
+                  f"flash_attention_bwd is not deterministic ({label}, {dtype})")
+            cases.append(("flash_attention_bwd", label, hd, hd_v, str(dtype)))
+            del q, k, v, o, lse, do, got, want
+
+
+def _check_scan_backward(dev, errs, cases) -> None:
+    """The scan's checkpoints and its backward kernel (``SCAN_BWD_CASES``),
+    f32 and bf16, B and C read as strided column slices: each checkpoint
+    equals, to the bit, h_T of the forward cut there (the first: h0, or
+    zeros); every gradient against ``ssm_scan_bwd_ref`` within ``SSM_TOL``
+    scaled as ``_bwd_err`` scales; a rerun gives the same bits."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+
+    rng = np.random.default_rng(12)
+    step = _build.SSM_CKPT_STEPS
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, T, D, N, with_h0, with_dhT in SCAN_BWD_CASES:
+            x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(rng, B, T, D, N, dtype, dev)
+            check(not Bm.is_contiguous(), "the scan's B should be a strided view")
+            h0 = h0 if with_h0 else None
+            g = torch.Generator(device=dev).manual_seed(59)
+            dy = torch.randn(B, T, D, generator=g, device=dev).to(dtype)
+            dhT = 0.5 * torch.randn(B, D, N, generator=g, device=dev) if with_dhT else None
+            y, hT, states = ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0, return_states=True)
+            check(torch.equal(y, ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)[0]),
+                  f"ssm_scan with its checkpoints gave another y ({label}, {dtype})")
+            first = torch.zeros_like(hT) if h0 is None else h0
+            cut = [first] + [ssm_scan(x[:, :t], dt[:, :t], A, Bm[:, :t], Cm[:, :t], Dk,
+                                      h0=h0)[1] for t in range(step, T, step)]
+            check(states.shape == (B, _build.ssm_checkpoints(T), D, N)
+                  and all(torch.equal(states[:, i], c) for i, c in enumerate(cut)),
+                  f"ssm_scan checkpoints differ from the cut scans' h_T ({label}, {dtype})")
+            got = ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy, h0=h0, dhT=dhT)
+            want = R.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, Dk, dy, h0=h0, dhT=dhT)
+            for name, a, b in zip(SCAN_GRADS, got, want):
+                if b is None:
+                    check(a is None, f"ssm_scan_bwd gave {name} without h0")
+                    continue
+                check(a.shape == b.shape and a.dtype == b.dtype, f"ssm_scan_bwd {name} "
+                      f"({label}): {a.dtype} {tuple(a.shape)} against {b.dtype} "
+                      f"{tuple(b.shape)}")
+                errs["ssm_scan_bwd"] = max(errs["ssm_scan_bwd"], _bwd_err(
+                    a, b, dtype, f"ssm_scan_bwd {name} ({label}, {dtype})", SSM_TOL))
+            again = ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy, h0=h0, dhT=dhT)
+            check(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+                  f"ssm_scan_bwd is not deterministic ({label}, {dtype})")
+            cases.append(("ssm_scan_bwd", label, str(dtype)))
+            del x, dt, A, Bm, Cm, Dk, states, got, want, again
+    torch.cuda.synchronize()
+
+
+def _scan_bwd_row(dev, B=1, T=1024, D=16384, N=16) -> dict:
+    """Row 6b: the scan's backward at Jamba-1.5-Large's training shape, bf16
+    (B and C strided slices, no h0 or dh_T): ``ms`` and device ms of the
+    kernel (both launches), its plain version's time (three calls: it
+    keeps every state), and the bound: the reverse pass's B T D N exps on
+    the special-function units at the card's maximum clock, its f32
+    operations (15 a (t, d, n)) at the f32 peak, or its bytes once (x, dt,
+    dy, B, C, A, D and the checkpoints in; dx, ddt, dB, dC, dA, dD out).
+    No single PyTorch call computes it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+
+    dt_, es = torch.bfloat16, 2
+    x, dt, A, Bm, Cm, Dk, _ = _scan_inputs(np.random.default_rng(13), B, T, D, N, dt_, dev)
+    dy = torch.randn(B, T, D, generator=torch.Generator(device=dev).manual_seed(60),
+                     device=dev).to(dt_)
+    _, _, states = ssm_scan(x, dt, A, Bm, Cm, Dk, return_states=True)
+    nc = _build.ssm_checkpoints(T)
+    nbytes = (5 * B * T * D * es + 4 * B * T * N * es + 2 * D * N * 4 + 2 * D * es
+              + B * nc * D * N * 4)
+    clock = _sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_exp = B * T * D * N / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock) * 1e3
+    t_flops = 15 * B * T * D * N / PEAK_FLOPS[torch.float32] * 1e3
+
+    def kernel():
+        return ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy)
+
+    return dict(
+        ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: R.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, Dk, dy), groups=3,
+                         per_group=1),
+        host_ms=host_ms(kernel, calls=50), **device_ms(kernel),
+        library_ms=None, library_device_ms=None,
+        library="no single PyTorch call computes a selective scan's gradients",
+        bound_ms=max(t_bytes, t_exp, t_flops),
+        bound_by="bytes" if t_bytes >= max(t_exp, t_flops) else "operations",
+        bound_parts_ms={"bytes": t_bytes, "sfu_exp": t_exp, "f32_ops": t_flops},
+        sm_clock_mhz=clock / 1e6, bytes=nbytes, checkpoints=nc,
+        shape=f"B={B} T={T} D={D} N={N}, h0 and dh_T none, B/C strided")
+
+
+def _mla_backward_row(dev, errs, cases, B=4, S=1024, H=16, hd=192, hd_v=128) -> dict:
+    """Row 5b-MLA: the flash backward at DeepSeek-V2-Lite's training shape
+    (B = 4, S = 1024, causal, H = K = 16, hd 192 / hd_v 128), bf16, on the
+    CUDA-core body, the shape ``train_families`` gives it: dq, dk and dv
+    held against the plain backward on the same inputs (``BWD_TOL``), a
+    rerun bit-equal, then the times; the library call (timed, never used by
+    the port) is autograd's backward of SDPA at the same shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    dt, es = torch.bfloat16, 2
+    label = "deepseek-v2-lite train"
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, dt, B, S, S, H, H, hd, True, 61, hd_v=hd_v)
+    tc0 = flash_attention_bwd.tc_launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    err = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.shape == b.shape and a.dtype == dt, f"flash_attention_bwd {name} ({label}): "
+              f"{a.dtype} {tuple(a.shape)}")
+        err[name] = _bwd_err(a, b, dt, f"flash_attention_bwd {name} ({label}, {dt})")
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err[name])
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, flash_attention_bwd(q, k, v, o, lse, do, causal=True))),
+          f"flash_attention_bwd is not deterministic ({label}, {dt})")
+    cases.append(("flash_attention_bwd", label, hd, hd_v, str(dt)))
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=hd ** -0.5)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = S * (S + 1) // 2
+    nb, fl = bound((2 * B * S * H * hd + 2 * B * S * H * hd + 4 * B * S * H * hd_v) * es
+                   + 4 * B * H * S, 2 * B * H * pairs * (3 * hd + 2 * hd_v), dt)
+    row = dict(
+        **_times(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                 lambda: R.attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+                 lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)),
+        bound_ms=nb, bound_by=fl, body="CUDA cores", max_abs_err=err,
+        tol=BWD_TOL[dt], shape=f"B={B} Sq=Sk={S} causal H=K={H} hd={hd} hd_v={hd_v}")
+    check(flash_attention_bwd.tc_launches == tc0, "the MLA backward took the tensor-core body")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases: held_train (card vs CPU, float32) and train (stablelm-1.6b whole)
 # ---------------------------------------------------------------------------
@@ -3498,30 +3735,109 @@ HELD_TRAIN_TOL = 1e-5
 RESTART_TOL = 1e-5
 
 
-def _train_launches(counts, tcs, cfg, passes: int, what: str) -> None:
-    """Every flash and RMSNorm call of ``passes`` train-step passes of an
-    attention model ran a kernel forward and backward: flash once a layer,
-    RMSNorm twice a layer plus the final norm, each with its backward; in
-    bf16 every flash call, forward and backward, took the tensor-core body
-    (``tcs``: ``ops.tc_launch_counts()``), in float32 none."""
-    n = cfg.n_layers
-    want = {"flash_attention": n * passes, "flash_attention_bwd": n * passes,
-            "rmsnorm": (2 * n + 1) * passes, "rmsnorm_bwd": (2 * n + 1) * passes}
-    got = {k: counts[k] for k in want}
-    check(got == want, f"{what}: launches {got}, want {want}")
-    others = {k: v for k, v in counts.items() if k not in want and v}
-    check(not others, f"{what}: unexpected launches {others}")
-    tc = n * passes if cfg.dtype == "bfloat16" else 0
+#: the kernels a train step may launch: the forward kernels of the three
+#: autograd routes and their backward kernels
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "ssm_scan",
+                 "ssm_scan_bwd")
+#: batch x seq of each smoke config's held step (the whole phase: seconds)
+HELD_TRAIN_BATCH = (2, 32)
+
+
+def _family_launches(counts, tcs, cfg, passes: int, what: str) -> None:
+    """Launch accounting of ``passes`` forward-and-backward passes of any
+    family: every forward kernel call (flash, RMSNorm, the scan) ran its
+    backward kernel once; the scan once a Mamba layer a pass; where the
+    model has no encoder, flash once an attention or MLA layer a pass and
+    RMSNorm as a prefill pass takes it (Whisper and the VLM: both at least
+    once); no serving kernel; in bf16 at a head dim of ``TC_HEAD_DIMS``
+    every flash call, forward and backward, took the tensor-core body
+    (``tcs``: ``ops.tc_launch_counts()``), in float32 or at MLA's head dims
+    none."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import layer_kind
+
+    mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
+    n_attn, n_mla, n_mamba = (mixers.count(k) for k in ("attn", "mla", "mamba"))
+    for fwd in ("flash_attention", "rmsnorm", "ssm_scan"):
+        check(counts[fwd] == counts[f"{fwd}_bwd"],
+              f"{what}: {fwd} ran {counts[fwd]} times, its backward {counts[fwd + '_bwd']}")
+    check(counts["ssm_scan_bwd"] == n_mamba * passes,
+          f"{what}: ssm_scan_bwd {counts['ssm_scan_bwd']}, want {n_mamba} x {passes}")
+    if cfg.family in ("vlm", "audio"):
+        check(counts["flash_attention_bwd"] > 0 and counts["rmsnorm_bwd"] > 0,
+              f"{what}: a backward kernel never ran: {counts}")
+    else:
+        want = {"flash_attention_bwd": (n_attn + n_mla) * passes,
+                "rmsnorm_bwd": _norms_per_pass(cfg) * passes}
+        check({k: counts[k] for k in want} == want, f"{what}: launches {counts}, want {want}")
+    others = {k: v for k, v in counts.items() if v and k not in TRAIN_KERNELS}
+    check(not others, f"{what}: a kernel off the training path ran: {others}")
+    tc = (counts["flash_attention"] if cfg.dtype == "bfloat16" and not n_mla
+          and cfg.hd in _build.TC_HEAD_DIMS else 0)
     got = {k: tcs[k] for k in ("flash_attention", "flash_attention_bwd")}
-    check(got == {"flash_attention": tc, "flash_attention_bwd": tc},
-          f"{what}: tensor-core launches {got}, want {tc} each")
+    check(got == {"flash_attention": tc, "flash_attention_bwd": tc}
+          and not any(v for k, v in tcs.items() if k not in got),
+          f"{what}: tensor-core launches {tcs}, want {tc} of each flash kernel")
+
+
+def _held_train_family(dev, arch: str) -> dict:
+    """One smoke config in float32, the same weights and batch on the card
+    and on the CPU: one ``loss_and_grads`` (loss, every gradient leaf, the
+    norm) and one ``build_train_step`` step (its loss and grad norm), the
+    card's through the kernels forward and backward, launches counted."""
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.optimizer import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.zoo import build_train_step, loss_and_grads
+
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    weights = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    batch = synthetic_batch(np.random.default_rng(1), cfg, *HELD_TRAIN_BATCH)
+    opt = OptConfig(lr=1e-3, warmup_steps=5)
+    out = {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        p = params_from_numpy(weights, d)
+        b = {k: t.to(d) for k, t in batch.items()}
+        ops.reset_launch_counts()
+        loss, grads = loss_and_grads(p, cfg, b)
+        _, _, m = build_train_step(cfg, opt)(p, init_opt_state(p, opt), b)
+        out[where] = {"loss": float(loss), "step_loss": float(m["loss"]),
+                       "step_grad_norm": float(m["grad_norm"]),
+                       "grads": [g.cpu() for g in tree_leaves(grads)],
+                       "counts": ops.launch_counts(), "tcs": ops.tc_launch_counts()}
+    c, g = out["cpu"], out["card"]
+    _family_launches(g["counts"], g["tcs"], cfg, 2, f"held_train {arch}")
+    leaf_err = max(_bwd_err(a, b, torch.float32, f"held_train {arch} gradient")
+                   for a, b in zip(g["grads"], c["grads"]))
+    gnorm = {k: float(torch.sqrt(sum(x.double().square().sum() for x in v["grads"])))
+             for k, v in (("cpu", c), ("card", g))}
+    gaps = {"loss": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+            "grad_norm": abs(gnorm["card"] - gnorm["cpu"]) / gnorm["cpu"],
+            "step_loss": abs(g["step_loss"] - c["step_loss"]) / abs(c["step_loss"]),
+            "step_grad_norm": (abs(g["step_grad_norm"] - c["step_grad_norm"])
+                               / c["step_grad_norm"])}
+    check(all(v <= HELD_TRAIN_TOL for v in gaps.values()), f"held_train {arch}: gaps {gaps}")
+    res = {"config": cfg.name, "loss": {"cpu": c["loss"], "card": g["loss"]},
+           "grad_norm": gnorm, "rel_gaps": gaps, "grad_leaves": len(g["grads"]),
+           "grad_leaf_max_abs_err": leaf_err,
+           "launches": {k: v for k, v in g["counts"].items() if v}}
+    if cfg.mla is not None:
+        res["mla_head_dims"] = [cfg.mla.nope_head_dim + cfg.mla.rope_head_dim,
+                                cfg.mla.v_head_dim]
+    return res
 
 
 def phase_held_train(dev) -> dict:
     """stablelm's smoke widths in float32, the same weights on the card and
     on the CPU: ``loss_and_grads`` (loss, every gradient leaf, the norm) and
     three ``build_train_step`` steps' losses, the card's through the
-    kernels forward and backward (launches counted)."""
+    kernels forward and backward (launches counted); then each of the ten
+    smoke configs the same way (:func:`_held_train_family`: Jamba's
+    through the scan's backward kernel, DeepSeek's through the flash
+    backward at MLA's 24 / 16)."""
     from repro_torch.bridge import params_from_numpy, params_to_numpy
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.optimizer import OptConfig, init_opt_state, tree_leaves
@@ -3552,7 +3868,7 @@ def phase_held_train(dev) -> dict:
                        "losses": losses, "counts": counts, "tcs": tcs}
     torch.cuda.synchronize()
     c, g = out["cpu"], out[str(dev)]
-    _train_launches(g["counts"], g["tcs"], cfg, 1, "held_train")
+    _family_launches(g["counts"], g["tcs"], cfg, 1, "held_train")
     gnorm = {k: float(torch.sqrt(sum(x.double().square().sum() for x in v["grads"])))
              for k, v in (("cpu", c), ("card", g))}
     leaf_err = max(_bwd_err(a, b, torch.float32, "held_train gradient")
@@ -3563,12 +3879,18 @@ def phase_held_train(dev) -> dict:
     check(loss_gap <= HELD_TRAIN_TOL and norm_gap <= HELD_TRAIN_TOL,
           f"held_train: loss gap {loss_gap}, grad-norm gap {norm_gap}")
     check(step_gap <= 1e-4, f"held_train: three steps' losses part by {step_gap}")
+    from repro_torch.configs import ARCH_IDS
+
+    t0 = time.perf_counter()
+    families = {arch: _held_train_family(dev, arch) for arch in ARCH_IDS}
     res = {"config": cfg.name, "dtype": "float32", "tf32": False, "batch": [8, 64],
            "loss": {"cpu": c["loss"], "card": g["loss"]}, "loss_rel_gap": loss_gap,
            "grad_norm": gnorm, "grad_norm_rel_gap": norm_gap, "grad_leaves": len(g["grads"]),
            "grad_leaf_max_abs_err": leaf_err, "step_losses": {"cpu": c["losses"],
                                                               "card": g["losses"]},
            "step_loss_max_rel_gap": step_gap, "launches": g["counts"],
+           "families": families, "families_batch": list(HELD_TRAIN_BATCH),
+           "families_s": time.perf_counter() - t0,
            "tol": {"loss_and_norm": HELD_TRAIN_TOL, "leaf": BWD_TOL[torch.float32],
                    "three_steps": 1e-4}}
     emit("held_train", **res)
@@ -3603,7 +3925,7 @@ def _train_run(dev, state_dtype: str) -> dict:
     cfg, losses = report["cfg"], report["losses"]
     check(rc == 0 and losses[-1] < losses[0],
           f"train ({state_dtype}): rc {rc}, loss {losses[0]} -> {losses[-1]}")
-    _train_launches(counts, tcs, cfg, TRAIN_STEPS, f"train ({state_dtype})")
+    _family_launches(counts, tcs, cfg, TRAIN_STEPS, f"train ({state_dtype})")
     n = _param_counts(report["params"])
     step_s = report["step_s"]
     p50 = statistics.median(step_s)
@@ -3704,6 +4026,224 @@ def phase_train(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase: train_families (the other families' training at published widths)
+# ---------------------------------------------------------------------------
+#: DeepSeek-V2-Lite-16B cut to its first layers (layer 0: MLA + the dense
+#: MLP; then MLA + 64 experts top-6 + 2 shared), float32 AdamW state: 4
+#: layers peaked at 43.8 GiB on the H100 (~20.9 bytes a parameter), so 6
+#: (3.42 B parameters, ~67 GiB) still leave room
+DEEPSEEK_TRAIN_LAYERS = 6
+DEEPSEEK_TRAIN = dict(batch=4, seq=1024, steps=10, lr="1e-5")
+#: Jamba-1.5-Large cut to its first 2 layers (Mamba + MoE, Mamba + MLP):
+#: gradients only, its AdamW state does not fit one card
+JAMBA_TRAIN_LAYERS, JAMBA_PASSES, JAMBA_BATCH = 2, 3, (1, 1024)
+#: Whisper-tiny and xLSTM-350M whole through the launcher, float32 state;
+#: xLSTM's cells make ~2,200 launches a token a step (forward and
+#: backward): at 2 x 64 a step took 3.7 s and its traced step ~100 s of
+#: profiler processing on the H100, so its batch is short
+SMALL_TRAIN = {"whisper_tiny": dict(batch=4, seq=256, steps=5, lr="1e-3"),
+               "xlstm_350m": dict(batch=2, seq=32, steps=5, lr="1e-3")}
+#: the backward kernels whose share of a traced step's busy time a run
+#: reports (the flash backward's CUDA-core and tensor-core kernels,
+#: RMSNorm's backward's two, the scan's backward's two), and the forwards
+FAMILY_BWD_KERNELS = ("dkdv_kernel", "dq_kernel", "delta_kernel", "dkdv_tc_kernel",
+                      "dq_tc_kernel", "delta_tc_kernel", "rmsnorm_bwd_kernel", "dgamma_kernel",
+                      "ssm_scan_bwd_kernel", "ssm_scan_bwd_sum_kernel")
+FAMILY_SHARE_KERNELS = FAMILY_BWD_KERNELS + ("flash_attention_kernel", "attention_tc_kernel",
+                                             "rmsnorm_kernel", "ssm_scan_kernel")
+
+
+def _active_params(params, cfg) -> dict:
+    """Parameters whose matmuls a token runs: all, less the routed experts'
+    but ``top_k / n_experts`` of them (the shared experts count whole), less
+    the input embedding (a row lookup, no matmul) unless it is tied to the
+    head; the routed experts are the ``w_gate``/``w_up``/``w_down`` beside a
+    ``router``."""
+    routed = 0
+
+    def walk(tree):
+        nonlocal routed
+        if "router" in tree:
+            routed += sum(tree[k].numel() for k in ("w_gate", "w_up", "w_down"))
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+
+    walk(params)
+    total = sum(t.numel() for t in _leaves(params))
+    frac = cfg.moe.top_k / cfg.moe.n_experts if cfg.moe is not None else 1.0
+    embedding = 0 if cfg.tie_embeddings else params["embedding"].numel()
+    return {"total": total, "routed": routed, "embedding": embedding,
+            "active": total - embedding - routed + frac * routed}
+
+
+def _family_profile(step, what: str) -> dict:
+    """One traced step (:func:`_profile_window`) with the backward kernels'
+    device ms and share of the busy time."""
+    prof = _profile_window(step, 1, what, share_kernels=FAMILY_SHARE_KERNELS)
+    bwd = sum(prof["kernel_shares"][k]["ms"] for k in FAMILY_BWD_KERNELS)
+    return {"wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "backward_kernels_ms": bwd,
+            "backward_kernels_share": bwd / prof["device_busy_ms"] if prof["device_busy_ms"]
+            else None,
+            "kernel_shares": {k: v for k, v in prof["kernel_shares"].items() if v["count"]},
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "host_launches_per_step": prof.get("host_launches_per_step")}
+
+
+def _launcher_run(dev, arch: str, cfg, batch: int, seq: int, steps: int, lr: str) -> dict:
+    """``arch`` through ``repro_torch.launch.train.main`` (``cfg``, a depth
+    cut where it is not the published config, in place of ``get_config``),
+    float32 state: the loss must fall and every kernel call run its
+    backward; then one step traced."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    report = {}
+    real = train_mod.get_config
+    train_mod.get_config = lambda name: cfg
+    t0 = time.perf_counter()
+    try:
+        rc = train_mod.main(["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+                             "--seq", str(seq), "--opt-state", "float32", "--lr", lr,
+                             "--seed", "0"], report=report)
+    finally:
+        train_mod.get_config = real
+    wall = time.perf_counter() - t0
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = report["losses"]
+    check(rc == 0 and losses[-1] < losses[0] and all(np.isfinite(losses)),
+          f"train_families {arch}: rc {rc}, loss {losses[0]} -> {losses[-1]}")
+    _family_launches(counts, tcs, cfg, steps, f"train_families {arch}")
+    step_s = report["step_s"]
+    p50 = statistics.median(step_s)
+    tok_s = batch * seq / p50
+    n = _active_params(report["params"], cfg)
+    rng = np.random.default_rng(1)
+    state = {"params": report["params"], "opt": report["opt_state"]}
+
+    def step():
+        b = train_mod.synthetic_batch(rng, cfg, batch, seq, dev)
+        state["params"], state["opt"], m = report["step_fn"](state["params"], state["opt"], b)
+        float(m["loss"])
+
+    prof = _family_profile(step, f"one {arch} train step")
+    del report, state
+    return {"config": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "state_dtype": "float32", "batch": batch, "seq": seq, "lr": float(lr),
+            "steps": steps, "wall_s": wall, "losses": losses,
+            "step_ms": [t * 1e3 for t in step_s],
+            "step_ms_p50": p50 * 1e3, "train_tok_s": tok_s, "params": n,
+            "mfu": 6 * n["active"] * tok_s / PEAK_FLOPS[torch.bfloat16],
+            "peak_gib": peak, "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+            "tc_launches_per_step": {k: v / steps for k, v in tcs.items() if v},
+            "profile": prof}
+
+
+def _jamba_grads(dev) -> dict:
+    """Jamba-1.5-Large's first ``JAMBA_TRAIN_LAYERS`` layers at published
+    widths, bf16, seeded weights: ``JAMBA_PASSES`` passes of
+    ``loss_and_grads`` at batch ``JAMBA_BATCH`` (gradients only): loss and
+    grad norm finite, the scan and its backward kernel twice a pass; then
+    one pass traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params, layer_kind
+    from repro_torch.models.zoo import loss_and_grads
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(HYBRID_ARCH).with_(n_layers=JAMBA_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    B, S = JAMBA_BATCH
+    ops.reset_launch_counts()
+    losses, norms, pass_s = [], [], []
+    for _ in range(JAMBA_PASSES):
+        batch = synthetic_batch(rng, cfg, B, S, dev)
+        t1 = time.perf_counter()
+        loss, grads = loss_and_grads(params, cfg, batch)
+        norm = float(torch.sqrt(sum(g.float().square().sum() for g in _leaves(grads))))
+        losses.append(float(loss))
+        pass_s.append(time.perf_counter() - t1)
+        norms.append(norm)
+        del grads
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)) and min(norms) > 0,
+          f"train_families jamba: losses {losses}, grad norms {norms}")
+    # the scan and its backward once a Mamba layer a pass (both layers)
+    _family_launches(counts, tcs, cfg, JAMBA_PASSES, "train_families jamba")
+    p50 = statistics.median(pass_s)
+    n = _active_params(params, cfg)
+    batch = synthetic_batch(rng, cfg, B, S, dev)
+
+    def step():
+        loss, grads = loss_and_grads(params, cfg, batch)
+        float(loss)
+        del grads
+
+    prof = _family_profile(step, "one Jamba gradient pass")
+    del params
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "kinds": [layer_kind(cfg, i) for i in range(cfg.n_layers)], "dtype": cfg.dtype,
+            "batch": B, "seq": S, "passes": JAMBA_PASSES, "init_s": init_s, "losses": losses,
+            "grad_norms": norms, "pass_ms": [t * 1e3 for t in pass_s],
+            "step_ms_p50": p50 * 1e3, "train_tok_s": B * S / p50, "params": n,
+            "mfu": 6 * n["active"] * B * S / p50 / PEAK_FLOPS[torch.bfloat16],
+            "peak_gib": peak,
+            "launches_per_step": {k: v / JAMBA_PASSES for k, v in counts.items() if v},
+            "tc_launches_per_step": {k: v / JAMBA_PASSES for k, v in tcs.items() if v},
+            "profile": prof}
+
+
+def phase_train_families(dev) -> dict:
+    """``train_families``: the other families' training at published widths,
+    bf16, seeded weights (each run's numbers in a ``train_family`` line):
+    DeepSeek-V2-Lite-16B's first ``DEEPSEEK_TRAIN_LAYERS`` layers through the
+    launcher (float32 state; the flash backward at MLA's 192 / 128 in every
+    step: this slice's main path), Jamba-1.5-Large's first 2 layers
+    (gradients only, through the scan's backward kernel), Whisper-tiny and
+    xLSTM-350M whole through the launcher."""
+    from repro_torch.configs import get_config
+
+    runs = {}
+
+    def run(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        runs[name] = fn(*args, **kwargs)
+        emit("train_family", run=name, run_s=time.perf_counter() - t0, **runs[name])
+
+    cut = get_config(MLA_ARCH).with_(n_layers=DEEPSEEK_TRAIN_LAYERS)
+    run("deepseek", _launcher_run, dev, MLA_ARCH, cut, **DEEPSEEK_TRAIN)
+    run("jamba", _jamba_grads, dev)
+    for arch, shape in SMALL_TRAIN.items():
+        run(arch.split("_")[0], _launcher_run, dev, arch, get_config(arch), **shape)
+    res = {"runs": {k: {x: v[x] for x in ("layers", "step_ms_p50", "train_tok_s", "mfu",
+                                          "peak_gib", "launches_per_step")}
+                    | {"first_loss": v["losses"][0], "last_loss": v["losses"][-1],
+                       "device_idle_share": v["profile"]["device_idle_share"],
+                       "backward_kernels_share": v["profile"]["backward_kernels_share"]}
+                    for k, v in runs.items()},
+           "launches": {"ssm_scan_bwd": round(runs["jamba"]["launches_per_step"]
+                                              ["ssm_scan_bwd"] * JAMBA_PASSES),
+                        "flash_attention_bwd": round(runs["deepseek"]["launches_per_step"]
+                                                     ["flash_attention_bwd"]
+                                                     * DEEPSEEK_TRAIN["steps"])}}
+    emit("train_families", **res)
+    return res
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3782,7 +4322,11 @@ def main(argv=None) -> int:
     if "train" in phases:
         _free_card()
         trn = phase_train(dev)
-    if all(x is not None for x in (kern, eng, tb, hyb, trn)):
+    fam = None
+    if "train_families" in phases:
+        _free_card()
+        fam = phase_train_families(dev)
+    if all(x is not None for x in (kern, eng, tb, hyb, trn, fam)):
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot
         # kernels' from the testbed's LLMSched slot run, the scan's from the
@@ -3793,8 +4337,10 @@ def main(argv=None) -> int:
                          for k in ("flash_attention", "decode_attention")})
         launches.update({k: eng["launches_int8"][k] for k in PAGED_KERNELS["int8"][:2]})
         launches["ssm_scan"] = hyb["launches"]["ssm_scan"]
-        # the trainer's kernels: the train phase's float32-state run
+        # the trainer's kernels: the train phase's float32-state run; the
+        # scan's backward: train_families' Jamba passes
         launches.update({k: trn["launches"][k] for k in ("flash_attention_bwd", "rmsnorm_bwd")})
+        launches["ssm_scan_bwd"] = fam["launches"]["ssm_scan_bwd"]
         tc_launches = {"flash_attention": tb["llmsched"]["tc_launches"]["flash_attention"],
                        "paged_prefill_attention": eng["tc_launches"]["paged_prefill_attention"],
                        "paged_prefill_attention_int8":

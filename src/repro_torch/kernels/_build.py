@@ -31,7 +31,17 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: channels one CTA of the selective scan's forward and backward kernels
+#: holds (the backward's dB and dC partials are one row a CTA), and the steps
+#: between the forward's checkpoints (its optional ``states`` output, (B,
+#: ceil(T / SSM_CKPT_STEPS), D, N) float32), which is also the chunk the
+#: backward recomputes.  Both kernels are compiled with these values
+#: (``-DREPRO_SSM_CHANNELS``, ``-DREPRO_SSM_CKPT``), and the wrappers size
+#: the buffers those kernels write from them: this is their one owner.
+SSM_CHANNELS_PER_CTA = 64
+SSM_CKPT_STEPS = 64
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+          f"-DREPRO_SSM_CHANNELS={SSM_CHANNELS_PER_CTA}", f"-DREPRO_SSM_CKPT={SSM_CKPT_STEPS}"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -56,8 +66,8 @@ SIGNATURES: Dict[str, List] = {
     "decode_attention_bf16": [P] * 5 + [I] * 6 + _STRIDES + [F, P],
     "flash_attention_f32": [P] * 5 + [I] * 9 + [L] * 12 + [F, P],
     "flash_attention_bf16": [P] * 5 + [I] * 9 + [L] * 12 + [F, P],
-    "ssm_scan_f32": [P] * 9 + [I] * 5 + [L] * 12 + [P],
-    "ssm_scan_bf16": [P] * 9 + [I] * 5 + [L] * 12 + [P],
+    "ssm_scan_f32": [P] * 10 + [I] * 5 + [L] * 12 + [P],
+    "ssm_scan_bf16": [P] * 10 + [I] * 5 + [L] * 12 + [P],
     # the tensor-core bodies (csrc/attention_tc.cuh), bf16 only
     "flash_attention_tc_bf16": [P] * 5 + [I] * 7 + [L] * 9 + [F, P],
     "paged_prefill_tc_bf16": [P] * 5 + [I] * 8 + [L] * 6 + [F, P],
@@ -69,14 +79,17 @@ SIGNATURES: Dict[str, List] = {
     "paged_decode_split_bf16": [P] * 6 + [I] * 9 + [L] * 6 + [F, P],
     "paged_decode_q8_split_f32": [P] * 8 + [I] * 9 + [L] * 12 + [F, P],
     "paged_decode_q8_split_bf16": [P] * 8 + [I] * 9 + [L] * 12 + [F, P],
-    # the backward kernels (csrc/flash_attention_bwd.cu, csrc/rmsnorm_bwd.cu)
-    "flash_attention_bwd_f32": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
-    "flash_attention_bwd_bf16": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
-    "flash_attention_bwd_tc_bf16": [P] * 10 + [I] * 7 + [L] * 20 + [F, P],
+    # the backward kernels (csrc/flash_attention_bwd.cu, csrc/rmsnorm_bwd.cu,
+    # csrc/ssm_scan_bwd.cu)
+    "flash_attention_bwd_f32": [P] * 10 + [I] * 8 + [L] * 20 + [F, P],
+    "flash_attention_bwd_bf16": [P] * 10 + [I] * 8 + [L] * 20 + [F, P],
+    "flash_attention_bwd_tc_bf16": [P] * 10 + [I] * 8 + [L] * 20 + [F, P],
     "rmsnorm_bwd_f32": [P] * 6 + [I] * 5 + [F, P],
     "rmsnorm_bwd_bf16": [P] * 6 + [I] * 5 + [F, P],
     "rmsnorm_bwd_ctas_per_sm_f32": [I] * 3 + [P],
     "rmsnorm_bwd_ctas_per_sm_bf16": [I] * 3 + [P],
+    "ssm_scan_bwd_f32": [P] * 19 + [I] * 5 + [L] * 12 + [P],
+    "ssm_scan_bwd_bf16": [P] * 19 + [I] * 5 + [L] * 12 + [P],
 }
 #: head dims the tensor-core attention body is built for (hd == hd_v)
 TC_HEAD_DIMS = (16, 64, 128)
@@ -112,9 +125,11 @@ RMSNORM_WARPS = (1, 2, 4, 8, 16)
 #: lanes a channel the selective-scan launcher has a form for, and the
 #: states each lane holds (csrc/ssm_scan.cu)
 SSM_LANES = (1, 2, 4)
-#: head dims the flash backward kernel is built for (hd == hd_v); bf16 calls
-#: with 16-byte rows take its tensor-core body at each of them
-BWD_HEAD_DIMS = (16, 64, 128)
+#: (hd, hd_v) pairs the flash backward kernel is built for: hd == hd_v at 16,
+#: 64 and 128 (bf16 calls with 16-byte rows take its tensor-core body there),
+#: and MLA's (24, 16) (DeepSeek's smoke config) and (192, 128)
+#: (DeepSeek-V2-Lite), on its CUDA-core body only
+BWD_HEAD_DIM_PAIRS = ((16, 16), (64, 64), (128, 128), (24, 16), (192, 128))
 #: widest row the RMSNorm backward kernel takes (the part of a row past its
 #: register slots keeps its f32 dgamma partial in a CTA's shared memory),
 #: and the 16-byte vectors of a row one of its threads can hold in
@@ -125,6 +140,12 @@ RMSNORM_BWD_SLOTS = (1, 2, 4)
 RMSNORM_BWD_THREADS = 256
 SSM_STATES_PER_LANE = 4
 SSM_MAX_STATE = 16
+
+
+def ssm_checkpoints(T: int) -> int:
+    """Checkpoints the selective scan's forward writes for ``T`` steps:
+    the state before steps 0, ``SSM_CKPT_STEPS``, ... (16 at T = 1024)."""
+    return -(-T // SSM_CKPT_STEPS)
 
 
 @functools.lru_cache(maxsize=None)

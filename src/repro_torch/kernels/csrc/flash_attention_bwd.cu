@@ -32,7 +32,9 @@
 // token, and a row past Sq*g, have P = 0 by select; keys past Sk and rows
 // past the end are never read (zeros are staged), so garbage there, even
 // NaN, moves no gradient. dq, dk, dv are contiguous, rounded once from f32.
-// Head dims 16, 64, 128 with hd == hd_v; the wrapper refuses others.
+// Head dims (hd, hd_v): 16, 64 and 128 with hd == hd_v, and MLA's (24, 16)
+// (DeepSeek's smoke config) and (192, 128) (DeepSeek-V2-Lite) on the CUDA-core
+// body only (_build.BWD_HEAD_DIM_PAIRS); the wrapper refuses others.
 //
 // Two bodies; the wrapper (flash_attention.py, backward_uses_tensor_cores)
 // picks one by shape:
@@ -63,7 +65,12 @@
 //   a 64 x 64 product (rows ty + 16 i, columns tx + 16 j: one row pair a
 //   warp, so the row operand is a broadcast and the column operand
 //   conflict-free through a padded row stride); q, k, v, o and dout are read
-//   through their strides ((B, S, heads, d)).
+//   through their strides ((B, S, heads, d)). Two head dims: HD for q and k
+//   (S, dK, dQ), HDV for v, o and dout (dP, dV, delta), each staged in
+//   columns rounded up to a multiple of 16 (24 -> 32), the pad zero-filled,
+//   so it adds nothing to a product and is never written. At (192, 128) the
+//   four f32 tiles and P/dS take ~178 KB of shared memory (the launcher opts
+//   in above 48 KB).
 #include "attention_tc.cuh"
 #include "common.cuh"
 
@@ -77,14 +84,14 @@ constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 struct BwdParams {
   const void* q;      // (B, Sq, H, hd) via qs
   const void* k;      // (B, Sk, K, hd) via ks
-  const void* v;      // (B, Sk, K, hd) via vs
-  const void* o;      // (B, Sq, H, hd) via os
-  const void* dout;   // (B, Sq, H, hd) via dos
+  const void* v;      // (B, Sk, K, hd_v) via vs
+  const void* o;      // (B, Sq, H, hd_v) via os
+  const void* dout;   // (B, Sq, H, hd_v) via dos
   const float* lse;   // (B, H, Sq) contiguous
   float* delta;       // (B, H, Sq) scratch
   void* dq;           // (B, Sq, H, hd) contiguous
   void* dk;           // (B, Sk, K, hd) contiguous
-  void* dv;           // (B, Sk, K, hd) contiguous
+  void* dv;           // (B, Sk, K, hd_v) contiguous
   int B, Sq, Sk, H, K, causal;
   long long qs[4], ks[4], vs[4], os[4], dos[4];
   float scale;
@@ -110,38 +117,47 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(const BwdParams p, int 
   if (threadIdx.x % 32 == 0) p.delta[(static_cast<long long>(b) * p.H + h) * p.Sq + t] = acc;
 }
 
+// a head dim's columns in the staged tiles: a multiple of 16 (the thread
+// grid's column step), the pad zero-filled
+__host__ __device__ constexpr int padded(int hd) { return (hd + 15) / 16 * 16; }
+
 // stage rows [r0, r0 + kBM) of a folded query-side tensor (q, o or dout) of
-// kv head kh as f32 [kBM][HD + 1]; rows past n_rows are zeros, never read
+// kv head kh as f32 [kBM][padded(HD) + 1]; rows past n_rows and the pad
+// columns are zeros, never read
 template <typename T, int HD>
 __device__ __forceinline__ void stage_rows(float* dst, const void* src, const long long* st,
                                            int b, int kh, int g, int r0, int n_rows) {
+  constexpr int kP = padded(HD);
   const T* base = static_cast<const T*>(src) + b * st[0];
-  for (int i = threadIdx.x; i < kBM * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i % HD;
+  for (int i = threadIdx.x; i < kBM * kP; i += kThreads) {
+    const int r = i / kP;
+    const int d = i % kP;
     const int row = r0 + r;
     float x = 0.f;
-    if (row < n_rows)
+    if (row < n_rows && d < HD)
       x = to_f32(base[(row / g) * st[1] + static_cast<long long>(kh * g + row % g) * st[2] +
                       d * st[3]]);
-    dst[r * (HD + 1) + d] = x;
+    dst[r * (kP + 1) + d] = x;
   }
 }
 
-// stage keys [n0, n0 + kBN) of k or v (kv head kh) as f32 [kBN][HD + 1];
-// keys at or past Sk are zeros, never read
+// stage keys [n0, n0 + kBN) of k or v (kv head kh) as f32 [kBN][padded(HD) +
+// 1]; keys at or past Sk and the pad columns are zeros, never read
 template <typename T, int HD>
 __device__ __forceinline__ void stage_keys(float* dst, const void* src, const long long* st,
                                            int b, int kh, int n0, int Sk) {
+  constexpr int kP = padded(HD);
   const T* base = static_cast<const T*>(src) + b * st[0] + kh * st[2];
-  for (int i = threadIdx.x; i < kBN * HD; i += kThreads) {
-    const int n = i / HD;
-    const int d = i % HD;
-    dst[n * (HD + 1) + d] = n0 + n < Sk ? to_f32(base[(n0 + n) * st[1] + d * st[3]]) : 0.f;
+  for (int i = threadIdx.x; i < kBN * kP; i += kThreads) {
+    const int n = i / kP;
+    const int d = i % kP;
+    dst[n * (kP + 1) + d] =
+        n0 + n < Sk && d < HD ? to_f32(base[(n0 + n) * st[1] + d * st[3]]) : 0.f;
   }
 }
 
 // acc[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over rows of stride HD + 1
+// (HD a multiple of 16: a padded head dim)
 template <int HD>
 __device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* a, const float* b,
                                          int ty, int tx) {
@@ -164,7 +180,7 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* a, con
 }
 
 // acc[i][j] += sum_m w[m][ty + 16 i] * x[m][tx + 16 j]: a transposed product
-// over the kBM rows of w ([kBM][kBN + 1]) and x ([kBM][HD + 1])
+// over the kBM rows of w ([kBM][kBN + 1]) and x ([kBM][HD + 1], HD padded)
 template <int HD>
 __device__ __forceinline__ void add_wt_x(float (&acc)[4][HD / 16], const float* w,
                                          const float* x, int ty, int tx) {
@@ -182,11 +198,14 @@ __device__ __forceinline__ void add_wt_x(float (&acc)[4][HD / 16], const float* 
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 struct BwdSmem {
-  static constexpr int kTile = kBM * (HD + 1);  // kBM == kBN
+  static constexpr int kP = padded(HD);                 // q's and k's columns
+  static constexpr int kPV = padded(HDV);               // v's, o's and dout's
+  static constexpr int kTile = kBM * (kP + 1);          // kBM == kBN
+  static constexpr int kTileV = kBM * (kPV + 1);
   static constexpr int kW = kBM * (kBN + 1);
-  static constexpr size_t kBytes = sizeof(float) * (4 * kTile + kW + 2 * kBM);
+  static constexpr size_t kBytes = sizeof(float) * (2 * kTile + 2 * kTileV + kW + 2 * kBM);
 };
 
 // P and dS of one (row block, key block) pair, in the thread's 4 x 4 patch:
@@ -196,16 +215,17 @@ __device__ __forceinline__ bool live(const BwdParams& p, int row, int key, int n
 }
 
 // 2. dk, dv: one CTA per (b * K + kh, key block)
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const BwdParams p) {
   extern __shared__ float smem[];
-  constexpr int kTile = BwdSmem<HD>::kTile;
+  using S = BwdSmem<HD, HDV>;
+  constexpr int kP = S::kP, kPV = S::kPV;
   float* k_s = smem;
-  float* v_s = k_s + kTile;
-  float* q_s = v_s + kTile;
-  float* do_s = q_s + kTile;
-  float* w_s = do_s + kTile;   // [kBM][kBN + 1]: P, then dS
-  float* lse_s = w_s + BwdSmem<HD>::kW;
+  float* v_s = k_s + S::kTile;
+  float* q_s = v_s + S::kTileV;
+  float* do_s = q_s + S::kTile;
+  float* w_s = do_s + S::kTileV;   // [kBM][kBN + 1]: P, then dS
+  float* lse_s = w_s + S::kW;
   float* dd_s = lse_s + kBM;
   const int g = p.H / p.K;
   const int b = blockIdx.x / p.K;
@@ -216,19 +236,22 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const BwdParams p) {
   const int ty = threadIdx.x / 16;
 
   stage_keys<T, HD>(k_s, p.k, p.ks, b, kh, n0, p.Sk);
-  stage_keys<T, HD>(v_s, p.v, p.vs, b, kh, n0, p.Sk);
-  float dk[4][HD / 16], dv[4][HD / 16];
+  stage_keys<T, HDV>(v_s, p.v, p.vs, b, kh, n0, p.Sk);
+  float dk[4][kP / 16], dv[4][kPV / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int j = 0; j < kP / 16; ++j) dk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPV / 16; ++j) dv[i][j] = 0.f;
+  }
 
   // causal: rows whose token is at least n0 see this block's keys
   const int rb0 = p.causal ? (n0 * g) / kBM : 0;
   for (int r0 = rb0 * kBM; r0 < n_rows; r0 += kBM) {
     __syncthreads();  // the previous block's reads of q_s, do_s, w_s are done
     stage_rows<T, HD>(q_s, p.q, p.qs, b, kh, g, r0, n_rows);
-    stage_rows<T, HD>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
+    stage_rows<T, HDV>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
     for (int m = threadIdx.x; m < kBM; m += kThreads) {
       const int row = r0 + m;
       const long long at = (static_cast<long long>(b) * p.H + kh * g + row % g) * p.Sq + row / g;
@@ -237,8 +260,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const BwdParams p) {
     }
     __syncthreads();
     float s[4][4], dp[4][4];
-    dot_tile<HD>(s, q_s, k_s, ty, tx);
-    dot_tile<HD>(dp, do_s, v_s, ty, tx);
+    dot_tile<kP>(s, q_s, k_s, ty, tx);
+    dot_tile<kPV>(dp, do_s, v_s, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = ty + 16 * i;
@@ -252,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const BwdParams p) {
       }
     }
     __syncthreads();
-    add_wt_x<HD>(dv, w_s, do_s, ty, tx);  // dV += P^T dout
+    add_wt_x<kPV>(dv, w_s, do_s, ty, tx);  // dV += P^T dout
     __syncthreads();                      // every read of P is done
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -262,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const BwdParams p) {
         w_s[m * (kBN + 1) + tx + 16 * j] = s[i][j] * (dp[i][j] - dd_s[m]);
     }
     __syncthreads();
-    add_wt_x<HD>(dk, w_s, q_s, ty, tx);   // dK += dS^T Q
+    add_wt_x<kP>(dk, w_s, q_s, ty, tx);    // dK += dS^T Q
   }
 
   T* dkp = static_cast<T*>(p.dk);
@@ -271,26 +294,28 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const BwdParams p) {
   for (int i = 0; i < 4; ++i) {
     const int key = n0 + ty + 16 * i;
     if (key >= p.Sk) continue;
-    const long long base = ((static_cast<long long>(b) * p.Sk + key) * p.K + kh) * HD;
+    const long long kv = (static_cast<long long>(b) * p.Sk + key) * p.K + kh;
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      dkp[base + tx + 16 * j] = from_f32<T>(dk[i][j] * p.scale);
-      dvp[base + tx + 16 * j] = from_f32<T>(dv[i][j]);
-    }
+    for (int j = 0; j < kP / 16; ++j)
+      if (tx + 16 * j < HD) dkp[kv * HD + tx + 16 * j] = from_f32<T>(dk[i][j] * p.scale);
+#pragma unroll
+    for (int j = 0; j < kPV / 16; ++j)
+      if (tx + 16 * j < HDV) dvp[kv * HDV + tx + 16 * j] = from_f32<T>(dv[i][j]);
   }
 }
 
 // 3. dq: one CTA per (b * K + kh, folded row block), longest first
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
   extern __shared__ float smem[];
-  constexpr int kTile = BwdSmem<HD>::kTile;
+  using S = BwdSmem<HD, HDV>;
+  constexpr int kP = S::kP, kPV = S::kPV;
   float* q_s = smem;
-  float* do_s = q_s + kTile;
-  float* k_s = do_s + kTile;
-  float* v_s = k_s + kTile;
-  float* w_s = v_s + kTile;   // [kBM][kBN + 1]: dS
-  float* lse_s = w_s + BwdSmem<HD>::kW;
+  float* do_s = q_s + S::kTile;
+  float* k_s = do_s + S::kTileV;
+  float* v_s = k_s + S::kTile;
+  float* w_s = v_s + S::kTileV;   // [kBM][kBN + 1]: dS
+  float* lse_s = w_s + S::kW;
   float* dd_s = lse_s + kBM;
   const int g = p.H / p.K;
   const int b = blockIdx.x / p.K;
@@ -302,29 +327,29 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
   const int ty = threadIdx.x / 16;
 
   stage_rows<T, HD>(q_s, p.q, p.qs, b, kh, g, r0, n_rows);
-  stage_rows<T, HD>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
+  stage_rows<T, HDV>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
   for (int m = threadIdx.x; m < kBM; m += kThreads) {
     const int row = r0 + m;
     const long long at = (static_cast<long long>(b) * p.H + kh * g + row % g) * p.Sq + row / g;
     lse_s[m] = row < n_rows ? p.lse[at] : __int_as_float(0x7f800000);  // P = 0
     dd_s[m] = row < n_rows ? p.delta[at] : 0.f;
   }
-  float dq[4][HD / 16];
+  float dq[4][kP / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dq[i][j] = 0.f;
+    for (int j = 0; j < kP / 16; ++j) dq[i][j] = 0.f;
 
   // causal: the block's last row sees keys 0 .. its own token
   const int n_k = p.causal ? min(p.Sk, (r0 + rows - 1) / g + 1) : p.Sk;
   for (int n0 = 0; n0 < n_k; n0 += kBN) {
     __syncthreads();  // the previous block's reads of k_s, v_s, w_s are done
     stage_keys<T, HD>(k_s, p.k, p.ks, b, kh, n0, p.Sk);
-    stage_keys<T, HD>(v_s, p.v, p.vs, b, kh, n0, p.Sk);
+    stage_keys<T, HDV>(v_s, p.v, p.vs, b, kh, n0, p.Sk);
     __syncthreads();
     float s[4][4], dp[4][4];
-    dot_tile<HD>(s, q_s, k_s, ty, tx);
-    dot_tile<HD>(dp, do_s, v_s, ty, tx);
+    dot_tile<kP>(s, q_s, k_s, ty, tx);
+    dot_tile<kPV>(dp, do_s, v_s, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = ty + 16 * i;
@@ -340,15 +365,15 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
     // dQ += dS K: rows ty + 16 i, dims tx + 16 j
 #pragma unroll 4
     for (int n = 0; n < kBN; ++n) {
-      float wv[4], kv[HD / 16];
+      float wv[4], kv[kP / 16];
 #pragma unroll
       for (int i = 0; i < 4; ++i) wv[i] = w_s[(ty + 16 * i) * (kBN + 1) + n];
 #pragma unroll
-      for (int j = 0; j < HD / 16; ++j) kv[j] = k_s[n * (HD + 1) + tx + 16 * j];
+      for (int j = 0; j < kP / 16; ++j) kv[j] = k_s[n * (kP + 1) + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < HD / 16; ++j) dq[i][j] = fmaf(wv[i], kv[j], dq[i][j]);
+        for (int j = 0; j < kP / 16; ++j) dq[i][j] = fmaf(wv[i], kv[j], dq[i][j]);
     }
   }
 
@@ -360,42 +385,44 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdParams p) {
     const long long base =
         ((static_cast<long long>(b) * p.Sq + row / g) * p.H + kh * g + row % g) * HD;
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dqp[base + tx + 16 * j] = from_f32<T>(dq[i][j] * p.scale);
+    for (int j = 0; j < kP / 16; ++j)
+      if (tx + 16 * j < HD) dqp[base + tx + 16 * j] = from_f32<T>(dq[i][j] * p.scale);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch_hd(const BwdParams& p, cudaStream_t s) {
-  constexpr size_t smem = BwdSmem<HD>::kBytes;
+  constexpr size_t smem = BwdSmem<HD, HDV>::kBytes;
   static size_t granted_kv[kMaxDevices] = {};
   static size_t granted_q[kMaxDevices] = {};
-  cudaError_t err = allow_smem(dkdv_kernel<T, HD>, smem, granted_kv);
+  cudaError_t err = allow_smem(dkdv_kernel<T, HD, HDV>, smem, granted_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(dq_kernel<T, HD>, smem, granted_q);
+  err = allow_smem(dq_kernel<T, HD, HDV>, smem, granted_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
   delta_kernel<T><<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads,
-                    0, s>>>(p, HD);
+                    0, s>>>(p, HDV);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int g = p.H / p.K;
-  dkdv_kernel<T, HD><<<dim3(p.B * p.K, (p.Sk + kBN - 1) / kBN), kThreads, smem, s>>>(p);
+  dkdv_kernel<T, HD, HDV><<<dim3(p.B * p.K, (p.Sk + kBN - 1) / kBN), kThreads, smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<T, HD><<<dim3(p.B * p.K, (p.Sq * g + kBM - 1) / kBM), kThreads, smem, s>>>(p);
+  dq_kernel<T, HD, HDV><<<dim3(p.B * p.K, (p.Sq * g + kBM - 1) / kBM), kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the (hd, hd_v) pairs of _build.BWD_HEAD_DIM_PAIRS
 template <typename T>
-int launch(const BwdParams& p, int hd, void* stream) {
+int launch(const BwdParams& p, int hd, int hd_v, void* stream) {
   if (p.B == 0 || p.Sq == 0 || p.Sk == 0 || p.H == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_hd<T, 16>(p, s);
-    case 64: return launch_hd<T, 64>(p, s);
-    case 128: return launch_hd<T, 128>(p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (hd == 16 && hd_v == 16) return launch_hd<T, 16, 16>(p, s);
+  if (hd == 64 && hd_v == 64) return launch_hd<T, 64, 64>(p, s);
+  if (hd == 128 && hd_v == 128) return launch_hd<T, 128, 128>(p, s);
+  if (hd == 24 && hd_v == 16) return launch_hd<T, 24, 16>(p, s);      // MLA, smoke widths
+  if (hd == 192 && hd_v == 128) return launch_hd<T, 192, 128>(p, s);  // DeepSeek-V2-Lite
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -851,8 +878,9 @@ int launch_hd(const BwdParams& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const BwdParams& p, int hd, void* stream) {
+int launch(const BwdParams& p, int hd, int hd_v, void* stream) {
   if (p.B == 0 || p.Sq == 0 || p.Sk == 0 || p.H == 0) return 0;
+  if (hd != hd_v) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_hd<16>(p, s);
@@ -871,7 +899,8 @@ int launch(const BwdParams& p, int hd, void* stream) {
 #define REPRO_FLASH_BWD_ENTRY(NAME, LAUNCH)                                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* o,          \
                       const void* dout, const float* lse, float* delta, void* dq, void* dk, \
-                      void* dv, int B, int Sq, int Sk, int H, int K, int hd, int causal,    \
+                      void* dv, int B, int Sq, int Sk, int H, int K, int hd, int hd_v,      \
+                      int causal,                                                           \
                       long long qs0, long long qs1, long long qs2, long long qs3,           \
                       long long ks0, long long ks1, long long ks2, long long ks3,           \
                       long long vs0, long long vs1, long long vs2, long long vs3,           \
@@ -905,7 +934,7 @@ int launch(const BwdParams& p, int hd, void* stream) {
       p.dos[i] = st[16 + i];                                                                \
     }                                                                                       \
     p.scale = scale;                                                                        \
-    return LAUNCH(p, hd, stream);                                                           \
+    return LAUNCH(p, hd, hd_v, stream);                                                     \
   }
 
 REPRO_FLASH_BWD_ENTRY(flash_attention_bwd_f32, repro_torch::launch<float>)

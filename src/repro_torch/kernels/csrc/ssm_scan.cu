@@ -1,6 +1,9 @@
 // Mamba selective scan with a float32 state carried over T:
 //   h_t = exp(dt_t * A) . h_{t-1} + (dt_t * x_t) B_t,   y_t = h_t . C_t + D x_t,
-// returning y (x's dtype) and the final state h_T (f32).
+// returning y (x's dtype) and the final state h_T (f32); for training, also
+// the state at the start of every kCkpt-step chunk (f32 (B, ceil(T / kCkpt),
+// D, N)), from which the backward (ssm_scan_bwd.cu) recomputes the chunk's
+// states instead of storing all B * T * D * N of them.
 //
 // Replaces: repro/kernels/ssm_scan.py::ssm_scan (Pallas, _ssm_kernel). The
 // TPU kernel sweeps T as a sequential grid axis in chunks and keeps the
@@ -49,12 +52,26 @@
 // thing to try.
 #include "common.cuh"
 
+// The layout's two sizes come from _build.py (SSM_CHANNELS_PER_CTA,
+// SSM_CKPT_STEPS), which compiles every source with them and sizes the
+// buffers these kernels write from the same values.
+#if !defined(REPRO_SSM_CHANNELS) || !defined(REPRO_SSM_CKPT)
+#error "build through repro_torch.kernels._build, which defines REPRO_SSM_CHANNELS and REPRO_SSM_CKPT"
+#endif
+
 namespace repro_torch {
 namespace {
 
-constexpr int kChannels = 64;  // channels a block
-constexpr int kStates = 4;     // states a lane
-constexpr int kMaxState = 16;  // largest N (Jamba: 16): 4 lanes of 4
+constexpr int kChannels = REPRO_SSM_CHANNELS;  // channels a block
+constexpr int kStates = 4;                     // states a lane
+constexpr int kMaxState = 16;                  // largest N (Jamba: 16): 4 lanes of 4
+constexpr int kCkpt = REPRO_SSM_CKPT;          // steps between checkpoints
+// whole warps, and a chunk's B/C tile (8 L steps of kMaxState) staged in
+// whole values a thread; a checkpoint on a chunk boundary of every form
+// (kChunk = 8 L, L <= 4)
+static_assert(kChannels % 32 == 0 && (8 * kMaxState) % kChannels == 0,
+              "ssm_scan: no form for this many channels a block");
+static_assert(kCkpt > 0 && kCkpt % 32 == 0, "ssm_scan: checkpoints must fall on chunk ends");
 constexpr float kLog2e = 1.4426950408889634f;
 
 // bytes of dynamic shared memory a block of the L-lane form takes: one
@@ -67,7 +84,8 @@ __global__ void __launch_bounds__(kChannels * L)
                     const float* __restrict__ A, const T* __restrict__ Bm,
                     const T* __restrict__ Cm, const T* __restrict__ Dskip,
                     const float* __restrict__ h0, T* __restrict__ y,
-                    float* __restrict__ hT, int T_len, int D, int N, bool vec_state,
+                    float* __restrict__ hT, float* __restrict__ states, int T_len, int D,
+                    int N, bool vec_state,
                     long long sxb, long long sxt, long long sxd, long long sdb, long long sdt,
                     long long sdd, long long sbb, long long sbt, long long sbn, long long scb,
                     long long sct, long long scn) {
@@ -179,7 +197,19 @@ __global__ void __launch_bounds__(kChannels * L)
   stash(0);
   __syncthreads();
   int buf = 0;
+  const int n_ckpt = (T_len + kCkpt - 1) / kCkpt;
   for (int t0 = 0; t0 < T_len; t0 += kChunk) {
+    if (states != nullptr && live && t0 % kCkpt == 0) {  // the state before step t0
+      float* sp = states + ((b * n_ckpt + t0 / kCkpt) * D + d) * N + n0;
+      if (vec_state) {
+        *reinterpret_cast<float4*>(sp) = make_float4(h[0], h[1], h[2], h[3]);
+      } else {
+#pragma unroll
+        for (int s = 0; s < kStates; ++s) {
+          if (n0 + s < N) sp[s] = h[s];
+        }
+      }
+    }
     const bool more = t0 + kChunk < T_len;
     if (more) fetch(t0 + kChunk);  // in flight while this chunk computes
     const int tc = min(kChunk, T_len - t0);
@@ -230,8 +260,8 @@ __global__ void __launch_bounds__(kChannels * L)
 
 template <typename T, int L>
 int launch_l(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-             const void* Dskip, const void* h0, void* y, void* hT, int B, int T_len, int D,
-             int N, long long sxb, long long sxt, long long sxd, long long sdb, long long sdt,
+             const void* Dskip, const void* h0, void* y, void* hT, void* states, int B,
+             int T_len, int D, int N, long long sxb, long long sxt, long long sxd, long long sdb, long long sdt,
              long long sdd, long long sbb, long long sbt, long long sbn, long long scb,
              long long sct, long long scn, cudaStream_t stream) {
   if (N > L * kStates) return static_cast<int>(cudaErrorInvalidValue);
@@ -243,13 +273,15 @@ int launch_l(const void* x, const void* dt, const void* A, const void* Bm, const
   cudaError_t err = allow_smem(kernel, partial_bytes(L), granted, 48 * 1024 - static_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const bool vec_state = N == L * kStates && a16(A) && a16(hT) && (h0 == nullptr || a16(h0));
+  const bool vec_state = N == L * kStates && a16(A) && a16(hT) && (h0 == nullptr || a16(h0)) &&
+                         (states == nullptr || a16(states));
   const dim3 grid((D + kChannels - 1) / kChannels, B);
   kernel<<<grid, kChannels * L, partial_bytes(L), stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const T*>(Dskip),
-      static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(hT), T_len, D, N,
-      vec_state, sxb, sxt, sxd, sdb, sdt, sdd, sbb, sbt, sbn, scb, sct, scn);
+      static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(hT),
+      static_cast<float*>(states), T_len, D, N, vec_state, sxb, sxt, sxd, sdb, sdt, sdd, sbb,
+      sbt, sbn, scb, sct, scn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,16 +289,16 @@ int launch_l(const void* x, const void* dt, const void* A, const void* Bm, const
 // when the launcher has no form for it or its lanes cannot hold N
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* Dskip, const void* h0, void* y, void* hT, int B, int T_len, int D,
-           int N, int lanes, long long sxb, long long sxt, long long sxd, long long sdb,
+           const void* Dskip, const void* h0, void* y, void* hT, void* states, int B,
+           int T_len, int D, int N, int lanes, long long sxb, long long sxt, long long sxd, long long sdb,
            long long sdt, long long sdd, long long sbb, long long sbt, long long sbn,
            long long scb, long long sct, long long scn, void* stream) {
   if (N < 1 || N > kMaxState || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_SSM_LANES(LANES)                                                               \
   case LANES:                                                                                \
-    return launch_l<T, LANES>(x, dt, A, Bm, Cm, Dskip, h0, y, hT, B, T_len, D, N, sxb, sxt, \
-                              sxd, sdb, sdt, sdd, sbb, sbt, sbn, scb, sct, scn, s);
+    return launch_l<T, LANES>(x, dt, A, Bm, Cm, Dskip, h0, y, hT, states, B, T_len, D, N, sxb, \
+                              sxt, sxd, sdb, sdt, sdd, sbb, sbt, sbn, scb, sct, scn, s);
   switch (lanes) {
     REPRO_SSM_LANES(1)
     REPRO_SSM_LANES(2)
@@ -282,11 +314,12 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
 #define REPRO_SSM_SCAN_ENTRY(NAME, T)                                                      \
   extern "C" int NAME(const void* x, const void* dt, const void* A, const void* Bm,      \
                       const void* Cm, const void* Dskip, const void* h0, void* y,         \
-                      void* hT, int B, int T_len, int D, int N, int lanes, long long sxb, \
-                      long long sxt, long long sxd, long long sdb, long long sdt,         \
-                      long long sdd, long long sbb, long long sbt, long long sbn,         \
-                      long long scb, long long sct, long long scn, void* stream) {        \
-    return repro_torch::launch<T>(x, dt, A, Bm, Cm, Dskip, h0, y, hT, B, T_len, D, N,     \
+                      void* hT, void* states, int B, int T_len, int D, int N, int lanes,  \
+                      long long sxb, long long sxt, long long sxd, long long sdb,         \
+                      long long sdt, long long sdd, long long sbb, long long sbt,         \
+                      long long sbn, long long scb, long long sct, long long scn,         \
+                      void* stream) {                                                     \
+    return repro_torch::launch<T>(x, dt, A, Bm, Cm, Dskip, h0, y, hT, states, B, T_len, D, N, \
                                   lanes, sxb, sxt, sxd, sdb, sdt, sdd, sbb, sbt, sbn, scb, \
                                   sct, scn, stream);                                       \
   }

@@ -35,16 +35,17 @@ write each row's log-sum-exp, which the backward reads.
 :func:`flash_attention_bwd` wraps the backward kernel
 (``csrc/flash_attention_bwd.cu``: dq, dk, dv from q, k, v, the output,
 its LSE and the output's gradient; deterministic, causal or
-bidirectional, ragged, GQA, strided inputs) for f32 and bf16 at
-``hd == hd_v`` in :data:`~repro_torch.kernels._build.BWD_HEAD_DIMS`
+bidirectional, ragged, GQA, strided inputs) for f32 and bf16 at the head
+dims of :data:`~repro_torch.kernels._build.BWD_HEAD_DIM_PAIRS`: hd == hd_v
+at 16, 64 and 128, and MLA's 24 / 16 and 192 / 128
 (:func:`backward_supported`; other head dims raise
 ``NotImplementedError``).  It too has two bodies, chosen by shape
-(:func:`backward_uses_tensor_cores`): bf16 whose q, k, v, o and do rows
-are 16-byte aligned with inner stride 1 takes the tensor-core body
-(FlashAttention-2's backward on ``mma.sync``), everything else (f32, rows
-off 16 bytes, strided inner dims) the CUDA-core body in f32 math.  Its
-calls are counted in ``flash_attention_bwd.launches`` and, of those, the
-tensor-core body's in ``flash_attention_bwd.tc_launches``.  The trainer
+(:func:`backward_uses_tensor_cores`): bf16 at hd == hd_v whose q, k, v, o
+and do rows are 16-byte aligned with inner stride 1 takes the tensor-core
+body (FlashAttention-2's backward on ``mma.sync``), everything else (f32,
+MLA's head dims, rows off 16 bytes, strided inner dims) the CUDA-core body
+in f32 math.  Its calls are counted in ``flash_attention_bwd.launches``
+and, of those, the tensor-core body's in ``flash_attention_bwd.tc_launches``.  The trainer
 reaches both through ``ops._FlashAttention``.  Called directly with grad
 mode on and an input that requires grad, the forward wrapper raises (its
 output has no gradient).
@@ -104,9 +105,10 @@ def backward_uses_tensor_cores(dtype: torch.dtype, shapes, strides, misalign) ->
 
 def backward_supported(hd: int, hd_v: int) -> bool:
     """Whether the backward kernel takes a call's head dims (pure Python):
-    ``hd == hd_v`` in ``BWD_HEAD_DIMS`` (stablelm-1.6b's 64, internlm2-20b's
-    and Jamba's 128, the smoke configs' 16)."""
-    return hd == hd_v and hd in _build.BWD_HEAD_DIMS
+    ``(hd, hd_v)`` in ``BWD_HEAD_DIM_PAIRS`` (stablelm-1.6b's 64,
+    internlm2-20b's and Jamba's 128, the smoke configs' 16, MLA's 192 / 128
+    and its smoke config's 24 / 16)."""
+    return (hd, hd_v) in _build.BWD_HEAD_DIM_PAIRS
 
 
 def flash_attention(
@@ -195,10 +197,10 @@ flash_attention.tc_launches = 0
 def flash_attention_bwd(
     q: torch.Tensor,          # (B, Sq, H, hd)
     k: torch.Tensor,          # (B, Sk, K, hd)
-    v: torch.Tensor,          # (B, Sk, K, hd)
-    o: torch.Tensor,          # (B, Sq, H, hd) the forward's output
+    v: torch.Tensor,          # (B, Sk, K, hd_v)
+    o: torch.Tensor,          # (B, Sq, H, hd_v) the forward's output
     lse: torch.Tensor,        # (B, H, Sq) f32, the forward's return_lse
-    do: torch.Tensor,         # (B, Sq, H, hd) gradient of o
+    do: torch.Tensor,         # (B, Sq, H, hd_v) gradient of o
     causal: bool = True,
     scale: Optional[float] = None,
 ):
@@ -227,9 +229,9 @@ def flash_attention_bwd(
     hd_v = v.shape[3]
     if not backward_supported(hd, hd_v):
         raise NotImplementedError(f"flash attention backward: head dims {hd} / {hd_v} "
-                                  f"(built for hd == hd_v in {_build.BWD_HEAD_DIMS})")
-    if (k.shape != (B, Sk, K, hd) or v.shape != (B, Sk, K, hd) or H % K
-            or o.shape != (B, Sq, H, hd) or do.shape != (B, Sq, H, hd)):
+                                  f"(built for {_build.BWD_HEAD_DIM_PAIRS})")
+    if (k.shape != (B, Sk, K, hd) or v.shape != (B, Sk, K, hd_v) or H % K
+            or o.shape != (B, Sq, H, hd_v) or do.shape != (B, Sq, H, hd_v)):
         raise ValueError(f"flash attention backward kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)} do not match")
@@ -238,7 +240,7 @@ def flash_attention_bwd(
                          f"({B}, {H}, {Sq}), got {lse.dtype} {tuple(lse.shape)}")
     dq = torch.empty((B, Sq, H, hd), dtype=dtype, device=dev)
     dk = torch.empty((B, Sk, K, hd), dtype=dtype, device=dev)
-    dv = torch.empty((B, Sk, K, hd), dtype=dtype, device=dev)
+    dv = torch.empty((B, Sk, K, hd_v), dtype=dtype, device=dev)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     scale = float(scale if scale is not None else hd ** -0.5)
     tc = backward_uses_tensor_cores(dtype, tuple(t.shape for t in ts),
@@ -247,7 +249,7 @@ def flash_attention_bwd(
     name = "flash_attention_bwd_tc_bf16" if tc else f"flash_attention_bwd_{_SUFFIX[dtype]}"
     code = _build.entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd,
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd, hd_v,
         int(bool(causal)), *q.stride(), *k.stride(), *v.stride(), *o.stride(), *do.stride(),
         scale, _build.current_stream(dev),
     )

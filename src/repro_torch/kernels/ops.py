@@ -14,16 +14,17 @@ entry points take ``k_scales``/``v_scales`` for int8 pools; on a CUDA
 device those go to the int8 kernels.
 
 Training: when autograd needs a gradient of a CUDA call
-(:func:`needs_grad`), :func:`attention` and :func:`rmsnorm` go through
-the autograd functions :class:`_FlashAttention` and :class:`_RMSNorm`,
-whose forward runs the forward kernel (flash with its LSE output) and
-whose backward runs the backward kernel (``flash_attention_bwd``,
-``rmsnorm_bwd``).  Without grad, the wrappers are called as before, and
-serving's launches do not change.  On the CPU autograd differentiates
-the plain versions, as JAX differentiates its jnp oracles.  The other
-wrappers have no backward kernel: called with grad needed they raise
-(``_build.refuse_grad``), never returning an output cut off from the
-graph.
+(:func:`needs_grad`), :func:`attention`, :func:`rmsnorm` and
+:func:`ssm_scan` go through the autograd functions
+:class:`_FlashAttention`, :class:`_RMSNorm` and :class:`_SSMScan`, whose
+forward runs the forward kernel (flash with its LSE output, the scan with
+its checkpoints) and whose backward runs the backward kernel
+(``flash_attention_bwd``, ``rmsnorm_bwd``, ``ssm_scan_bwd``).  Without
+grad, the wrappers are called as before, and serving's launches do not
+change.  On the CPU autograd differentiates the plain versions, as JAX
+differentiates its jnp oracles.  The other wrappers have no backward
+kernel: called with grad needed they raise (``_build.refuse_grad``),
+never returning an output cut off from the graph.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from .paged_attention import paged_prefill_attention_int8 as _ppa8
 from .rmsnorm import rmsnorm as _rn
 from .rmsnorm import rmsnorm_bwd as _rnb
 from .ssm_scan import ssm_scan as _ss
+from .ssm_scan import ssm_scan_bwd as _ssb
 
 IMPLS = ("ref", "cuda", "auto")
 #: the kernel wrappers, by the name their launch counts are reported under
@@ -59,6 +61,7 @@ KERNELS = {
     "ssm_scan": _ss,
     "flash_attention_bwd": _fab,
     "rmsnorm_bwd": _rnb,
+    "ssm_scan_bwd": _ssb,
 }
 #: the wrappers with a tensor-core body beside their CUDA-core one
 TC_KERNELS = ("flash_attention", "paged_prefill_attention", "paged_prefill_attention_int8",
@@ -78,7 +81,7 @@ def _use_kernel(impl: str, x: torch.Tensor) -> bool:
 def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     """Whether autograd needs a gradient through a call on ``tensors``:
     grad mode is on and one of them requires grad (pure Python; the route
-    predicate of :func:`attention` and :func:`rmsnorm`)."""
+    predicate of :func:`attention`, :func:`rmsnorm` and :func:`ssm_scan`)."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
 
@@ -118,6 +121,29 @@ class _RMSNorm(torch.autograd.Function):
         x, gamma = ctx.saved_tensors
         dx, dgamma = _rnb(x, gamma, dy.contiguous(), eps=ctx.eps)
         return dx, dgamma, None
+
+
+class _SSMScan(torch.autograd.Function):
+    """The selective scan whose gradient is the backward kernel.
+
+    Forward: the scan kernel with its checkpoints; saves the inputs and
+    them.  Backward: ``ssm_scan_bwd`` from the gradients of y and of h_T
+    (None when h_T is unused).
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, h0):
+        y, hT, states = _ss(x, dt, A, Bm, Cm, D, h0=h0, return_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, h0, states)
+        ctx.set_materialize_grads(False)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, dt, A, Bm, Cm, D, h0, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return _ssb(x, dt, A, Bm, Cm, D, states, dy, h0=h0, dhT=dhT)
 
 
 def load_kernels() -> None:
@@ -179,7 +205,7 @@ def attention(
             if not _fa_backward_supported(q.shape[-1], v.shape[-1]):
                 raise NotImplementedError(
                     f"flash attention backward: head dims {q.shape[-1]} / "
-                    f"{v.shape[-1]} (built for hd == hd_v in {_build.BWD_HEAD_DIMS})")
+                    f"{v.shape[-1]} (built for {_build.BWD_HEAD_DIM_PAIRS})")
             return _FlashAttention.apply(q, k, v, causal, scale)
         return _fa(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                    kv_len=kv_len)
@@ -286,7 +312,10 @@ def ssm_scan(
     h0: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba selective scan; returns ``(y, h_T)`` (see ``ref.ssm_scan_ref``)."""
+    """Mamba selective scan; returns ``(y, h_T)`` (see ``ref.ssm_scan_ref``).
+    When a gradient is needed it runs through :class:`_SSMScan`."""
     if _use_kernel(impl, x):
+        if needs_grad(x, dt, A, Bm, Cm, D, h0):
+            return _SSMScan.apply(x, dt, A, Bm, Cm, D, h0)
         return _ss(x, dt, A, Bm, Cm, D, h0=h0)
     return _ref.ssm_scan_ref(x, dt, A, Bm, Cm, D, h0=h0)

@@ -13,7 +13,8 @@ a NaN check therefore compares a kernel with itself on clean versus
 poisoned pages, never with these functions.
 
 The backward versions (:func:`attention_lse_ref`,
-:func:`attention_bwd_ref`, :func:`rmsnorm_bwd_ref`) write the gradients
+:func:`attention_bwd_ref`, :func:`rmsnorm_bwd_ref`,
+:func:`ssm_scan_bwd_ref`) write the gradients
 out formula by formula in float32, without autograd: they are what the
 backward kernels are held against on the card.  The model's CPU path
 never calls them; there autograd differentiates the forward versions,
@@ -317,3 +318,59 @@ def ssm_scan_ref(
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = torch.stack(ys, dim=1) + xf * D.float()[None, None, :]
     return y.to(x.dtype), h
+
+
+def ssm_scan_bwd_ref(
+    x: torch.Tensor,            # (B, T, D)
+    dt: torch.Tensor,           # (B, T, D)
+    A: torch.Tensor,            # (D, N)
+    Bm: torch.Tensor,           # (B, T, N)
+    Cm: torch.Tensor,           # (B, T, N)
+    D: torch.Tensor,            # (D,)
+    dy: torch.Tensor,           # (B, T, D) gradient of y
+    h0: Optional[torch.Tensor] = None,   # (B, D, N)
+    dhT: Optional[torch.Tensor] = None,  # (B, D, N) gradient of h_T
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients ``(dx, ddt, dA, dB, dC, dD, dh0)`` of :func:`ssm_scan_ref`
+    (``dh0`` None when ``h0`` is), in the inputs' dtypes (dA and dh0
+    float32).
+
+    Float32, the reverse recurrence written out: with ``a_t = exp(dt_t A)``
+    and ``g_t = dy_t C_t + a_{t+1} g_{t+1}`` (``dh_T`` at the end, zeros
+    when None): ``dx_t = D dy_t + dt_t sum_n g_t B_t``, ``ddt_t = x_t
+    sum_n g_t B_t + sum_n g_t A a_t h_{t-1}``, ``dB_t = sum_d g_t dt_t
+    x_t``, ``dC_t = sum_d dy_t h_t``, ``dA = sum_{b,t} g_t dt_t a_t
+    h_{t-1}``, ``dD = sum_{b,t} dy_t x_t``, ``dh0 = a_1 g_1``.  Every state
+    is kept (B * T * D * N floats).
+    """
+    Bsz, T, Dd = x.shape
+    N = A.shape[1]
+    xf, dtf, Bf, Cf, dyf = x.float(), dt.float(), Bm.float(), Cm.float(), dy.float()
+    Af = A.float()
+    h = (torch.zeros((Bsz, Dd, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs, decays = [h], []
+    for t in range(T):
+        a = torch.exp(dtf[:, t, :, None] * Af[None])               # (B, D, N)
+        h = a * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        decays.append(a)
+        hs.append(h)
+    G = torch.zeros_like(h) if dhT is None else dhT.float()
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(xf)
+    dB = torch.empty_like(Bf)
+    dC = torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(T)):
+        g = dyf[:, t, :, None] * Cf[:, t, None, :] + G              # dL/dh_t
+        gb = (g * Bf[:, t, None, :]).sum(-1)                        # (B, D)
+        w = g * decays[t] * hs[t]                                   # g a_t h_{t-1}
+        dx[:, t] = D.float() * dyf[:, t] + dtf[:, t] * gb
+        ddt[:, t] = xf[:, t] * gb + (w * Af[None]).sum(-1)
+        dA += (w * dtf[:, t, :, None]).sum(0)
+        dB[:, t] = (g * (dtf[:, t] * xf[:, t])[..., None]).sum(1)
+        dC[:, t] = (dyf[:, t, :, None] * hs[t + 1]).sum(1)
+        G = decays[t] * g
+    dD = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA, dB.to(Bm.dtype), dC.to(Cm.dtype),
+            dD.to(D.dtype), None if h0 is None else G)

@@ -17,7 +17,7 @@ import numpy as np
 
 import dataclasses
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decode_attention import decode_attention
@@ -618,8 +618,8 @@ def test_ssm_scan_refuses_what_the_kernel_does_not_take(dev):
     for N, lanes in ((17, 4), (16, 3), (16, 8), (16, 2), (5, 1), (9, 2)):
         code = _build.library().ssm_scan_f32(
             x.data_ptr(), x.data_ptr(), A.data_ptr(), Bm.data_ptr(), Bm.data_ptr(),
-            D.data_ptr(), None, y.data_ptr(), h.data_ptr(), 1, 4, 8, N, lanes, *x.stride(),
-            *x.stride(), *Bm.stride(), *Bm.stride(),
+            D.data_ptr(), None, y.data_ptr(), h.data_ptr(), None, 1, 4, 8, N, lanes,
+            *x.stride(), *x.stride(), *Bm.stride(), *Bm.stride(),
             torch.cuda.current_stream(dev).cuda_stream)
         with pytest.raises(_build.KernelError, match="ssm_scan_f32"):
             _build.check(code, "ssm_scan_f32")
@@ -1371,12 +1371,13 @@ def _bwd_close(got, want, dtype):
                                rtol=BWD_TOL[dtype])
 
 
-def _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, seed=41):
+def _flash_bwd_inputs(dev, dtype, B, Sq, Sk, H, K, hd, causal, seed=41, hd_v=None):
+    hd_v = hd_v or hd
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
     k = torch.randn(B, Sk, K, hd, generator=g, device=dev).to(dtype)
-    v = torch.randn(B, Sk, K, hd, generator=g, device=dev).to(dtype)
-    do = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, K, hd_v, generator=g, device=dev).to(dtype)
+    do = torch.randn(B, Sq, H, hd_v, generator=g, device=dev).to(dtype)
     o = R.attention_ref(q, k, v, causal=causal)
     lse = R.attention_lse_ref(q, k, causal=causal)
     return q, k, v, o, lse, do
@@ -1400,6 +1401,111 @@ def test_flash_bwd_kernel_matches_plain_backward(dev, B, Sq, Sk, H, K, hd, causa
     # deterministic: the same bits again
     assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd(
         q, k, v, o, lse, do, causal=causal)))
+
+
+# (B, S, H, hd, hd_v, causal) at MLA's head dims: DeepSeek's smoke widths
+# (24 / 16, hd no multiple of 16), DeepSeek-V2-Lite's (192 / 128), a ragged S
+# with GQA, and bidirectional
+MLA_BWD_SHAPES = [(2, 37, 4, 24, 16, True), (1, 386, 16, 192, 128, True),
+                  (2, 100, 16, 192, 128, True), (1, 70, 4, 24, 16, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,hd,hd_v,causal", MLA_BWD_SHAPES)
+def test_flash_bwd_kernel_at_mla_head_dims(dev, B, S, H, hd, hd_v, causal, dtype):
+    """MLA's (hd, hd_v) pairs take the CUDA-core body, f32 and bf16, and
+    match the plain backward; a rerun gives the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, S, S, H, H, hd, causal, hd_v=hd_v)
+    before, tc = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert flash_attention_bwd.launches == before + 1 and flash_attention_bwd.tc_launches == tc
+    want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _bwd_close(a, b, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal)))
+
+
+# (B, T, D, N, h0, dh_T) of the scan's backward: Jamba-1.5-Large's training
+# shape, the smoke config's N = 8, ragged T and D, one step, and T past one
+# and several 64-step checkpoints; the lane forms of N = 4 and 13
+SCAN_BWD_SHAPES = [(1, 1024, 16384, 16, False, False), (2, 13, 128, 8, True, True),
+                   (3, 37, 100, 16, True, False), (2, 70, 100, 8, False, True),
+                   (4, 1, 16384, 16, True, True), (1, 65, 16384, 16, False, True),
+                   (2, 19, 100, 4, True, True), (2, 130, 100, 13, False, True)]
+SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _scan_bwd_close(got, want, dtype):
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), atol=SSM_TOL[dtype] * scale,
+                               rtol=SSM_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,D,N,with_h0,with_dhT", SCAN_BWD_SHAPES)
+def test_ssm_scan_bwd_kernel_matches_plain_backward(dev, B, T, D, N, with_h0, with_dhT,
+                                                    dtype):
+    """The scan's checkpoints equal h_T of the forward cut there, to the bit;
+    every gradient of the backward kernel (B and C strided column slices)
+    matches ``ssm_scan_bwd_ref`` within SSM_TOL of its largest magnitude;
+    a rerun gives the same bits."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    rng = np.random.default_rng(36)
+    x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(rng, B, T, D, N, dtype, dev)
+    # B and C as column slices of one projection, as the Mamba layer has them
+    proj = torch.cat([torch.zeros_like(Bm[..., :1]).expand(B, T, 5), Bm, Cm], dim=-1)
+    Bm, Cm = proj[..., 5:5 + N], proj[..., 5 + N:]
+    assert not Bm.is_contiguous()
+    h0 = h0 if with_h0 else None
+    g = torch.Generator(device=dev).manual_seed(37)
+    dy = torch.randn(B, T, D, generator=g, device=dev).to(dtype)
+    dhT = 0.5 * torch.randn(B, D, N, generator=g, device=dev) if with_dhT else None
+    y, hT, states = ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0, return_states=True)
+    assert torch.equal(y, ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)[0])
+    step = _build.SSM_CKPT_STEPS
+    assert states.shape == (B, _build.ssm_checkpoints(T), D, N)
+    assert torch.equal(states[:, 0], torch.zeros_like(hT) if h0 is None else h0)
+    for i, t in enumerate(range(step, T, step), start=1):
+        cut = ssm_scan(x[:, :t], dt[:, :t], A, Bm[:, :t], Cm[:, :t], Dk, h0=h0)[1]
+        assert torch.equal(states[:, i], cut)
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy, h0=h0, dhT=dhT)
+    assert ssm_scan_bwd.launches == before + 1
+    want = R.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, Dk, dy, h0=h0, dhT=dhT)
+    for name, a, b in zip(SCAN_GRADS, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.is_contiguous(), name
+        _scan_bwd_close(a, b, dtype)
+    again = ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy, h0=h0, dhT=dhT)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 70, 64, device=dev)
+    A = torch.zeros(64, 16, device=dev)
+    BC = torch.zeros(1, 70, 16, device=dev)
+    D = torch.zeros(64, device=dev)
+    good = torch.zeros(1, 2, 64, 16, device=dev)
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    ssm_scan_bwd(x, x, A, BC, BC, D, good, x)
+    with pytest.raises(ValueError, match="states"):
+        ssm_scan_bwd(x, x, A, BC, BC, D, good[:, :1].contiguous(), x)
+    with pytest.raises(ValueError, match="dy"):
+        ssm_scan_bwd(x, x, A, BC, BC, D, good, x[:, :69])
+    with pytest.raises(ValueError, match="dhT"):
+        ssm_scan_bwd(x, x, A, BC, BC, D, good, x, dhT=torch.zeros(1, 64, 8, device=dev))
 
 
 @pytest.mark.gpu
@@ -1527,23 +1633,78 @@ def test_ops_route_grad_through_the_backward_kernels(dev, dtype):
     assert ops.launch_counts()["rmsnorm_bwd"] == 1 and x.grad is not None
     assert gamma.grad is not None and gamma.grad.dtype == dtype
     assert flash_attention_bwd.launches == rmsnorm_bwd.launches == 1
-    # MLA's head dims have no backward kernel yet: refused, not sent to the plain version
-    qm = torch.randn(1, 8, 2, 192, device=dev, dtype=dtype, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ops.attention(qm, qm, qm[..., :128], causal=True)
+    # MLA's head dims: through _FlashAttention and the backward kernel's
+    # CUDA-core body
+    qm, km, vm, _, _, dom = _flash_bwd_inputs(dev, dtype, 1, 70, 70, 4, 4, 192, True,
+                                              hd_v=128)
+    qm, km, vm = (t.requires_grad_() for t in (qm, km, vm))
+    tc = flash_attention_bwd.tc_launches
+    om = ops.attention(qm, km, vm, causal=True)
+    assert type(om.grad_fn).__name__ == "_FlashAttentionBackward"
+    got = torch.autograd.grad(om, (qm, km, vm), dom)
+    assert flash_attention_bwd.launches == 2 and flash_attention_bwd.tc_launches == tc
+    ref = [t.detach().requires_grad_() for t in (qm, km, vm)]
+    want = torch.autograd.grad(R.attention_ref(*ref, causal=True), ref, dom)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _bwd_close(a, b, dtype)
+    # the scan: through _SSMScan and its backward kernel
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(np.random.default_rng(38), 2, 70, 100, 16, dtype,
+                                            dev)
+    leaves = [t.requires_grad_() for t in (x, dt, A, Dk, h0)]
+    proj = torch.cat([Bm, Cm], dim=-1).requires_grad_()
+    y, h = ops.ssm_scan(x, dt, A, proj[..., :16], proj[..., 16:], Dk, h0=h0)
+    assert type(y.grad_fn).__name__ == "_SSMScanBackward"
+    assert ops.launch_counts()["ssm_scan"] == 1
+    got = torch.autograd.grad((y.float().square().sum() + h.sum()), leaves + [proj])
+    assert ssm_scan_bwd.launches == 1
+    ref = [t.detach().requires_grad_() for t in leaves + [proj]]
+    yr, hr = R.ssm_scan_ref(ref[0], ref[1], ref[2], ref[5][..., :16], ref[5][..., 16:], ref[3],
+                            h0=ref[4])
+    want = torch.autograd.grad(yr.float().square().sum() + hr.sum(), ref)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _scan_bwd_close(a, b, dtype)
+
+
+def _train_launches(counts, cfg, passes):
+    """Every forward kernel call of ``passes`` train passes ran its backward
+    once; the scan once a Mamba layer a pass; without an encoder, flash once
+    an attention or MLA layer and RMSNorm as a prefill pass takes it; no
+    serving kernel."""
+    from repro_torch.models import layer_kind
+
+    kinds = [layer_kind(cfg, i).split("+") for i in range(cfg.n_layers)]
+    mixers = [m for m, _ in kinds]
+    for fwd in ("flash_attention", "rmsnorm", "ssm_scan"):
+        assert counts[fwd] == counts[fwd + "_bwd"], (fwd, counts)
+    assert counts["ssm_scan_bwd"] == mixers.count("mamba") * passes
+    assert counts["rmsnorm_bwd"] > 0
+    if cfg.family not in ("vlm", "audio"):
+        norms = 1 + sum(2 if f != "none" else 1 for _, f in kinds)
+        n_attn = mixers.count("attn") + mixers.count("mla")
+        assert counts["flash_attention_bwd"] == n_attn * passes
+        assert counts["rmsnorm_bwd"] == norms * passes
+    train = ("flash_attention", "rmsnorm", "ssm_scan")
+    assert not {k: v for k, v in counts.items() if v and k.replace("_bwd", "") not in train}
 
 
 @pytest.mark.gpu
-def test_train_step_on_the_card_matches_the_cpu(dev):
-    """stablelm smoke in float32, the same weights: one train step's loss,
-    grad norm and per-leaf gradients on the card (kernels forward and
-    backward) against the CPU (plain versions), launches counted."""
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """Each smoke config in float32, the same weights: one train step's
+    loss, grad norm and per-leaf gradients on the card (kernels forward and
+    backward: Jamba's scan through its backward kernel, DeepSeek's MLA
+    through the flash backward at 24 / 16) against the CPU (plain
+    versions), launches counted."""
     from repro_torch.bridge import params_from_numpy, params_to_numpy
     from repro_torch.distributed.optimizer import OptConfig, init_opt_state
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models.zoo import build_train_step, loss_and_grads
 
-    cfg = get_smoke_config("stablelm_1_6b").with_(dtype="float32")
+    cfg = get_smoke_config(arch).with_(dtype="float32")
     params = params_to_numpy(init_params(cfg, 0, device="cpu"))
     batch = synthetic_batch(np.random.default_rng(0), cfg, 4, 64)
     res = {}
@@ -1562,6 +1723,31 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
 
     for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
         _bwd_close(a.cpu(), b, torch.float32)
-    n = cfg.n_layers     # two calls: loss_and_grads, then the train step
-    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 2 * n
-    assert counts["rmsnorm"] == counts["rmsnorm_bwd"] == 2 * (2 * n + 1)
+    _train_launches(counts, cfg, 2)     # two calls: loss_and_grads, then the train step
+
+
+@pytest.mark.gpu
+def test_card_train_step_reaches_no_plain_version(dev, monkeypatch):
+    """The Jamba smoke config's train step on the card with every plain
+    version of a ported kernel, forward and backward, made to raise: the
+    CUDA tensors under grad go through the kernels and nowhere else."""
+    from repro_torch.distributed.optimizer import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.zoo import build_train_step
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("attention_ref", "rmsnorm_ref", "ssm_scan_ref", "attention_bwd_ref",
+                 "rmsnorm_bwd_ref", "ssm_scan_bwd_ref"):
+        monkeypatch.setattr(R, name, refused)
+    cfg = get_smoke_config("jamba_1_5_large_398b").with_(dtype="float32")
+    p = init_params(cfg, 0, device=dev)
+    opt = OptConfig(lr=1e-3, warmup_steps=5)
+    ops.reset_launch_counts()
+    _, _, m = build_train_step(cfg, opt)(p, init_opt_state(p, opt),
+                                         synthetic_batch(np.random.default_rng(0), cfg, 2, 70, dev))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(p))
+    _train_launches(ops.launch_counts(), cfg, 1)
+    assert ops.launch_counts()["ssm_scan_bwd"] > 0

@@ -531,8 +531,9 @@ def test_needs_grad_is_grad_mode_and_an_input_that_requires_it():
     (64, 64, True),      # stablelm-1.6b
     (128, 128, True),    # internlm2-20b, Jamba-1.5-Large
     (16, 16, True),      # the smoke configs
-    (192, 128, False),   # MLA: queued
-    (32, 32, False), (256, 256, False), (64, 128, False),
+    (192, 128, True),    # MLA: DeepSeek-V2-Lite (CUDA-core body)
+    (24, 16, True),      # MLA: DeepSeek's smoke config (CUDA-core body)
+    (32, 32, False), (256, 256, False), (64, 128, False), (128, 192, False), (16, 24, False),
 ])
 def test_flash_backward_head_dims(hd, hd_v, want):
     assert FA.backward_supported(hd, hd_v) is want
@@ -682,6 +683,30 @@ def test_backward_wrappers_refuse_cpu_tensors(no_kernels):
         FA.flash_attention_bwd(q, kv, kv, q, lse, q)
     with pytest.raises(ValueError, match="CUDA"):
         RN.rmsnorm_bwd(q[0, :, 0], torch.ones(16), q[0, :, 0])
+    x = q[0, :, 0][None]
+    with pytest.raises(ValueError, match="CUDA"):
+        SS.ssm_scan_bwd(x, x, torch.zeros(16, 4), torch.zeros(1, 9, 4), torch.zeros(1, 9, 4),
+                        torch.zeros(16), torch.zeros(1, 1, 16, 4), x)
+
+
+@pytest.mark.parametrize("T,want", [(1, 1), (63, 1), (64, 1), (65, 2), (1024, 16), (1025, 17)])
+def test_ssm_checkpoints(T, want):
+    """The scan's forward keeps the state before every SSM_CKPT_STEPS (64)
+    steps: Jamba's training T = 1024 keeps 16."""
+    assert _build.SSM_CKPT_STEPS == 64 and _build.ssm_checkpoints(T) == want
+
+
+@pytest.mark.parametrize("source", ["ssm_scan.cu", "ssm_scan_bwd.cu"])
+def test_ssm_layout_has_one_owner(source):
+    """Both scan kernels take their channels a CTA and their checkpoint
+    interval from ``_build``'s constants through the compiler's flags (the
+    wrappers size ``states`` and the dB/dC partials from the same values),
+    and neither source holds a value of its own."""
+    assert f"-DREPRO_SSM_CHANNELS={_build.SSM_CHANNELS_PER_CTA}" in _build.CFLAGS
+    assert f"-DREPRO_SSM_CKPT={_build.SSM_CKPT_STEPS}" in _build.CFLAGS
+    text = (_build.CSRC / source).read_text()
+    assert "constexpr int kChannels = REPRO_SSM_CHANNELS;" in text
+    assert "constexpr int kCkpt = REPRO_SSM_CKPT;" in text
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -719,3 +744,78 @@ def test_ops_rmsnorm_on_cpu_differentiates_the_plain_version(no_kernels, dtype):
     for a, b in zip(got, want):    # dgamma sums 15 rows: 15 roundings' worth of atol
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), atol=tol * 15, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ops_ssm_scan_on_cpu_differentiates_the_plain_version(no_kernels, dtype):
+    """Autograd of the plain scan (the CPU route) gives the plain backward
+    version's gradients, with and without the gradient of h_T."""
+    rng = np.random.default_rng(93)
+    B, T, D, N = 2, 11, 12, 8
+    x = (0.5 * _t(rng, (B, T, D), F32)).to(dtype).requires_grad_()
+    dt = (0.1 * _t(rng, (B, T, D), F32).abs()).to(dtype).requires_grad_()
+    A = (-_t(rng, (D, N), F32).abs() - 0.1).requires_grad_()
+    Bm, Cm = ((0.3 * _t(rng, (B, T, N), F32)).to(dtype).requires_grad_() for _ in range(2))
+    Dk = _t(rng, (D,), dtype).requires_grad_()
+    h0 = (0.2 * _t(rng, (B, D, N), F32)).requires_grad_()
+    y, h = ops.ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)
+    assert y.grad_fn is not None and type(y.grad_fn).__name__ != "_SSMScanBackward"
+    dy, dhT = _t(rng, y.shape, dtype), _t(rng, h.shape, F32)
+    tol = 3e-5 if dtype == F32 else 2e-2
+    ins = (x, dt, A, Bm, Cm, Dk, h0)
+    for out, grads, dh in (((y, h), (dy, dhT), dhT), ((y,), (dy,), None)):
+        got = torch.autograd.grad(out, ins, grads, retain_graph=True)
+        want = R.ssm_scan_bwd_ref(*(t.detach() for t in ins[:6]), dy, h0=h0.detach(), dhT=dh)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            scale = max(1.0, float(b.float().abs().max()))
+            torch.testing.assert_close(a.float(), b.float(), atol=tol * scale, rtol=tol)
+
+
+def test_ssm_scan_grad_route_wires_the_backward_kernel(monkeypatch):
+    """``ops.ssm_scan`` with grad needed on a tensor the kernel takes: the
+    forward wrapper runs once with ``return_states`` and grad mode off, the
+    backward wrapper once with the saved inputs, checkpoints and the
+    gradients of y and h_T (None when h_T is unused), and each of its seven
+    gradients reaches its input.  The wrappers are emulated by their plain
+    versions (the kernels run on the card only)."""
+    calls = []
+
+    def fwd(x, dt, A, Bm, Cm, D, h0=None, return_states=False):
+        assert return_states and not torch.is_grad_enabled()
+        y, hT = R.ssm_scan_ref(x, dt, A, Bm, Cm, D, h0=h0)
+        states = torch.full((x.shape[0], _build.ssm_checkpoints(x.shape[1]), x.shape[2],
+                             A.shape[1]), 7.0)
+        calls.append("fwd")
+        return y, hT, states
+
+    def bwd(x, dt, A, Bm, Cm, D, states, dy, h0=None, dhT=None):
+        assert torch.equal(states, torch.full_like(states, 7.0))
+        calls.append(("bwd", dhT is None))
+        return R.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, D, dy, h0=h0, dhT=dhT)
+
+    monkeypatch.setattr(ops, "_use_kernel", lambda impl, x: True)
+    monkeypatch.setattr(ops, "_ss", fwd)
+    monkeypatch.setattr(ops, "_ssb", bwd)
+    rng = np.random.default_rng(94)
+    B, T, D, N = 2, 70, 6, 4
+    x = (0.5 * _t(rng, (B, T, D), F32)).requires_grad_()
+    dt = (0.1 * _t(rng, (B, T, D), F32).abs()).requires_grad_()
+    A = (-_t(rng, (D, N), F32).abs() - 0.1).requires_grad_()
+    proj = (0.3 * _t(rng, (B, T, 3 + 2 * N), F32)).requires_grad_()
+    Dk = _t(rng, (D,), F32).requires_grad_()
+    h0 = (0.2 * _t(rng, (B, D, N), F32)).requires_grad_()
+    ins = (x, dt, A, proj, Dk, h0)
+    for use_h in (True, False):
+        calls.clear()
+        y, h = ops.ssm_scan(x, dt, A, proj[..., 3:3 + N], proj[..., 3 + N:], Dk, h0=h0)
+        assert type(y.grad_fn).__name__ == "_SSMScanBackward"
+        loss = y.square().sum() + (h.sum() if use_h else 0)
+        got = torch.autograd.grad(loss, ins)
+        assert calls == ["fwd", ("bwd", not use_h)]
+        ref = [t.detach().requires_grad_() for t in ins]
+        yr, hr = R.ssm_scan_ref(ref[0], ref[1], ref[2], ref[3][..., 3:3 + N],
+                                ref[3][..., 3 + N:], ref[4], h0=ref[5])
+        want = torch.autograd.grad(yr.square().sum() + (hr.sum() if use_h else 0), ref)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

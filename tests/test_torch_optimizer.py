@@ -8,8 +8,9 @@
   across the two packages in both directions with bit-equal leaves
   (bfloat16 parameters and an int8 optimizer state);
 - ``repro_torch.bridge``'s optimizer-state converters;
-- the plain backward versions ``rmsnorm_bwd_ref`` and ``attention_bwd_ref``
-  against ``jax.vjp`` of the JAX package's jnp oracles.
+- the plain backward versions ``rmsnorm_bwd_ref``, ``attention_bwd_ref``
+  (MLA's head dims too) and ``ssm_scan_bwd_ref`` against ``jax.vjp`` of
+  the JAX package's jnp oracles.
 """
 
 import pytest
@@ -344,21 +345,30 @@ def test_rmsnorm_bwd_ref_matches_jax_vjp(rows, d):
                                rtol=BWD_TOL)
 
 
+def _bwd_case(B, Sq, Sk, H, K, hd, causal, hd_v=None):
+    """A case of the test below; ``hd_v`` (v's head dim) defaults to hd,
+    and the hd == hd_v cases keep their ids."""
+    ident = f"{B}-{Sq}-{Sk}-{H}-{K}-{hd}-{causal}" + ("" if hd_v is None else f"-hdv{hd_v}")
+    return pytest.param(B, Sq, Sk, H, K, hd, causal, hd_v or hd, id=ident)
+
+
 @pytest.mark.parametrize(
-    "B,Sq,Sk,H,K,hd,causal",
+    "B,Sq,Sk,H,K,hd,causal,hd_v",
     [
-        (1, 64, 64, 4, 4, 16, True),      # MHA, causal
-        (2, 40, 40, 6, 2, 16, True),      # GQA g = 3, ragged
-        (1, 24, 37, 4, 4, 16, False),     # bidirectional, Sq != Sk, ragged
-        (1, 50, 50, 6, 2, 32, False),     # bidirectional, g = 3
+        _bwd_case(1, 64, 64, 4, 4, 16, True),      # MHA, causal
+        _bwd_case(2, 40, 40, 6, 2, 16, True),      # GQA g = 3, ragged
+        _bwd_case(1, 24, 37, 4, 4, 16, False),     # bidirectional, Sq != Sk, ragged
+        _bwd_case(1, 50, 50, 6, 2, 32, False),     # bidirectional, g = 3
+        _bwd_case(2, 37, 37, 4, 4, 24, True, 16),  # MLA, DeepSeek's smoke widths
+        _bwd_case(1, 20, 20, 2, 2, 192, True, 128),   # MLA, DeepSeek-V2-Lite's
     ],
 )
-def test_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, H, K, hd, causal):
+def test_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, H, K, hd, causal, hd_v):
     rng = np.random.default_rng(8)
     q = rng.normal(size=(B, Sq, H, hd)).astype(np.float32)
     k = rng.normal(size=(B, Sk, K, hd)).astype(np.float32)
-    v = rng.normal(size=(B, Sk, K, hd)).astype(np.float32)
-    do = rng.normal(size=(B, Sq, H, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, K, hd_v)).astype(np.float32)
+    do = rng.normal(size=(B, Sq, H, hd_v)).astype(np.float32)
     o, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, causal=causal),
                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     jdq, jdk, jdv = vjp(jnp.asarray(do))
@@ -368,3 +378,71 @@ def test_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, H, K, hd, causal):
                                      torch.from_numpy(do), causal=causal)
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BWD_TOL, rtol=BWD_TOL)
+
+
+def _scan_inputs(rng, B, T, D, N, with_h0, with_dhT):
+    """Seeded float32 inputs of the selective scan in the JAX package's test
+    ranges, its output gradients, and h0 / dh_T where asked."""
+    x = rng.normal(size=(B, T, D)) * 0.5
+    dt = np.abs(rng.normal(size=(B, T, D))) * 0.1
+    A = -(np.abs(rng.normal(size=(D, N))) + 0.1)
+    Bm, Cm = rng.normal(size=(B, T, N)) * 0.3, rng.normal(size=(B, T, N)) * 0.3
+    Dk = rng.normal(size=(D,))
+    h0 = rng.normal(size=(B, D, N)) * 0.2 if with_h0 else None
+    dy = rng.normal(size=(B, T, D))
+    dhT = rng.normal(size=(B, D, N)) * 0.5 if with_dhT else None
+    f32 = (lambda a: None if a is None else np.asarray(a, np.float32))
+    return tuple(map(f32, (x, dt, A, Bm, Cm, Dk, h0, dy, dhT)))
+
+
+@pytest.mark.parametrize("B,T,D,N,with_h0,with_dhT", [
+    (2, 13, 16, 8, False, False),    # the smoke config's N, h0 none
+    (1, 37, 20, 16, True, True),     # Jamba's N, ragged D, h0 and dh_T given
+    (3, 70, 12, 16, True, False),    # more than one 64-step checkpoint
+    (2, 9, 7, 8, False, True),
+])
+def test_ssm_scan_bwd_ref_matches_jax_vjp(B, T, D, N, with_h0, with_dhT):
+    """Every cotangent of the scan (x, dt, A, B, C, D and h0) against
+    ``jax.vjp`` of the JAX package's oracle, from dy and dh_T (zeros when
+    not given)."""
+    x, dt, A, Bm, Cm, Dk, h0, dy, dhT = _scan_inputs(np.random.default_rng(9), B, T, D, N,
+                                                     with_h0, with_dhT)
+    args = [x, dt, A, Bm, Cm, Dk] + ([h0] if with_h0 else [])
+    (_, _), vjp = jax.vjp(lambda *a: jref.ssm_scan_ref(*a), *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(dy), jnp.zeros((B, D, N), jnp.float32) if dhT is None
+                else jnp.asarray(dhT)))
+    t = (lambda a: None if a is None else torch.from_numpy(a))
+    got = R.ssm_scan_bwd_ref(*map(t, (x, dt, A, Bm, Cm, Dk)), t(dy), h0=t(h0), dhT=t(dhT))
+    assert (got[-1] is None) is (not with_h0)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dh0"), got, want):
+        w = np.asarray(w)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.numpy(), w, atol=BWD_TOL * scale, rtol=BWD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ops_ssm_scan_under_grad_gives_jax_gradients(with_h0):
+    """On the CPU ``ops.ssm_scan`` with grad needed differentiates the plain
+    version (autograd), as JAX differentiates its oracle: every input's
+    gradient of a loss on y and h_T against ``jax.grad``."""
+    from repro_torch.kernels import ops
+
+    x, dt, A, Bm, Cm, Dk, h0, dy, dhT = _scan_inputs(np.random.default_rng(10), 2, 21, 12, 8,
+                                                     with_h0, True)
+    args = [x, dt, A, Bm, Cm, Dk] + ([h0] if with_h0 else [])
+
+    def jloss(*a):
+        y, h = jref.ssm_scan_ref(*a)
+        return jnp.sum(y * dy) + jnp.sum(h * dhT)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, h = ops.ssm_scan(*leaves[:6], h0=leaves[6] if with_h0 else None)
+    assert type(y.grad_fn).__name__ != "_SSMScanBackward"
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum() + (h * torch.from_numpy(dhT)).sum(),
+                              leaves)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, atol=BWD_TOL * max(1.0, float(np.abs(w).max())),
+                                   rtol=BWD_TOL)
