@@ -112,9 +112,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    new tokens each, every launch matched (flash once a layer per
    admission, through its CUDA-core body at 192 / 128; RMSNorm twice a
    layer plus once per admission and step; no decode-attention launch: MLA
-   decodes in the latent space), a profiled decode window with the host's
-   launches, syncs and routed-MoE calls a step, then LLMSched over one
-   DeepSeek slot replica (6 planning jobs, token scale 16);
+   decodes in the latent space), a profiled window of 4 decode steps with
+   the host's launches, syncs and routed-MoE calls a step, then LLMSched
+   over one DeepSeek slot replica (4 planning jobs, token scale 16);
 11. ``dense``  — Llama-3-405B (2 of 126 layers), Qwen1.5-110B (2 of 80,
    QKV bias) and Kimi-K2 (1 of 61: 384 experts top-8 and the shared
    expert) at their published widths in bf16, one at a time, each through
@@ -219,7 +219,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    to h_T of the forward cut there, reruns bit-equal) and the flash
    backward at MLA's 24 / 16 and 192 / 128 on its CUDA-core body; it times
    the scan's backward at Jamba's training shape (``timing_bf16``, row 6b:
-   its bound the exps, f32 operations or bytes) and the flash backward at
+   its bound the exps, f32 operations or bytes; ``form``, the registers,
+   spilled bytes, shared bytes, CTAs a SM and waves of the form launched;
+   the forward with its checkpoints at that shape) and the flash backward at
    DeepSeek-V2-Lite's (B = 4, S = 1024, H = K = 16, causal, the shape
    ``train_families`` gives it; held first against the plain backward in
    bf16, a rerun bit-equal; ``timing_bf16_backward_mla``, beside autograd's
@@ -246,10 +248,12 @@ held at d = 100 (odd rows off 16 bytes), with x and gamma off 16 bytes, at
 4 x 8192 and 512 x 8192; ``rmsnorm_sweep`` times it with the warps a row
 ``_build.rmsnorm_warps`` picks and with twice as many.
 
-``--phases timing`` runs only those RMSNorm and scan timings, and
-``--src DIR`` imports ``repro_torch`` from another tree (``DIR`` is its
-``src``): with both, one call times a parent commit and this one in turns
-(unpack the parent with ``git archive`` into a git-ignored directory).
+``--phases timing`` runs only those RMSNorm and scan timings,
+``--phases scan_bwd`` only the scan backward's checks, row 6b and the
+forward's row 6p, and ``--src DIR`` imports ``repro_torch`` from another
+tree (``DIR`` is its ``src``): with either, one call times a parent commit
+and this one in turns (unpack the parent with ``git archive`` into a
+git-ignored directory).
 Every profiled decode window (``profile`` lines) carries RMSNorm's and the
 scan's device time and share of the busy time (``kernel_shares``).
 
@@ -302,8 +306,10 @@ SPIN_MAX_S = 0.2
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
           "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec",
           "held_train", "train", "train_families")
-# run only when named: the RMSNorm and scan timings alone (``kernels`` has them)
-EXTRA_PHASES = ("timing",)
+# run only when named: the RMSNorm and scan timings alone, and the scan's
+# backward alone (its checks, row 6b and the forward's row 6p; ``kernels``
+# has them all)
+EXTRA_PHASES = ("timing", "scan_bwd")
 KERNEL_META = {
     "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                                "src/repro/kernels/paged_attention.py:119"),
@@ -597,21 +603,26 @@ def _sass_mma(build_mod, lib_path: str):
 
 
 def _norm_scan_key(name: str):
-    """``rmsnorm<dtype, W warps>``, ``ssm_scan<dtype, L lanes>`` or
-    ``ssm_scan_bwd<dtype, L lanes>`` of one instantiation of the RMSNorm or
-    selective-scan kernel or the scan's backward, from its mangled
-    name (an instantiation without the count, as an older tree's, keeps only
-    the dtype); None for another kernel."""
+    """``rmsnorm<dtype, W warps>``, ``ssm_scan<dtype, L lanes>``,
+    ``ssm_scan_bwd<dtype, L lanes, vector|strided>`` or
+    ``ssm_scan_bwd_sum<dtype>`` of one instantiation of the RMSNorm or
+    selective-scan kernel or of the scan's backward (its recurrence, in the
+    form that stages 16-byte vectors or the one that reads through strides,
+    and its sum of the partials), from its mangled name (an instantiation
+    without the count, as an older tree's, keeps only the dtype; an older
+    backward has no form); None for another kernel."""
     import re
 
-    m = re.search(r"(rmsnorm|ssm_scan|ssm_scan_bwd)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
-                  name)
+    m = re.search(r"(rmsnorm|ssm_scan|ssm_scan_bwd|ssm_scan_bwd_sum)_kernelI(f|13__nv_bfloat16)"
+                  r"(?:Li(\d+)E)?(?:Lb([01])E)?", name)
     if not m:
         return None
     dtype = "f32" if m.group(2) == "f" else "bf16"
     if m.group(3) is None:
         return f"{m.group(1)}<{dtype}>"
-    return f"{m.group(1)}<{dtype}, {m.group(3)} {'warps' if m.group(1) == 'rmsnorm' else 'lanes'}>"
+    form = "" if m.group(4) is None else (", vector" if m.group(4) == "1" else ", strided")
+    count = "warps" if m.group(1) == "rmsnorm" else "lanes"
+    return f"{m.group(1)}<{dtype}, {m.group(3)} {count}{form}>"
 
 
 def _backward_key(name: str):
@@ -647,8 +658,16 @@ def _backward_ptxas(log: str, sass) -> dict:
     """Registers and spill bytes (``ptxas``) of every backward kernel
     instantiation, with its SASS ``HMMA`` count where the toolkit has
     ``cuobjdump``: the flash backward's tensor-core dK/dV and dQ kernels
-    must hold ``HMMA`` and spill nothing."""
+    must hold ``HMMA`` and spill nothing; the scan's backward
+    (``ssm_scan_bwd<dtype, L lanes, form>`` and its sum, by
+    ``_norm_scan_key``) spills nothing in either 4-lane form, which N = 16
+    launches."""
     out = _ptxas_of(log, _backward_key)
+    scan = _ptxas_of(log, lambda n: k if (k := _norm_scan_key(n)) and "_bwd" in k else None)
+    out.update(scan)
+    four = {k: v for k, v in scan.items() if ", 4 lanes" in k}
+    check(all(v.get("spill_stores", 0) == v.get("spill_loads", 0) == 0 for v in four.values()),
+          f"the scan backward's 4-lane form spills: {four}")
     for name, counts in (sass or {}).items():
         key = _backward_key(name)
         if key in out:
@@ -1705,6 +1724,21 @@ def phase_timing(dev, emit_line: bool = True) -> dict:
     return out
 
 
+def phase_scan_bwd(dev) -> dict:
+    """The scan's backward alone, through the wrappers (so that a tree from
+    before its redesign runs it too, for a same-call A/B): its checks
+    (``SCAN_BWD_CASES``), row 6b at Jamba's training shape, and the
+    forward's row 6p (T = 512), whose checkpoints the backward reads."""
+    errs, cases = {"ssm_scan_bwd": 0.0}, []
+    _check_scan_backward(dev, errs, cases)
+    out = {"max_abs_err": errs["ssm_scan_bwd"], "cases": len(cases),
+           "ssm_scan_bwd": _scan_bwd_row(dev),
+           "ssm_scan": _ssm_timing(dev, np.random.default_rng(10), 1, 512, 16384, 16,
+                                   with_h0=False)}
+    emit("scan_bwd", **out)
+    return out
+
+
 def _rmsnorm_sweep(dev) -> dict:
     """Device time (profiler) of RMSNorm, bf16, at each timed shape and at
     8192 x 2048 (past any prefill of the main path) with the warps a row
@@ -2717,7 +2751,11 @@ def phase_hybrid(dev) -> dict:
 # Qwen1.5-110B, Kimi-K2)
 # ---------------------------------------------------------------------------
 MLA_ARCH = "deepseek_v2_lite_16b"
-MLA_JOBS = 6
+# 4 jobs and 4 profiled decode steps: its testbed (~140 s at 6 jobs) and
+# its trace of ~13,500 launches a step (~80 s at 8 steps) are the script's
+# longest phases, and it must end well inside its time limit
+MLA_JOBS = 4
+MLA_PROFILE_STEPS = 4
 # DeepSeek's testbed tasks decode ~2-40 tokens (~8 on average), a quarter
 # of the other testbeds': its host-bound ~0.2 s decode steps would take
 # the run past the script's time budget otherwise
@@ -2856,7 +2894,7 @@ def phase_mla(dev) -> dict:
     prof_eng = LLMEngine(cfg, max_batch=4, max_len=1024, params=params, device=dev)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=386).tolist(),
                     max_new_tokens=64) for i in range(4)]
-    prof = _profile_decode(prof_eng, reqs)
+    prof = _profile_decode(prof_eng, reqs, n_steps=MLA_PROFILE_STEPS)
     M.moe_block = counted       # one more step, counting the routed MoE calls
     try:
         prof_eng.step()
@@ -3526,13 +3564,17 @@ MLA_BWD_CASES = (("deepseek smoke", 2, 37, 4, 24, 16), ("deepseek-v2-lite", 1, 3
                  ("deepseek-v2-lite ragged", 2, 100, 16, 192, 128))
 #: (label, B, T, D, N, h0, dh_T) of the scan backward checks: Jamba-1.5-Large's
 #: training shape, the smoke config's N = 8 with h0 and dh_T, ragged T and D,
-#: a T of one step and one past a checkpoint
+#: a T of one step, one past a checkpoint and one at it, 33 chunks with a
+#: one-step tail at a D no multiple of 64, and N = 4's one-lane form
 SCAN_BWD_CASES = (("jamba train", 1, 1024, 16384, 16, False, False),
                   ("smoke", 2, 13, 128, 8, True, True),
                   ("ragged", 3, 37, 100, 16, True, False),
                   ("ragged N 8", 2, 70, 100, 8, False, True),
                   ("one step", 4, 1, 16384, 16, True, True),
-                  ("past a checkpoint", 1, 65, 16384, 16, False, True))
+                  ("past a checkpoint", 1, 65, 16384, 16, False, True),
+                  ("at a checkpoint", 2, 64, 100, 16, True, False),
+                  ("many chunks, ragged tail", 1, 1025, 200, 16, True, True),
+                  ("N 4 past a checkpoint", 3, 33, 70, 4, False, False))
 SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
 
@@ -3620,7 +3662,13 @@ def _scan_bwd_row(dev, B=1, T=1024, D=16384, N=16) -> dict:
     the special-function units at the card's maximum clock, its f32
     operations (15 a (t, d, n)) at the f32 peak, or its bytes once (x, dt,
     dy, B, C, A, D and the checkpoints in; dx, ddt, dB, dC, dA, dD out).
-    No single PyTorch call computes it."""
+    ``form``: what the form launched (4 lanes, the vector form: x and dt
+    are contiguous) takes (registers, spilled bytes, shared bytes a CTA,
+    CTAs a SM, from the launcher) and the waves its ``ceil(D / 64) B`` CTAs
+    make on the card's SMs (a tree without the launcher's query gives
+    None); ``forward_states_device_ms``: the forward that writes the
+    checkpoints the backward reads, at the same shape.  No single PyTorch
+    call computes it."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
@@ -3642,8 +3690,16 @@ def _scan_bwd_row(dev, B=1, T=1024, D=16384, N=16) -> dict:
     def kernel():
         return ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy)
 
+    form = None
+    if hasattr(_build, "ssm_scan_bwd_form"):
+        form = dict(_build.ssm_scan_bwd_form(dt_, N, dev.index or 0),
+                    lanes=_build.ssm_scan_lanes(N), sms=sms)
+        ctas = -(-D // _build.SSM_CHANNELS_PER_CTA) * B
+        form["waves"] = -(-ctas // (form["ctas_per_sm"] * sms))
+        check(form["spill_bytes"] == 0, f"ssm_scan_bwd's form spills: {form}")
+    fwd = device_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, Dk, return_states=True))["device_ms"]
     return dict(
-        ms=time_ms(kernel),
+        ms=time_ms(kernel), form=form, forward_states_device_ms=fwd,
         plain_ms=time_ms(lambda: R.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, Dk, dy), groups=3,
                          per_group=1),
         host_ms=host_ms(kernel, calls=50), **device_ms(kernel),
@@ -4278,6 +4334,8 @@ def main(argv=None) -> int:
     kern = phase_kernels(dev, env["backward_ptxas"]) if "kernels" in phases else None
     if "timing" in phases:
         phase_timing(dev)
+    if "scan_bwd" in phases:
+        phase_scan_bwd(dev)
     from repro_torch.configs import get_config
 
     held_cfg = get_config("stablelm_1_6b").with_(n_layers=2, dtype="float32")
@@ -4360,7 +4418,8 @@ def main(argv=None) -> int:
              **{k: kern["timing_bf16"][name][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                           "device_ms", "library_device_ms", "host_ms",
-                          "other_body_host_ms", "cold_device_ms", "library_cold_device_ms")
+                          "other_body_host_ms", "cold_device_ms", "library_cold_device_ms",
+                          "form")
                 if k in kern["timing_bf16"][name]}}
             for name, (src, rep) in KERNEL_META.items()
         ]

@@ -39,7 +39,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: (``-DREPRO_SSM_CHANNELS``, ``-DREPRO_SSM_CKPT``), and the wrappers size
 #: the buffers those kernels write from them: this is their one owner.
 SSM_CHANNELS_PER_CTA = 64
-SSM_CKPT_STEPS = 64
+SSM_CKPT_STEPS = 32
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
           f"-DREPRO_SSM_CHANNELS={SSM_CHANNELS_PER_CTA}", f"-DREPRO_SSM_CKPT={SSM_CKPT_STEPS}"]
 
@@ -90,6 +90,8 @@ SIGNATURES: Dict[str, List] = {
     "rmsnorm_bwd_ctas_per_sm_bf16": [I] * 3 + [P],
     "ssm_scan_bwd_f32": [P] * 19 + [I] * 5 + [L] * 12 + [P],
     "ssm_scan_bwd_bf16": [P] * 19 + [I] * 5 + [L] * 12 + [P],
+    "ssm_scan_bwd_form_f32": [I, I, P],
+    "ssm_scan_bwd_form_bf16": [I, I, P],
 }
 #: head dims the tensor-core attention body is built for (hd == hd_v)
 TC_HEAD_DIMS = (16, 64, 128)
@@ -144,7 +146,7 @@ SSM_MAX_STATE = 16
 
 def ssm_checkpoints(T: int) -> int:
     """Checkpoints the selective scan's forward writes for ``T`` steps:
-    the state before steps 0, ``SSM_CKPT_STEPS``, ... (16 at T = 1024)."""
+    the state before steps 0, ``SSM_CKPT_STEPS``, ... (32 at T = 1024)."""
     return -(-T // SSM_CKPT_STEPS)
 
 
@@ -219,6 +221,25 @@ def ssm_scan_lanes(N: int) -> int:
     if not 1 <= N <= SSM_MAX_STATE:
         raise ValueError(f"ssm_scan_lanes: no form for N={N} (1 <= N <= {SSM_MAX_STATE})")
     return next(L for L in SSM_LANES if L * SSM_STATES_PER_LANE >= N)
+
+
+@functools.lru_cache(maxsize=None)
+def ssm_scan_bwd_form(dtype: torch.dtype, N: int, index: int, vector: bool = True
+                      ) -> Dict[str, int]:
+    """What the form of the selective scan's backward kernel that a call at
+    state size ``N`` launches (``ssm_scan_lanes(N)`` lanes a channel; the
+    vector form where x, dt, dy, dx and ddt rows are contiguous and on 16
+    bytes, as the trainer's are, else the strided form) takes on CUDA device
+    ``index``, asked of the launcher: ``ctas_per_sm`` (the CUDA occupancy of
+    the kernel as ``ptxas`` built it), ``shared_bytes`` (its dynamic shared
+    memory a CTA), ``registers`` a thread and ``spill_bytes`` (local memory a
+    thread).  Two CTAs a SM at N = 16.  Cached: the answer is the build's."""
+    out = (ctypes.c_int * 4)()
+    name = f"ssm_scan_bwd_form_{'f32' if dtype == torch.float32 else 'bf16'}"
+    with torch.cuda.device(index):
+        check(entry(name)(ssm_scan_lanes(N), int(vector), ctypes.addressof(out)), name)
+    return {"ctas_per_sm": out[0], "shared_bytes": out[1], "registers": out[2],
+            "spill_bytes": out[3]}
 
 
 def decode_group_rows(g: int, q_dtype: torch.dtype) -> int:

@@ -26,7 +26,9 @@ For training, ``return_states`` also returns the state before every
 :func:`ssm_scan_bwd` wraps the backward kernel (``csrc/ssm_scan_bwd.cu``):
 every gradient (x, dt, A, B, C, D and h0) from those checkpoints and the
 gradients of y and h_T, deterministic (partials summed in a fixed order by
-a second launch), with the forward's lane forms and strided inputs.  Its
+a second launch), with the forward's lane forms and strided inputs; what
+the form launched takes on the card (registers, shared memory, CTAs a SM)
+is :func:`repro_torch.kernels._build.ssm_scan_bwd_form`.  Its
 calls are counted in ``ssm_scan_bwd.launches``; its plain version is
 :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`.  The trainer reaches
 both through ``ops._SSMScan``; called directly with grad mode on and an

@@ -1432,11 +1432,16 @@ def test_flash_bwd_kernel_at_mla_head_dims(dev, B, S, H, hd, hd_v, causal, dtype
 
 # (B, T, D, N, h0, dh_T) of the scan's backward: Jamba-1.5-Large's training
 # shape, the smoke config's N = 8, ragged T and D, one step, and T past one
-# and several 64-step checkpoints; the lane forms of N = 4 and 13
+# and several 32-step checkpoints; the lane forms of N = 4 and 13; T at a
+# checkpoint, 33 chunks with a one-step tail, one step and one past a
+# checkpoint in the one- and two-lane forms, each at a D no multiple of 64
 SCAN_BWD_SHAPES = [(1, 1024, 16384, 16, False, False), (2, 13, 128, 8, True, True),
                    (3, 37, 100, 16, True, False), (2, 70, 100, 8, False, True),
                    (4, 1, 16384, 16, True, True), (1, 65, 16384, 16, False, True),
-                   (2, 19, 100, 4, True, True), (2, 130, 100, 13, False, True)]
+                   (2, 19, 100, 4, True, True), (2, 130, 100, 13, False, True),
+                   (2, 64, 100, 16, True, False), (1, 1025, 200, 16, True, True),
+                   (3, 33, 70, 4, False, False), (2, 1, 130, 8, False, True),
+                   (2, 64, 70, 2, True, True)]
 SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
 
@@ -1496,7 +1501,7 @@ def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take(dev):
     A = torch.zeros(64, 16, device=dev)
     BC = torch.zeros(1, 70, 16, device=dev)
     D = torch.zeros(64, device=dev)
-    good = torch.zeros(1, 2, 64, 16, device=dev)
+    good = torch.zeros(1, _build.ssm_checkpoints(70), 64, 16, device=dev)
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd
 
     ssm_scan_bwd(x, x, A, BC, BC, D, good, x)
@@ -1506,6 +1511,44 @@ def test_ssm_scan_bwd_kernel_refuses_what_it_does_not_take(dev):
         ssm_scan_bwd(x, x, A, BC, BC, D, good, x[:, :69])
     with pytest.raises(ValueError, match="dhT"):
         ssm_scan_bwd(x, x, A, BC, BC, D, good, x, dhT=torch.zeros(1, 64, 8, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes,shape", LANE_FORM_CASES)
+def test_ssm_scan_bwd_every_lane_form_matches_plain(dev, monkeypatch, lanes, shape, dtype):
+    """Each lanes-a-channel form of the backward (the forward's checkpoints
+    from the same form) at every shape whose N it holds, h0 and dh_T given,
+    against the plain backward; a rerun gives the same bits."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    B, T, D, N = shape
+    monkeypatch.setattr(_build, "ssm_scan_lanes", lambda n: lanes)
+    x, dt, A, Bm, Cm, Dk, h0 = _scan_inputs(np.random.default_rng(63), B, T, D, N, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(64)
+    dy = torch.randn(B, T, D, generator=g, device=dev).to(dtype)
+    dhT = 0.5 * torch.randn(B, D, N, generator=g, device=dev)
+    states = ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0, return_states=True)[2]
+    got = ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy, h0=h0, dhT=dhT)
+    want = R.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, Dk, dy, h0=h0, dhT=dhT)
+    for name, a, b in zip(SCAN_GRADS, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        _scan_bwd_close(a, b, dtype)
+    again = ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy, h0=h0, dhT=dhT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("vector", [True, False])
+def test_ssm_scan_bwd_form_at_n16_runs_two_ctas_a_sm(dev, dtype, vector):
+    """Both forms N = 16 launches (4 lanes a channel; 16-byte rows or any
+    strides) spill nothing and hold at most 128 registers a thread and half a
+    SM's shared memory, so two CTAs share a SM (Jamba's 256 CTAs: one wave on
+    an H100's 132 SMs)."""
+    form = _build.ssm_scan_bwd_form(dtype, 16, dev.index or 0, vector)
+    assert form["spill_bytes"] == 0 and form["registers"] <= 128, form
+    assert form["ctas_per_sm"] >= 2, form
 
 
 @pytest.mark.gpu

@@ -689,11 +689,11 @@ def test_backward_wrappers_refuse_cpu_tensors(no_kernels):
                         torch.zeros(16), torch.zeros(1, 1, 16, 4), x)
 
 
-@pytest.mark.parametrize("T,want", [(1, 1), (63, 1), (64, 1), (65, 2), (1024, 16), (1025, 17)])
+@pytest.mark.parametrize("T,want", [(1, 1), (31, 1), (32, 1), (33, 2), (1024, 32), (1025, 33)])
 def test_ssm_checkpoints(T, want):
-    """The scan's forward keeps the state before every SSM_CKPT_STEPS (64)
-    steps: Jamba's training T = 1024 keeps 16."""
-    assert _build.SSM_CKPT_STEPS == 64 and _build.ssm_checkpoints(T) == want
+    """The scan's forward keeps the state before every SSM_CKPT_STEPS (32)
+    steps: Jamba's training T = 1024 keeps 32."""
+    assert _build.SSM_CKPT_STEPS == 32 and _build.ssm_checkpoints(T) == want
 
 
 @pytest.mark.parametrize("source", ["ssm_scan.cu", "ssm_scan_bwd.cu"])

@@ -398,7 +398,7 @@ def _scan_inputs(rng, B, T, D, N, with_h0, with_dhT):
 @pytest.mark.parametrize("B,T,D,N,with_h0,with_dhT", [
     (2, 13, 16, 8, False, False),    # the smoke config's N, h0 none
     (1, 37, 20, 16, True, True),     # Jamba's N, ragged D, h0 and dh_T given
-    (3, 70, 12, 16, True, False),    # more than one 64-step checkpoint
+    (3, 70, 12, 16, True, False),    # more than one checkpoint
     (2, 9, 7, 8, False, True),
 ])
 def test_ssm_scan_bwd_ref_matches_jax_vjp(B, T, D, N, with_h0, with_dhT):
