@@ -212,6 +212,23 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    the device idle share and the backward kernels' share of busy time;
    every loss must fall where steps are taken, Jamba's loss and gradient
    norm be finite.
+19. ``sharded`` — the sharded paths at world size 1: a one-rank NCCL group
+   and a (data 1, model 1) mesh on the card (``launch/mesh.py``), each
+   path against the unsharded one on the card: ``moe_ep`` at
+   DeepSeek-V2-Lite-16B's MoE layer (published widths, float32, 4 x 512
+   tokens) against ``moe_block`` with the model-dtype and the int8
+   dispatch (the int8 one against routing on the tokens and the experts on
+   their int8 round trip), within 1e-4 max abs, the expert-parallel body
+   counted (``EP_CALLS``) and both timed (CUDA events, a report only);
+   ``mlp_ws_decode`` at stablelm-1.6b's widths against ``mlp``; a greedy
+   decode of stablelm-1.6b whole in float32 (prompts 4 x 64, 8 steps) with
+   its weights ``device_put_tree``'d onto ``tree_shardings`` of the spec
+   tree, with the config's decode MLP and with ``decode_mlp="ws"``: tokens
+   equal to the unsharded run's, the flash, decode and RMSNorm kernels
+   launched under the mesh, and the weight-stationary body run at every
+   decode step of every layer (``WS_CALLS``); ``compressed_psum`` bit-equal
+   to ``compress_decompress``; a checkpoint of sharded weights restored
+   with ``shardings=``, leaves bit-equal.
    The ``kernels`` phase holds the scan's backward kernel
    (``ssm_scan_bwd``) against ``ssm_scan_bwd_ref`` in f32 and bf16 (Jamba's
    training shape, N 8 and 16, ragged T and D, with and without h0 and
@@ -305,7 +322,7 @@ SPIN_CLOCK_HZ = 1.98e9
 SPIN_MAX_S = 0.2
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
           "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec",
-          "held_train", "train", "train_families")
+          "held_train", "train", "train_families", "sharded")
 # run only when named: the RMSNorm and scan timings alone, and the scan's
 # backward alone (its checks, row 6b and the forward's row 6p; ``kernels``
 # has them all)
@@ -3085,10 +3102,17 @@ def _greedy(params, cfg, toks, enc, n_new: int, max_len: int):
     the tokens ``(B, n_new)`` and every step's logits (float32, host)."""
     from repro_torch.models import decode_step, prefill
 
+    from repro_torch.distributed.sharding import is_dtensor
+
+    def whole(lg):  # a sharded run's logits, gathered
+        return lg.full_tensor() if is_dtensor(lg) else lg
+
     lg, cache = prefill(params, cfg, toks, max_len=max_len, enc_input=enc)
+    lg = whole(lg)
     seq, lgs = [lg.argmax(-1)], [lg.float().cpu()]
     for _ in range(n_new - 1):
         lg, cache = decode_step(params, cfg, cache, seq[-1])
+        lg = whole(lg)
         seq.append(lg.argmax(-1))
         lgs.append(lg.float().cpu())
     return torch.stack(seq, 1).cpu(), torch.stack(lgs, 1)
@@ -4300,6 +4324,220 @@ def phase_train_families(dev) -> dict:
     return res
 
 
+SHARDED_DECODE_ARCH = "stablelm_1_6b"
+SHARDED_DECODE = dict(batch=4, prompt=64, steps=8, max_len=128)
+SHARDED_MOE_TOKENS = (4, 512)
+SHARDED_WS_BATCH = 4
+# the checkpoint of the restore check: stablelm-1.6b cut to this depth, bf16
+SHARDED_CKPT_LAYERS = 1
+
+
+def _placed(params, mesh, specs):
+    from repro_torch.distributed import sharding as shd
+
+    return shd.device_put_tree(params, shd.tree_shardings(specs, params, mesh))
+
+
+def _moe_int8_plain(p, cfg, x):
+    """What the int8 dispatch computes without a mesh: routing on ``x``,
+    the experts on each token row quantized (rowwise int8, ``_q8_rows``)
+    and dequantized, the shared experts on ``x``; nothing dropped."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import mlp
+
+    B, S, d = x.shape
+    x2d = x.reshape(-1, d)
+    w, ids = M._routing(p, cfg, x2d)
+    q8, scl = M._q8_rows(x2d)
+    xh = (q8.float() * scl[:, None]).to(x.dtype)
+    y = M._routed_sum(xh, w, ids, p["w_gate"], p["w_up"], p["w_down"]).to(x.dtype)
+    if cfg.moe.n_shared > 0:
+        y = y + mlp(p["shared"], x2d)
+    return y.reshape(B, S, d)
+
+
+def _sharded_moe(dev, mesh) -> dict:
+    """``moe_ep`` at DeepSeek-V2-Lite-16B's MoE layer (published widths,
+    float32) on the card mesh against the one-device ``moe_block``, with
+    the bf16 (here: the model dtype) and the int8 dispatch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+
+    base = get_config(MLA_ARCH).with_(dtype="float32")
+    p = M.init_moe(L.Init(7, torch.float32, dev), base)
+    ps = _placed(p, mesh, M.init_moe(L.SpecInit(), base))
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(SHARDED_MOE_TOKENS + (base.d_model,), generator=g, device=dev)
+    out = {"widths": {"d": base.d_model, "experts": base.moe.n_experts,
+                      "d_ff_expert": base.moe.d_ff_expert, "top_k": base.moe.top_k,
+                      "n_shared": base.moe.n_shared, "tokens": list(SHARDED_MOE_TOKENS)}}
+    for disp in ("bfloat16", "int8"):
+        cfg = base.with_(moe=dataclasses.replace(base.moe, impl="ep", dispatch_dtype=disp))
+        with shd.use_mesh(None):
+            want = (M.moe_block(p, cfg, x) if disp == "bfloat16"
+                    else _moe_int8_plain(p, cfg, x))
+            plain_ms = time_ms(lambda: M.moe_block(p, cfg, x), groups=5, per_group=2)
+        M.reset_ep_calls()
+        got = M.moe_block(ps, cfg, x).full_tensor()
+        calls = dict(M.EP_CALLS)
+        err = float((got - want).abs().max())
+        ep_ms = time_ms(lambda: M.moe_block(ps, cfg, x), groups=5, per_group=2)
+        out[disp] = {"max_abs_err": err, "max_abs_out": float(want.abs().max()),
+                     "tol": MODEL_TOL, "ep_calls": calls, "ep_ms": ep_ms,
+                     "moe_block_ms": plain_ms}
+        check(calls["ep_body"] == 1 and calls["fallback"] == 0,
+              f"sharded moe ({disp}): the expert-parallel body did not run: {calls}")
+        check(err <= MODEL_TOL, f"sharded moe ({disp}): {err} against the one-device block")
+    return out
+
+
+def _sharded_ws(dev, mesh) -> dict:
+    """``mlp_ws_decode`` at stablelm-1.6b's widths (float32) on the card
+    mesh against ``mlp``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+
+    cfg = get_config(SHARDED_DECODE_ARCH).with_(dtype="float32")
+    p = L.init_mlp(L.Init(9, torch.float32, dev), cfg.d_model, cfg.d_ff)
+    ps = _placed(p, mesh, L.init_mlp(L.SpecInit(), cfg.d_model, cfg.d_ff))
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(SHARDED_WS_BATCH, 1, cfg.d_model, generator=g, device=dev)
+    want = L.mlp(p, x)
+    got = L.mlp_ws_decode(ps, cfg, x)
+    err = float((got.full_tensor() - want).abs().max())
+    check(err < MODEL_TOL, f"sharded mlp_ws_decode: {err} against mlp")
+    check(shd.is_dtensor(got), "mlp_ws_decode under the mesh returned no DTensor")
+    return {"max_abs_err": err, "d": cfg.d_model, "d_ff": cfg.d_ff}
+
+
+def _sharded_decode(dev, mesh) -> dict:
+    """stablelm-1.6b whole, float32, TF32 off: prefill and greedy decode
+    with its weights ``device_put_tree``'d onto ``tree_shardings`` of the
+    port's spec tree, against the unsharded run; the slot kernels must
+    launch under the mesh.  Run twice: with the config's decode MLP, and
+    with ``decode_mlp="ws"``, whose weight-stationary body must run at every
+    decode step of every layer (without a mesh it is ``mlp``, so the same
+    unsharded run is the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.zoo import param_specs
+
+    cfg = get_config(SHARDED_DECODE_ARCH).with_(dtype="float32")
+    s = SHARDED_DECODE
+    params = init_params(cfg, 11, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (s["batch"], s["prompt"]), generator=g, device=dev)
+    with shd.use_mesh(None):
+        want, want_lg = _greedy(params, cfg, toks, None, s["steps"] + 1, s["max_len"])
+    ps = _placed(params, mesh, param_specs(cfg))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, **s}
+    for route in (cfg.decode_mlp, "ws"):
+        c = cfg.with_(decode_mlp=route)
+        ops.reset_launch_counts()
+        L.reset_ws_calls()
+        t0 = time.perf_counter()
+        got, got_lg = _greedy(ps, c, toks, None, s["steps"] + 1, s["max_len"])
+        run_s = time.perf_counter() - t0
+        counts, ws = ops.launch_counts(), dict(L.WS_CALLS)
+        tag = f"sharded stablelm decode (decode_mlp {route})"
+        check(torch.equal(got, want), f"{tag}: greedy tokens differ from the unsharded run's")
+        for name in SLOT_KERNELS:
+            check(counts[name] > 0, f"{tag}: {name} never launched")
+        ws_steps = s["steps"] * cfg.n_layers if route == "ws" else 0
+        check(ws == {"ws_body": ws_steps, "fallback": 0},
+              f"{tag}: weight-stationary MLP calls {ws}, expected {ws_steps} and no fallback")
+        out[route] = {"tokens_equal": True,
+                      "max_abs_logit_err": float((got_lg - want_lg).abs().max()),
+                      "launches": {k: counts[k] for k in SLOT_KERNELS}, "ws_calls": ws,
+                      "run_s": run_s}
+    return out
+
+
+def _sharded_compression(dev, mesh) -> dict:
+    """``compressed_psum`` over the card mesh's ``data`` group (one rank):
+    bit-equal to ``compress_decompress``'s ``x_hat``."""
+    from repro_torch.distributed import compression as comp
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(2048, 5632, generator=g, device=dev) * 1e-3
+    got = comp.compressed_psum(x, mesh.get_group("data"))
+    want, _ = comp.compress_decompress(x)
+    check(torch.equal(got, want), "compressed_psum at world size 1 is not compress_decompress")
+    return {"shape": list(x.shape), "bit_equal": True}
+
+
+def _sharded_restore(dev, mesh) -> dict:
+    """A checkpoint of sharded stablelm-1.6b weights (bf16, cut in depth)
+    restored with ``shardings=`` onto the card mesh, leaves bit-equal."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import init_params
+    from repro_torch.models.zoo import param_specs
+
+    cfg = get_config(SHARDED_DECODE_ARCH).with_(n_layers=SHARDED_CKPT_LAYERS)
+    params = init_params(cfg, 14, dev)
+    sh = shd.tree_shardings(param_specs(cfg), params, mesh)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save_checkpoint(d, 3, shd.device_put_tree(params, sh))
+        restored, step = ckpt.restore_checkpoint(d, like=params, shardings=sh)
+    flat_r, flat_p = list(_leaves(restored)), list(_leaves(params))
+    check(step == 3 and all(shd.is_dtensor(r) for r in flat_r),
+          "sharded restore: not DTensors")
+    check(all(torch.equal(r.to_local(), p) for r, p in zip(flat_r, flat_p)),
+          "sharded restore: leaves differ")
+    return {"leaves": len(flat_r), "layers": cfg.n_layers, "bit_equal": True,
+            "gb": sum(p.numel() * p.element_size() for p in flat_p) / 1e9}
+
+
+def phase_sharded(dev) -> dict:
+    """``sharded``: the port's sharded paths at world size 1 over NCCL, on
+    a (data 1, model 1) mesh on the card, each against the unsharded path
+    on the card: ``moe_ep`` at DeepSeek-V2-Lite-16B's MoE layer,
+    ``mlp_ws_decode`` and a greedy decode of stablelm-1.6b whole, the
+    compressed all-reduce, and a resharding restore."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with shd.use_mesh(mesh):
+            res = {"mesh": dict(shd.mesh_shape(mesh)), "backend": dist.get_backend(),
+                   "moe": _sharded_moe(dev, mesh)}
+            _free_card()
+            res["mlp_ws_decode"] = _sharded_ws(dev, mesh)
+            res["decode"] = _sharded_decode(dev, mesh)
+            _free_card()
+            res["compression"] = _sharded_compression(dev, mesh)
+            res["restore"] = _sharded_restore(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+        import shutil
+
+        shutil.rmtree(store, ignore_errors=True)
+    res["run_s"] = time.perf_counter() - t0
+    emit("sharded", **res)
+    return res
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4384,6 +4622,9 @@ def main(argv=None) -> int:
     if "train_families" in phases:
         _free_card()
         fam = phase_train_families(dev)
+    if "sharded" in phases:
+        _free_card()
+        phase_sharded(dev)
     if all(x is not None for x in (kern, eng, tb, hyb, trn, fam)):
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot

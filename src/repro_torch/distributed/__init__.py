@@ -1,4 +1,5 @@
-"""Training state of the port on one device: AdamW with float32 or int8
-state (:mod:`.optimizer`) and atomic checkpoints in the JAX package's
-on-disk format (:mod:`.checkpoint`).  Sharding, gradient compression and
-the multi-rank paths are not ported yet."""
+"""Training state and the multi-rank paths of the port: AdamW with float32
+or int8 state (:mod:`.optimizer`), atomic checkpoints in the JAX package's
+on-disk format with a resharding restore (:mod:`.checkpoint`), the
+logical-axis sharding rules on DeviceMesh/DTensor (:mod:`.sharding`) and
+the int8 gradient all-reduce with error feedback (:mod:`.compression`)."""

@@ -18,8 +18,15 @@ one directory per step —
 - An atomic rename publishes a step (crash-consistent: a stray ``.tmp_*``
   directory is ignored), and ``keep_last`` garbage-collects old steps.
 
-Restore onto a sharded layout (``shardings=``) is not ported yet and
-raises ``NotImplementedError``.
+- A tree of DTensors (a sharded model) is saved whole, leaf by leaf:
+  every rank gathers each leaf (``full_tensor``, a collective) and drops
+  it again, except the global rank 0, which alone keeps the host copies
+  and writes them; the others wait for it.
+- ``restore_checkpoint(shardings=)`` is the elastic path: each stored
+  host array is ``distribute_tensor``'d onto its leaf's
+  :class:`~repro_torch.distributed.sharding.NamedSharding` on the current
+  mesh, which may differ from the one that saved it.  A sharding tree
+  whose leaf count differs from the target's is ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +40,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from . import sharding as shd
 
 
 def _flatten(tree) -> List[Any]:
@@ -79,6 +89,8 @@ def _describe(tree) -> str:
 
 def _to_host(leaf) -> Tuple[np.ndarray, str, List[int]]:
     """``(payload, dtype name, logical shape)`` of one leaf."""
+    if shd.is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu").contiguous()
         shape = list(t.shape)
@@ -100,15 +112,30 @@ def save_checkpoint(
     mesh_desc: Optional[str] = None,
 ) -> str:
     base = pathlib.Path(ckpt_dir)
-    base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
     leaves = _flatten(tree)
+    sharded = dist.is_initialized() and any(shd.is_dtensor(leaf) for leaf in leaves)
+    writer = not sharded or dist.get_rank() == 0
     arrays = {}
     meta = []
     for i, leaf in enumerate(leaves):
+        if not writer:
+            if shd.is_dtensor(leaf):
+                leaf.full_tensor()  # the writer's gather is a collective
+            continue
         arr, dtype, shape = _to_host(leaf)
         arrays[f"a{i}"] = arr
         meta.append({"shape": shape, "dtype": dtype})
+    if writer:
+        _write(base, final, step, tree, arrays, meta, keep_last, mesh_desc)
+    if sharded:
+        dist.barrier()
+    return str(final)
+
+
+def _write(base: pathlib.Path, final: pathlib.Path, step: int, tree: Any, arrays: dict,
+           meta: list, keep_last: int, mesh_desc: Optional[str]) -> None:
+    base.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=base, prefix=".tmp_"))
     try:
         np.savez(tmp / "arrays.npz", **arrays)
@@ -117,7 +144,7 @@ def save_checkpoint(
                 {
                     "step": step,
                     "treedef": _describe(tree),
-                    "n_leaves": len(leaves),
+                    "n_leaves": len(meta),
                     "leaves": meta,
                     "mesh": mesh_desc,
                 },
@@ -130,7 +157,6 @@ def save_checkpoint(
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)
     _gc(base, keep_last)
-    return str(final)
 
 
 def _gc(base: pathlib.Path, keep_last: int) -> None:
@@ -168,9 +194,10 @@ def restore_checkpoint(
 ) -> Tuple[Any, int]:
     """Restore into the structure of ``like``: each leaf keeps its stored
     dtype and goes to the device of ``like``'s leaf in its place (the CPU
-    for a leaf that is not a tensor)."""
-    if shardings is not None:
-        raise NotImplementedError("restore onto a sharded layout is not ported yet")
+    for a leaf that is not a tensor); reshard onto ``shardings`` (a
+    matching tree of ``NamedSharding``) if given: each leaf becomes a
+    DTensor on its sharding's mesh (every rank holds the same host
+    array)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -182,10 +209,22 @@ def restore_checkpoint(
     assert manifest["n_leaves"] == len(leaves), (
         f"checkpoint has {manifest['n_leaves']} leaves, target {len(leaves)}"
     )
+    sh_leaves = [None] * len(leaves)
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        sh_leaves = _flatten(shardings)
+        if len(sh_leaves) != len(leaves):  # partial sharding trees allowed
+            sh_leaves = [None] * len(leaves)
     out_leaves = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, sh) in enumerate(zip(leaves, sh_leaves)):
         m = manifest["leaves"][i]
         t = _from_host(data[f"a{i}"], m["dtype"], m["shape"])
+        if sh is not None:
+            mesh, placements = sh
+            out_leaves.append(distribute_tensor(t.to(mesh.device_type), mesh,
+                                                list(placements)))
+            continue
         dev = ref.device if isinstance(ref, torch.Tensor) else torch.device("cpu")
         out_leaves.append(t.to(dev))
     return _unflatten(like, out_leaves), step

@@ -25,14 +25,28 @@ change.  On the CPU autograd differentiates the plain versions, as JAX
 differentiates its jnp oracles.  The other wrappers have no backward
 kernel: called with grad needed they raise (``_build.refuse_grad``),
 never returning an output cut off from the graph.
+
+Under a mesh (:mod:`repro_torch.distributed.sharding`) the entry points
+take DTensors, and a kernel still never sees one: the entry point
+redistributes its inputs to a layout the kernel takes and runs itself on
+the local shards (``local_map``).  Attention and the scan take batch rows
+sharded by the ``batch`` rule (over ``data``), and attention takes heads
+sharded over ``model`` where the query and KV head counts both divide
+it, else replicated (the paged pair: heads only, the pools serve every
+row); RMSNorm takes rows sharded as they come and ``d`` whole; a KV
+cache whose sequence dim is sharded
+(``cache_logical``'s ``kv_seq``) is gathered whole before the decode
+kernel.  The wrappers count these launches as any other.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as _shd
 from . import _build
 from . import ref as _ref
 from .decode_attention import decode_attention as _da
@@ -179,6 +193,97 @@ def reset_launch_counts() -> None:
         KERNELS[name].split_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# DTensor inputs: the entry points on local shards
+# ---------------------------------------------------------------------------
+def _mesh_of(*xs):
+    return next(x.device_mesh for x in xs if _shd.is_dtensor(x))
+
+
+def _heads_spec(mesh, batch: int, *head_counts: int):
+    """(batch axis, heads axis) of an attention call: the ``batch`` rule's
+    axis where the rows divide it, and ``heads_act``'s where every head
+    count divides it (GQA: the query and the KV heads; so their gcd),
+    else ``None``."""
+    return _shd.resolve_spec(("batch", "heads_act"), (batch, math.gcd(*head_counts)), mesh)
+
+
+def _pl(mesh, *spec):
+    return _shd.placements_of(tuple(spec), mesh)
+
+
+def _sharded_attention(q, k, v, causal, scale, q_offset, kv_len, impl):
+    mesh = _mesh_of(q, k, v, kv_len)
+    b, h = _heads_spec(mesh, q.shape[0], q.shape[2], k.shape[2])
+    qkv = _pl(mesh, b, None, h, None)
+    args, pls = [q, k, v], [qkv, qkv, qkv]
+    if kv_len is not None:
+        args.append(kv_len)
+        pls.append(_pl(mesh, b))
+
+    def body(q, k, v, kv_len=None):
+        return attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                         kv_len=kv_len, impl=impl)
+
+    return _shd.local_call(body, args, pls, qkv, mesh)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, lengths, scale, impl):
+    mesh = _mesh_of(q, k_cache, v_cache, lengths)
+    b, h = _heads_spec(mesh, q.shape[0], q.shape[1], k_cache.shape[2])
+    # the sequence dim whole: a cache sharded over it (kv_seq) is gathered
+    cache = _pl(mesh, b, None, h, None)
+    out = _pl(mesh, b, h, None)
+
+    def body(q, kc, vc, ln):
+        return decode_attention(q, kc, vc, ln, scale=scale, impl=impl)
+
+    return _shd.local_call(body, [q, k_cache, v_cache, lengths],
+                           [out, cache, cache, _pl(mesh, b)], out, mesh)
+
+
+def _sharded_rmsnorm(x, gamma, eps, impl):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = _mesh_of(x, gamma)
+    last = x.dim() - 1
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim % x.dim() != last else Replicate()
+                 for pl in (x.placements if _shd.is_dtensor(x) else [Replicate()] * mesh.ndim))
+
+    def body(x, g):
+        return rmsnorm(x, g, eps=eps, impl=impl)
+
+    return _shd.local_call(body, [x, gamma], [rows, [Replicate()] * mesh.ndim], rows, mesh)
+
+
+def _sharded_ssm_scan(x, dt, A, Bm, Cm, D, h0, impl):
+    mesh = _mesh_of(x, dt, A, Bm, Cm, D, h0)
+    b = _shd.resolve_spec(("batch",), (x.shape[0],), mesh)[0]
+    rows, rep = _pl(mesh, b), _pl(mesh)
+    args = [x, dt, A, Bm, Cm, D] + ([] if h0 is None else [h0])
+    pls = [rows, rows, rep, rows, rows, rep] + ([] if h0 is None else [rows])
+
+    def body(x, dt, A, Bm, Cm, D, h0=None):
+        return ssm_scan(x, dt, A, Bm, Cm, D, h0=h0, impl=impl)
+
+    return _shd.local_call(body, args, pls, (rows, rows), mesh)
+
+
+def _sharded_paged(fn, q, pools, rest):
+    """A paged entry point on local shards: heads over ``model`` where the
+    query (``(rows, H, hd)``) and pool head counts divide it, everything
+    else replicated (pages are shared by the rows).  ``pools``: the K/V
+    pools (and their scales), whose head dim is their third; ``rest``: the
+    tables and lengths."""
+    mesh = _mesh_of(q, *pools, *rest)
+    _, h = _heads_spec(mesh, 1, q.shape[1], pools[0].shape[2])
+    qpl = _pl(mesh, None, h, None)
+    pool_pls = [_pl(mesh, None, None, h, *([None] * (p.dim() - 3))) for p in pools]
+    rest = [r if isinstance(r, torch.Tensor) else torch.as_tensor(r) for r in rest]
+    return _shd.local_call(fn, [q, *pools, *rest],
+                           [qpl, *pool_pls, *[_pl(mesh)] * len(rest)], qpl, mesh)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -197,6 +302,8 @@ def attention(
     :class:`_FlashAttention`, which raises ``NotImplementedError`` for
     head dims the backward kernel is not built for.
     """
+    if _shd.any_dtensor(q, k, v, kv_len):
+        return _sharded_attention(q, k, v, causal, scale, q_offset, kv_len, impl)
     if _use_kernel(impl, q):
         if needs_grad(q, k, v):
             if kv_len is not None or (causal and q_offset != 0):
@@ -222,6 +329,8 @@ def decode_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """Decode attention of one token per row over a dense slot cache."""
+    if _shd.any_dtensor(q, k_cache, v_cache, lengths):
+        return _sharded_decode_attention(q, k_cache, v_cache, lengths, scale, impl)
     if _use_kernel(impl, q):
         return _da(q, k_cache, v_cache, lengths, scale=scale)
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
@@ -243,6 +352,16 @@ def paged_decode_attention(
     With ``k_scales``/``v_scales`` the pools are int8 and dequantized
     per page inside the kernel (plain version: dequantize, then attend).
     """
+    if _shd.any_dtensor(q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths):
+        pools = [t for t in (k_pages, v_pages, k_scales, v_scales) if t is not None]
+
+        def body(q, kp, vp, *rest):
+            *sc, bt, ln = rest
+            return paged_decode_attention(q, kp, vp, bt, ln, scale=scale,
+                                          k_scales=sc[0] if sc else None,
+                                          v_scales=sc[1] if sc else None, impl=impl)
+
+        return _sharded_paged(body, q, pools, [block_tables, lengths])
     if _use_kernel(impl, q):
         if k_scales is not None:
             return _pda8(q, k_pages, v_pages, block_tables, lengths,
@@ -271,6 +390,16 @@ def paged_prefill_attention(
     attend causally to paged history + the in-chunk segment.  With
     ``k_scales``/``v_scales`` the pools are int8 (see decode).
     """
+    if _shd.any_dtensor(q, k_pages, v_pages, k_scales, v_scales, block_table):
+        pools = [t for t in (k_pages, v_pages, k_scales, v_scales) if t is not None]
+
+        def body(q, kp, vp, *rest):
+            *sc, bt = rest
+            return paged_prefill_attention(q, kp, vp, bt, past, scale=scale,
+                                           k_scales=sc[0] if sc else None,
+                                           v_scales=sc[1] if sc else None, impl=impl)
+
+        return _sharded_paged(body, q, pools, [block_table])
     if _use_kernel(impl, q):
         if k_scales is not None:
             return _ppa8(q, k_pages, v_pages, block_table, past,
@@ -295,6 +424,8 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
             impl: str = "auto") -> torch.Tensor:
+    if _shd.any_dtensor(x, gamma):
+        return _sharded_rmsnorm(x, gamma, eps, impl)
     if _use_kernel(impl, x):
         if needs_grad(x, gamma):
             return _RMSNorm.apply(x, gamma, eps)
@@ -314,6 +445,8 @@ def ssm_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba selective scan; returns ``(y, h_T)`` (see ``ref.ssm_scan_ref``).
     When a gradient is needed it runs through :class:`_SSMScan`."""
+    if _shd.any_dtensor(x, dt, A, Bm, Cm, D, h0):
+        return _sharded_ssm_scan(x, dt, A, Bm, Cm, D, h0, impl)
     if _use_kernel(impl, x):
         if needs_grad(x, dt, A, Bm, Cm, D, h0):
             return _SSMScan.apply(x, dt, A, Bm, Cm, D, h0)

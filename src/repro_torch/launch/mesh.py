@@ -1,0 +1,41 @@
+"""Mesh construction on DeviceMesh.
+
+Copy of ``repro/launch/mesh.py``.  Defined as FUNCTIONS (never
+module-level constants) so importing this module never touches the
+process group: each builds an ``init_device_mesh`` over the ranks of the
+default group, which the caller has initialised.  The meshes live on the
+CUDA device type when CUDA is available, else on the CPU (a ``gloo``
+group).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16×16 = 256 chips per pod; 2 pods = 512 chips with a leading
+    ``pod`` dim (data parallel across the inter-pod links)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_host_mesh():
+    """Single-host debug mesh over however many ranks exist (≥2); ``None``
+    below two ranks or without a process group."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n < 2:
+        return None
+    return make_mesh((1, n), ("data", "model"))

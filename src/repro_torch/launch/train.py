@@ -11,8 +11,12 @@ Copy of ``repro/launch/train.py`` on one device:
      ``--ckpt-every`` steps (atomic publish).
 
 It keeps every flag of the JAX launcher and adds ``--device``: the CUDA
-device unless ``--device cpu`` is given.  The JAX launcher's mesh and
-gradient compression are not ported yet (one device).  ``synthetic_batch``
+device unless ``--device cpu`` is given.  The JAX launcher's docstring
+names a mesh, resharding restores and int8 gradient compression, but its
+code builds no mesh and calls no sharding or compression function
+(``repro/launch/train.py:61-103``), so this one runs on one device too;
+those pieces live in :mod:`repro_torch.distributed` and
+:mod:`repro_torch.launch.mesh`.  ``synthetic_batch``
 draws with the same numpy calls, so a seed gives JAX's batches; the
 weights are the port's own draw from ``--seed``.
 

@@ -10,8 +10,17 @@ precomputed encoder K/V (``init_attention(cross=True)``, ``cross_kv``,
 ``cross_attention``: the VLM's and Whisper's decoders), DeepSeek's
 multi-head latent attention (``init_mla``, ``_mla_qkv``, ``_mla_expand``,
 ``mla_full`` with its compressed ``{"c_kv", "k_rope"}`` cache, and
-``mla_decode``), ``mlp`` and ``unembed``, with the ``init_*`` functions of
-their weights.
+``mla_decode``), ``mlp``, the weight-stationary decode MLP
+``mlp_ws_decode`` and ``unembed``, with the ``init_*`` functions of
+their weights.  Each ``init_*`` names the logical axes of its leaves as
+JAX's ``Maker.dense`` does (:class:`SpecInit` builds that tree).
+
+Under a mesh (:mod:`repro_torch.distributed.sharding`) the same
+functions take DTensor weights and activations: the products, RoPE and
+the elementwise math run on DTensors, the kernels on local shards
+(:mod:`repro_torch.kernels.ops`), ``embed`` gathers from a vocab-sharded
+table on its local rows, a head split gathers a projection whose shards
+would cut a head, and the in-place cache writes go to the local shards.
 Parameters are plain nested dicts of tensors with the
 JAX package's names, shapes and dtypes; the matrix products stay
 ``x @ w`` (outside any kernel, as the JAX package left them to XLA),
@@ -28,16 +37,20 @@ JAX's for the same seed; the tests bridge JAX's weights instead.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..distributed import sharding as shd
 from ..kernels import ops
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 Shape = Tuple[int, ...]
+#: logical axis names of a leaf's dims (``None``: not named)
+Spec = Tuple[Optional[str], ...]
 #: most elements :meth:`Init.dense` draws at once (1 GiB of float32)
 WHOLE_DRAW = 1 << 28
 
@@ -67,8 +80,12 @@ class Init:
             self.gen = torch.Generator(device=self.device)
             self.gen.manual_seed(seed)
 
-    def dense(self, shape: Shape, fan_in: int) -> torch.Tensor:
+    def dense(self, shape: Shape, fan_in: int, spec: Spec = ()) -> torch.Tensor:
         """Normal with ``std = 1/sqrt(fan_in)``, drawn in float32 and cast.
+
+        ``spec`` names the logical axes of the unstacked shape (JAX's
+        ``Maker.dense`` spec); :class:`SpecInit` returns it in place of
+        the tensor.
 
         A tensor of more than :data:`WHOLE_DRAW` elements is drawn in
         slabs along its first axis, so the float32 temporary stays near
@@ -94,18 +111,48 @@ class Init:
                             dtype=torch.float32)
             out[i:i + n] = w * std
 
-    def ones(self, shape: Shape) -> torch.Tensor:
+    def ones(self, shape: Shape, spec: Spec) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
-    def zeros(self, shape: Shape) -> torch.Tensor:
+    def zeros(self, shape: Shape, spec: Spec) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def const(self, value: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """A leaf computed by the caller (Mamba's ``A_log``), kept as it is."""
+        return value
+
+
+def _stacked(spec: Spec, shape: Shape) -> Spec:
+    """``spec`` of the unstacked shape behind ``None`` for each stacking
+    axis (JAX's ``(None,) + spec`` of a stacked leaf)."""
+    return (None,) * (len(shape) - len(spec)) + tuple(spec)
+
+
+class SpecInit(Init):
+    """The factory of the logical-axis tree: each leaf is its spec tuple
+    (JAX's ``Maker.specs``), nothing is drawn or allocated."""
+
+    def __init__(self) -> None:
+        super().__init__(0, torch.float32, "meta")
+
+    def dense(self, shape: Shape, fan_in: int, spec: Spec = ()) -> Spec:
+        return _stacked(spec, shape)
+
+    def ones(self, shape: Shape, spec: Spec) -> Spec:
+        return _stacked(spec, shape)
+
+    def zeros(self, shape: Shape, spec: Spec) -> Spec:
+        return _stacked(spec, shape)
+
+    def const(self, value: torch.Tensor, spec: Spec) -> Spec:
+        return _stacked(spec, tuple(value.shape))
 
 
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
 def init_rmsnorm(init: Init, d: int, lead: Shape = ()) -> torch.Tensor:
-    return init.ones(lead + (d,))
+    return init.ones(lead + (d,), (None,))
 
 
 def rmsnorm(gamma: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -138,15 +185,15 @@ def init_attention(init: Init, cfg: ModelConfig, lead: Shape = (),
     d, hd = cfg.d_model, cfg.hd
     h, k = cfg.n_heads, cfg.n_kv_heads
     p = {
-        "wq": init.dense(lead + (d, h * hd), fan_in=d),
-        "wk": init.dense(lead + (d, k * hd), fan_in=d),
-        "wv": init.dense(lead + (d, k * hd), fan_in=d),
-        "wo": init.dense(lead + (h * hd, d), fan_in=h * hd),
+        "wq": init.dense(lead + (d, h * hd), fan_in=d, spec=("embed", "heads")),
+        "wk": init.dense(lead + (d, k * hd), fan_in=d, spec=("embed", "kv_heads")),
+        "wv": init.dense(lead + (d, k * hd), fan_in=d, spec=("embed", "kv_heads")),
+        "wo": init.dense(lead + (h * hd, d), fan_in=h * hd, spec=("heads", "embed")),
     }
     if cfg.qkv_bias and not cross:
-        p["bq"] = init.zeros(lead + (h * hd,))
-        p["bk"] = init.zeros(lead + (k * hd,))
-        p["bv"] = init.zeros(lead + (k * hd,))
+        p["bq"] = init.zeros(lead + (h * hd,), ("heads",))
+        p["bk"] = init.zeros(lead + (k * hd,), ("kv_heads",))
+        p["bv"] = init.zeros(lead + (k * hd,), ("kv_heads",))
     return p
 
 
@@ -154,13 +201,13 @@ def _proj_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, kv_src: torch.Tensor
     B, S, _ = x.shape
     Skv = kv_src.shape[1]
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
-    kk = (kv_src @ p["wk"]).reshape(B, Skv, k, hd)
-    v = (kv_src @ p["wv"]).reshape(B, Skv, k, hd)
+    q = shd.unflatten(x @ p["wq"], -1, (h, hd))
+    kk = shd.unflatten(kv_src @ p["wk"], -1, (k, hd))
+    v = shd.unflatten(kv_src @ p["wv"], -1, (k, hd))
     if "bq" in p:
-        q = q + p["bq"].reshape(1, 1, h, hd)
-        kk = kk + p["bk"].reshape(1, 1, k, hd)
-        v = v + p["bv"].reshape(1, 1, k, hd)
+        q = q + shd.unflatten(p["bq"], -1, (h, hd))
+        kk = kk + shd.unflatten(p["bk"], -1, (k, hd))
+        v = v + shd.unflatten(p["bv"], -1, (k, hd))
     return q, kk, v
 
 
@@ -188,12 +235,37 @@ def write_at_lengths(cache: torch.Tensor, new: torch.Tensor,
     """Write row b of ``new`` (B, ...) into ``cache`` (B, S_max, ...) at
     position ``lengths[b]``, **in place**; a row whose length has reached
     ``S_max`` writes nothing (JAX's one-hot of an out-of-range index is
-    all zeros)."""
+    all zeros).
+
+    A DTensor cache is written on its local shards: ``new`` and
+    ``lengths`` are laid out as the cache's batch and head dims, and a
+    shard of the sequence dim (``kv_seq``) writes the rows whose position
+    falls in it.
+    """
+    if shd.is_dtensor(cache):
+        _write_sharded(cache, new, lengths)
+        return
     B, S = cache.shape[:2]
     rows = torch.arange(B, device=cache.device)
     at = lengths.long().clamp(max=S - 1)
     keep = (lengths >= S).view((B,) + (1,) * (new.dim() - 1))
     cache[rows, at] = torch.where(keep, cache[rows, at], new.to(cache.dtype))
+
+
+def _write_sharded(cache, new: torch.Tensor, lengths: torch.Tensor) -> None:
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    # new has the cache's dims without the sequence dim (1)
+    new_pls = [Shard(pl.dim - (pl.dim > 1)) if isinstance(pl, Shard) and pl.dim != 1
+               else Replicate() for pl in cache.placements]
+    len_pls = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+               for pl in cache.placements]
+    new_l = shd.local_shard(new, mesh, new_pls)
+    s0, ns = shd.shard_offsets(cache)[1]
+    at = shd.local_shard(lengths, mesh, len_pls) - s0
+    # a position before this shard writes nothing here, as one past it
+    write_at_lengths(cache.to_local(), new_l, torch.where(at < 0, ns, at))
 
 
 def attention_decode(
@@ -272,7 +344,7 @@ def cross_attention(
     RoPE, through the flash kernel with Sq != Sk (Sq = 1 in decode)."""
     B, S, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
+    q = shd.unflatten(x @ p["wq"], -1, (h, hd))
     k, v = enc_kv
     out = ops.attention(q, k, v, causal=False)
     return out.reshape(B, S, h * hd) @ p["wo"]
@@ -282,8 +354,8 @@ def cross_kv(p: Params, cfg: ModelConfig,
              enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """A cross layer's K/V ``(B, S_enc, K, hd)`` of the encoder output."""
     B, Se, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ p["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.hd)
+    k = shd.unflatten(enc_out @ p["wk"], -1, (cfg.n_kv_heads, cfg.hd))
+    v = shd.unflatten(enc_out @ p["wv"], -1, (cfg.n_kv_heads, cfg.hd))
     return k, v
 
 
@@ -299,11 +371,15 @@ def init_mla(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
     qd = m.nope_head_dim + m.rope_head_dim
     lora = m.kv_lora_rank
     return {
-        "wq": init.dense(lead + (d, h * qd), fan_in=d),
-        "w_dkv": init.dense(lead + (d, lora + m.rope_head_dim), fan_in=d),
-        "w_uk": init.dense(lead + (lora, h * m.nope_head_dim), fan_in=lora),
-        "w_uv": init.dense(lead + (lora, h * m.v_head_dim), fan_in=lora),
-        "wo": init.dense(lead + (h * m.v_head_dim, d), fan_in=h * m.v_head_dim),
+        "wq": init.dense(lead + (d, h * qd), fan_in=d, spec=("embed", "heads")),
+        "w_dkv": init.dense(lead + (d, lora + m.rope_head_dim), fan_in=d,
+                            spec=("embed", "lora")),
+        "w_uk": init.dense(lead + (lora, h * m.nope_head_dim), fan_in=lora,
+                           spec=("lora", "heads")),
+        "w_uv": init.dense(lead + (lora, h * m.v_head_dim), fan_in=lora,
+                           spec=("lora", "heads")),
+        "wo": init.dense(lead + (h * m.v_head_dim, d), fan_in=h * m.v_head_dim,
+                         spec=("heads", "embed")),
     }
 
 
@@ -314,7 +390,7 @@ def _mla_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     B, S, _ = x.shape
     h = cfg.n_heads
     qd = m.nope_head_dim + m.rope_head_dim
-    q = (x @ p["wq"]).reshape(B, S, h, qd)
+    q = shd.unflatten(x @ p["wq"], -1, (h, qd))
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     dkv = x @ p["w_dkv"]
@@ -329,8 +405,8 @@ def _mla_expand(p: Params, cfg: ModelConfig, c_kv: torch.Tensor,
     m = cfg.mla
     B, S, _ = c_kv.shape
     h = cfg.n_heads
-    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, h, m.nope_head_dim)
-    v = (c_kv @ p["w_uv"]).reshape(B, S, h, m.v_head_dim)
+    k_nope = shd.unflatten(c_kv @ p["w_uk"], -1, (h, m.nope_head_dim))
+    v = shd.unflatten(c_kv @ p["w_uv"], -1, (h, m.v_head_dim))
     k_rope_b = k_rope[:, :, None, :].expand(B, S, h, m.rope_head_dim)
     return torch.cat([k_nope, k_rope_b], dim=-1), v
 
@@ -385,9 +461,9 @@ def mla_decode(
 # ---------------------------------------------------------------------------
 def init_mlp(init: Init, d: int, ff: int, lead: Shape = ()) -> Params:
     return {
-        "w_gate": init.dense(lead + (d, ff), fan_in=d),
-        "w_up": init.dense(lead + (d, ff), fan_in=d),
-        "w_down": init.dense(lead + (ff, d), fan_in=ff),
+        "w_gate": init.dense(lead + (d, ff), fan_in=d, spec=("embed", "ff")),
+        "w_up": init.dense(lead + (d, ff), fan_in=d, spec=("embed", "ff")),
+        "w_down": init.dense(lead + (ff, d), fan_in=ff, spec=("ff", "embed")),
     }
 
 
@@ -395,18 +471,108 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
+#: calls of the weight-stationary body and of its fallback to ``mlp`` since
+#: the last reset (the tests and the card show which one a decode took)
+WS_CALLS = {"ws_body": 0, "fallback": 0}
+
+
+def reset_ws_calls() -> None:
+    for k in WS_CALLS:
+        WS_CALLS[k] = 0
+
+
+def mlp_ws_decode(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Weight-stationary decode MLP (serve_opt2 variant).
+
+    At decode the activations are tiny (B tokens) while the fsdp-sharded
+    weights are huge; this keeps every weight shard where it lives and
+    moves only activation partials, on the local shards:
+
+        x (replicated) --slice d over data--> partial h  --all-reduce(data)-->
+        silu·u in float32 --local (ff/model)--> partial y --all-reduce(model)-->
+        y, sharded on d over data
+
+    Without an active mesh with ``data`` and ``model`` dims that divide
+    ``d`` and the FFN width it is :func:`mlp`, where JAX's is.
+    """
+    mesh = shd.active_mesh()
+    d = cfg.d_model
+    ff = p["w_gate"].shape[-1]
+    shape = shd.mesh_shape(mesh) if mesh is not None else {}
+    if (
+        mesh is None
+        or "data" not in shape
+        or "model" not in shape
+        or d % (shape["data"]) or ff % shape["model"]
+        or d % shape["data"]
+    ):
+        WS_CALLS["fallback"] += 1
+        return mlp(p, x)
+    WS_CALLS["ws_body"] += 1
+    d_l = d // shape["data"]
+    g_data, g_model = mesh.get_group("data"), mesh.get_group("model")
+
+    def body(xl, wg, wu, wd):
+        i = mesh.get_local_rank("data")
+        xs = xl.narrow(-1, i * d_l, d_l)
+        h = xs @ wg
+        dist.all_reduce(h, group=g_data)          # (B, 1, ff/model)
+        u = xs @ wu
+        dist.all_reduce(u, group=g_data)
+        a = (F.silu(h.float()) * u.float()).to(xl.dtype)
+        y = a @ wd
+        dist.all_reduce(y, group=g_model)         # (B, 1, d/data)
+        return y
+
+    def pl(*spec):
+        return shd.placements_of(spec, mesh)
+
+    return shd.local_call(
+        body, [x, p["w_gate"], p["w_up"], p["w_down"]],
+        [pl(), pl("data", "model"), pl("data", "model"), pl("model", "data")],
+        pl(None, None, "data"), mesh)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 def init_embed(init: Init, cfg: ModelConfig) -> Params:
-    p = {"embedding": init.dense((cfg.vocab, cfg.d_model), fan_in=cfg.d_model)}
+    p = {"embedding": init.dense((cfg.vocab, cfg.d_model), fan_in=cfg.d_model,
+                                 spec=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = init.dense((cfg.d_model, cfg.vocab), fan_in=cfg.d_model)
+        p["lm_head"] = init.dense((cfg.d_model, cfg.vocab), fan_in=cfg.d_model,
+                                  spec=("embed", "vocab"))
     return p
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens.long()]
+    """Rows of the embedding table.  A DTensor table is gathered on its
+    local shards: each rank takes the tokens its vocab rows hold (zeros
+    elsewhere), so the result is a sum over the vocab shards (``Partial``)
+    and sharded as the table's ``d``; the whole table never moves."""
+    table = p["embedding"]
+    if shd.is_dtensor(table):
+        return _embed_sharded(table, tokens)
+    return table[tokens.long()]
+
+
+def _embed_sharded(table, tokens: torch.Tensor):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    v0, nv = shd.shard_offsets(table)[0]
+    out_pls = [Partial() if isinstance(pl, Shard) and pl.dim == 0
+               else Shard(tokens.dim()) if isinstance(pl, Shard) else Replicate()
+               for pl in table.placements]
+
+    def body(tab, tok):
+        idx = tok.long() - v0
+        hit = (idx >= 0) & (idx < nv)
+        rows = tab[idx.clamp(0, nv - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype))
+
+    return shd.local_call(body, [table, tokens],
+                          [table.placements, [Replicate()] * mesh.ndim], out_pls, mesh)
 
 
 def unembed(p: Params, x: torch.Tensor, tie: bool) -> torch.Tensor:

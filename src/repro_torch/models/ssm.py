@@ -55,15 +55,16 @@ def init_mamba(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
     r = _dt_rank(cfg)
     a = torch.arange(1, m.d_state + 1, dtype=torch.float32, device=init.device)
     return {
-        "in_proj": init.dense(lead + (d, 2 * di), fan_in=d),
-        "conv_w": init.dense(lead + (m.d_conv, di), fan_in=m.d_conv),
-        "conv_b": init.zeros(lead + (di,)),
-        "x_proj": init.dense(lead + (di, r + 2 * m.d_state), fan_in=di),
-        "dt_proj": init.dense(lead + (r, di), fan_in=r),
-        "dt_bias": init.zeros(lead + (di,)),
-        "A_log": torch.log(a).expand(lead + (di, m.d_state)).clone(),
-        "D": init.ones(lead + (di,)),
-        "out_proj": init.dense(lead + (di, d), fan_in=di),
+        "in_proj": init.dense(lead + (d, 2 * di), fan_in=d, spec=("embed", "ff")),
+        "conv_w": init.dense(lead + (m.d_conv, di), fan_in=m.d_conv, spec=("conv", "ff")),
+        "conv_b": init.zeros(lead + (di,), ("ff",)),
+        "x_proj": init.dense(lead + (di, r + 2 * m.d_state), fan_in=di, spec=("ff", None)),
+        "dt_proj": init.dense(lead + (r, di), fan_in=r, spec=(None, "ff")),
+        "dt_bias": init.zeros(lead + (di,), ("ff",)),
+        "A_log": init.const(torch.log(a).expand(lead + (di, m.d_state)).clone(),
+                            ("ff", "state")),
+        "D": init.ones(lead + (di,), ("ff",)),
+        "out_proj": init.dense(lead + (di, d), fan_in=di, spec=("ff", "embed")),
     }
 
 
@@ -132,14 +133,14 @@ def init_mlstm(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
     d = cfg.d_model
     di = int(d * x.proj_factor)
     return {
-        "up_proj": init.dense(lead + (d, 2 * di), fan_in=d),
-        "wq": init.dense(lead + (di, di), fan_in=di),
-        "wk": init.dense(lead + (di, di), fan_in=di),
-        "wv": init.dense(lead + (di, di), fan_in=di),
-        "w_i": init.dense(lead + (di, x.n_heads), fan_in=di),
-        "w_f": init.dense(lead + (di, x.n_heads), fan_in=di),
-        "w_o": init.dense(lead + (di, di), fan_in=di),
-        "down_proj": init.dense(lead + (di, d), fan_in=di),
+        "up_proj": init.dense(lead + (d, 2 * di), fan_in=d, spec=("embed", "ff")),
+        "wq": init.dense(lead + (di, di), fan_in=di, spec=("ff", None)),
+        "wk": init.dense(lead + (di, di), fan_in=di, spec=("ff", None)),
+        "wv": init.dense(lead + (di, di), fan_in=di, spec=("ff", None)),
+        "w_i": init.dense(lead + (di, x.n_heads), fan_in=di, spec=("ff", None)),
+        "w_f": init.dense(lead + (di, x.n_heads), fan_in=di, spec=("ff", None)),
+        "w_o": init.dense(lead + (di, di), fan_in=di, spec=("ff", None)),
+        "down_proj": init.dense(lead + (di, d), fan_in=di, spec=("ff", "embed")),
     }
 
 
@@ -197,9 +198,9 @@ def init_slstm(init: Init, cfg: ModelConfig, lead: Shape = ()) -> Params:
     at zeros, as in JAX."""
     d = cfg.d_model
     return {
-        "w_izfo": init.dense(lead + (d, 4 * d), fan_in=d),
-        "r_izfo": init.zeros(lead + (4 * d,)),
-        "out_proj": init.dense(lead + (d, d), fan_in=d),
+        "w_izfo": init.dense(lead + (d, 4 * d), fan_in=d, spec=("embed", "ff")),
+        "r_izfo": init.zeros(lead + (4 * d,), ("ff",)),
+        "out_proj": init.dense(lead + (d, d), fan_in=d, spec=(None, "embed")),
     }
 
 

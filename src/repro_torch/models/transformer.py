@@ -37,6 +37,13 @@ and recurrent states into the cache **in place** (it still returns the
 cache, with ``lengths`` a new tensor).  MLA decodes in the latent space
 (``_mla_decode_absorbed``, plain PyTorch as in the JAX package).
 
+Under an active mesh (:mod:`repro_torch.distributed.sharding`) the
+weights are DTensors (``device_put_tree`` onto ``tree_shardings`` of
+:func:`param_specs`), the slot caches are made as DTensors laid out by
+``zoo.cache_logical``, the residual stream is constrained at JAX's five
+places (after the embedding, after each layer, on the logits), and the
+returned logits are DTensors.  Without a mesh nothing of this runs.
+
 Two deliberate departures from the JAX functions: ``prefill`` builds the
 cross K/V from the encoder output its own ``forward`` computed (JAX's
 ``init_cache(params=, enc_input=)`` runs the encoder a second time, to
@@ -54,6 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..distributed import sharding as shd
 from ..kernels import ops
 from . import layers as L
 from . import moe as M
@@ -172,11 +180,21 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
     Returns
     -------
     dict
-        The parameter tree (the JAX package also returns sharding specs;
-        the port has none yet).
+        The parameter tree (the JAX package also returns the logical-axis
+        tree; the port's is :func:`param_specs`).
     """
+    return _init_tree(cfg, L.Init(seed, cfg.tdtype, resolve_device(device)))
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The logical-axis tree of :func:`init_params`' tree: each leaf a
+    tuple of logical names (``None`` for a stacking axis), equal to the
+    spec tree JAX's ``init_params`` returns.  Nothing is allocated."""
+    return _init_tree(cfg, L.SpecInit())
+
+
+def _init_tree(cfg: ModelConfig, init: L.Init) -> Params:
     n_prefix, pat, n_sb = _scan_layout(cfg)
-    init = L.Init(seed, cfg.tdtype, resolve_device(device))
     params: Params = L.init_embed(init, cfg)
     params["final_norm"] = L.init_rmsnorm(init, cfg.d_model)
     for i in range(n_prefix):
@@ -198,16 +216,19 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> Param
 # ---------------------------------------------------------------------------
 # forward building blocks
 # ---------------------------------------------------------------------------
-def _apply_ffn(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm FFN with residual: a gated MLP (``mlp``, ``dense_mlp``) or
-    the MoE block (the JAX version's ``decoding`` switch selects a sharded
-    decode MLP, which is not ported)."""
+def _apply_ffn(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+               decoding: bool = False) -> torch.Tensor:
+    """Pre-norm FFN with residual: a gated MLP (``mlp``, ``dense_mlp``;
+    when ``decoding`` with ``decode_mlp == "ws"``, the weight-stationary
+    :func:`~repro_torch.models.layers.mlp_ws_decode`) or the MoE block."""
     _, ffn = kind.split("+")
     if ffn == "none":
         return x
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if ffn == "moe":
         return x + M.moe_block(p["moe"], cfg, h)
+    if decoding and cfg.decode_mlp == "ws":
+        return x + L.mlp_ws_decode(p["mlp"], cfg, h)
     return x + L.mlp(p["mlp"], h)
 
 
@@ -274,6 +295,7 @@ def _apply_layer_full(
     else:
         out, cache = S.slstm_full(p["cell"], cfg, h)
     x = _apply_ffn(p, cfg, kind, x + out)
+    x = shd.constrain(x, ("batch", "seq_act", None))
     return x, cache
 
 
@@ -307,7 +329,8 @@ def _apply_layer_decode(
         out, _ = L.attention_decode_q8(p["attn"], cfg, h, cache, lengths)
     else:
         out, _, _ = L.attention_decode(p["attn"], cfg, h, cache["k"], cache["v"], lengths)
-    return _apply_ffn(p, cfg, kind, x + out)
+    x = _apply_ffn(p, cfg, kind, x + out, decoding=True)
+    return shd.constrain(x, ("dec_batch", None, None))
 
 
 def _audio_dec_layer_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -359,7 +382,7 @@ def _mla_decode_absorbed(
     L.write_at_lengths(cache_c, c_kv_new[:, 0], lengths)
     L.write_at_lengths(cache_r, k_rope_new[:, 0], lengths)
     # absorb W_uk into q:  q' = q_nope @ W_uk^T  -> latent space
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.nope_head_dim)
+    w_uk = shd.unflatten(p["w_uk"], -1, (h, m.nope_head_dim))
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)          # (B, H, lora)
     S_max = cache_c.shape[1]
     c32 = cache_c.float()
@@ -370,7 +393,7 @@ def _mla_decode_absorbed(
     bias = torch.where(mask, 0.0, -1e30)
     w = torch.softmax(logits * scale + bias[:, None, :], dim=-1)
     ctx = torch.einsum("bhs,bsl->bhl", w, c32)                         # latent context
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    w_uv = shd.unflatten(p["w_uv"], -1, (h, m.v_head_dim))
     out = torch.einsum("bhl,lhv->bhv", ctx, w_uv.float())               # (B, H, v)
     return out.reshape(B, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
 
@@ -443,6 +466,7 @@ def forward(
     """
     B, Sq = tokens.shape
     x = L.embed(params, tokens).to(cfg.tdtype)
+    x = shd.constrain(x, ("batch", None, None))
     positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
     enc_out, cross = None, {}
     if cfg.family in ENC_FAMILIES:
@@ -460,6 +484,7 @@ def forward(
             stacked.setdefault(name.split("/")[1], []).append(c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params, x, cfg.tie_embeddings)
+    logits = shd.constrain(logits, ("batch", None, "vocab_act"))
     if not collect_cache:
         return logits, None
     if stacked:
@@ -520,7 +545,20 @@ def _slot_caches(cfg: ModelConfig, batch: int, max_len: int,
             str(j): layer_cache("attn+mlp" if cfg.family == "audio"
                                 else layer_kind(cfg, n_prefix + j), (n_sb,))
             for j in range(pat)}
-    return cache
+    return _shard_cache(cfg, cache)
+
+
+def _shard_cache(cfg: ModelConfig, cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Under an active mesh, every leaf of ``cache`` as a DTensor laid out
+    by :func:`repro_torch.models.zoo.cache_logical` (JAX shards its decode
+    cache so in the dry-run's cells); without one, ``cache`` as it is."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return cache
+    from .zoo import cache_logical
+
+    specs = cache_logical(cfg, cache, shd.mesh_shape(mesh).get("model", 1))
+    return shd.device_put_tree(cache, shd.tree_shardings(specs, cache, mesh))
 
 
 def init_cache(
@@ -565,7 +603,7 @@ def init_cache(
              if Se and (cfg.family == "audio"
                         or layer_kind(cfg, n_prefix + j).startswith("cross"))}
     if cross:
-        cache["__cross"] = cross
+        cache["__cross"] = _shard_cache(cfg, {"__cross": cross})["__cross"]
     return cache
 
 
@@ -576,19 +614,17 @@ def _place(cfg: ModelConfig, dst: Dict[str, torch.Tensor],
     ``place_attn_q8``), an MLA layer's latents in their first positions,
     or a recurrent layer's final state in place of the initial one."""
     if "c_kv" in src:
-        Sq = src["c_kv"].shape[-2]
         for name in ("c_kv", "k_rope"):
-            dst[name].narrow(-2, 0, Sq).copy_(src[name])
+            shd.narrow_copy_(dst[name], -2, src[name])
         return dst
     if "k" not in src:
         return src
-    Sq = src["k"].shape[-3]
     for name in ("k", "v"):
         kv = src[name]
         if cfg.kv_cache_dtype == "int8":
             kv, sc = ops.quantize_kv(kv)
-            dst[name + "_s"].narrow(-2, 0, Sq).copy_(sc)
-        dst[name].narrow(-3, 0, Sq).copy_(kv)
+            shd.narrow_copy_(dst[name + "_s"], -2, sc)
+        shd.narrow_copy_(dst[name], -3, kv)
     return dst
 
 
@@ -640,6 +676,7 @@ def decode_step(
         tokens = tokens[:, None]
     lengths = cache["lengths"]
     x = L.embed(params, tokens).to(cfg.tdtype)
+    x = shd.constrain(x, ("dec_batch", None, None))
     for _, kind, p, c, kv in _layers(params, cfg, cache, cache.get("__cross")):
         x = _apply_layer_decode(p, cfg, kind, x, c, lengths, enc_kv=kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -6,8 +6,13 @@ prices and quality proxies are hand-set, not measured) and of its step
 builders (``build_train_step``, ``build_prefill_step``,
 ``build_decode_step``, ``build_forward``).  JAX jits its steps; the port
 runs them eagerly, and the train step's autograd reaches the flash and
-RMSNorm backward kernels on the card (``repro_torch.kernels.ops``).  The
-dry-run shape helpers (``input_specs``, ``param_shapes``,
+RMSNorm backward kernels on the card (``repro_torch.kernels.ops``).
+
+The logical sharding of the inputs (``input_logical``), of the decode
+caches (``cache_logical``) and of the parameters (``param_specs``, the
+spec tree of JAX's ``param_shapes``), which
+:mod:`repro_torch.distributed.sharding` resolves on a mesh.  The dry-run
+shape helpers (``input_specs``, the shape tree of ``param_shapes``,
 ``opt_state_shapes``) are not ported yet.
 """
 
@@ -20,7 +25,76 @@ import torch
 
 from ..distributed.optimizer import OptConfig, adamw_update, tree_leaves, tree_unflatten
 from . import transformer as T
-from .config import ModelConfig
+from .config import ModelConfig, ShapeConfig
+
+
+# ---------------------------------------------------------------------------
+# Logical sharding of inputs, caches and parameters
+# ---------------------------------------------------------------------------
+def input_logical(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    if shape.kind == "train":
+        out["tokens"] = ("batch", None)
+        out["targets"] = ("batch", None)
+    elif shape.kind == "prefill":
+        out["tokens"] = ("batch", None)
+    else:
+        out["tokens"] = ("batch",)
+        out["cache"] = "__cache__"   # resolved by cache_logical()
+    if cfg.family in ("vlm", "audio") and shape.kind != "decode":
+        out["enc_input"] = ("batch", None, None)
+    return out
+
+
+def cache_logical(cfg: ModelConfig, cache_shapes, model_axis_size: int):
+    """Logical names for every cache leaf, chosen per-arch: KV heads shard
+    over ``model`` when divisible, otherwise the cache sequence dim does
+    (flash-decode style; the port's decode attention gathers that dim
+    before its kernel)."""
+    heads_divisible = model_axis_size > 0 and cfg.n_kv_heads % model_axis_size == 0
+    kv_heads = "kv_heads" if heads_divisible else None
+    kv_seq = None if heads_divisible else "kv_seq"
+
+    def map_leaf(path, x):
+        name = path[-1]
+        nd = len(x.shape)
+        if "__cross" in path:
+            base = (None, "batch", None, kv_heads, None)
+            return (None,) * max(0, nd - 5) + tuple(base)[-nd:]
+        if name in ("k", "v"):
+            base = ("batch", kv_seq, kv_heads, None)
+        elif name in ("k_s", "v_s"):
+            base = ("batch", kv_seq, kv_heads)
+        elif name in ("c_kv", "k_rope"):
+            base = ("batch", kv_seq, None)
+        elif name == "lengths":
+            base = ("batch",)
+        elif name in ("conv", "ssm", "C", "n", "m", "c", "h"):
+            base = ("batch",) + (None,) * (nd - 1)
+            base = base[:nd]
+        elif name in ("__cross_k", "__cross_v"):
+            base = ("batch", None, kv_heads, None)
+        else:
+            base = (None,) * nd
+        pad = nd - len(base)
+        return (None,) * pad + tuple(base) if pad >= 0 else tuple(base)[-nd:]
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            # a sequence element's path entry is its index (JAX's
+            # SequenceKey), which matches no leaf name
+            return type(node)(walk(v, path + (f"[{i}]",)) for i, v in enumerate(node))
+        return map_leaf(path, node)
+
+    return walk(cache_shapes, ())
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameters' logical-axis tree: the spec tree of JAX's
+    ``param_shapes(cfg)`` (:func:`repro_torch.models.transformer.param_specs`)."""
+    return T.param_specs(cfg)
 
 
 @dataclass(frozen=True)

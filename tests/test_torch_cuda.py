@@ -1794,3 +1794,140 @@ def test_card_train_step_reaches_no_plain_version(dev, monkeypatch):
     assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(p))
     _train_launches(ops.launch_counts(), cfg, 1)
     assert ops.launch_counts()["ssm_scan_bwd"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths at world size 1 over NCCL (chip_smoke.py's ``sharded``)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def card_mesh(tmp_path_factory):
+    """A (data 1, model 1) mesh on the card over a one-rank NCCL group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the NCCL group and the CUDA kernels")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded(tree, mesh, specs):
+    from repro_torch.distributed import sharding as shd
+
+    return shd.device_put_tree(tree, shd.tree_shardings(specs, tree, mesh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dispatch", ["bfloat16", "int8"])
+def test_sharded_moe_ep_on_the_card_matches_moe_block(dev, card_mesh, dispatch):
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import mlp
+
+    base = get_smoke_config("deepseek_v2_lite_16b").with_(dtype="float32")
+    cfg = base.with_(moe=dataclasses.replace(base.moe, impl="ep", dispatch_dtype=dispatch))
+    p = M.init_moe(L.Init(0, torch.float32, dev), cfg)
+    x = torch.randn(4, 16, cfg.d_model, generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    if dispatch == "int8":  # the experts see each row through the int8 round trip
+        w, ids = M._routing(p, cfg, x.reshape(-1, cfg.d_model))
+        q8, scl = M._q8_rows(x.reshape(-1, cfg.d_model))
+        want = M._routed_sum((q8.float() * scl[:, None]), w, ids, p["w_gate"], p["w_up"],
+                             p["w_down"]) + mlp(p["shared"], x.reshape(-1, cfg.d_model))
+        want = want.reshape(x.shape)
+    else:
+        want = M.moe_block(p, cfg, x)
+    with shd.use_mesh(card_mesh):
+        M.reset_ep_calls()
+        got = M.moe_block(_sharded(p, card_mesh, M.init_moe(L.SpecInit(), cfg)), cfg, x)
+        assert M.EP_CALLS["ep_body"] == 1 and M.EP_CALLS["fallback"] == 0
+    torch.testing.assert_close(got.full_tensor(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_sharded_mlp_ws_decode_on_the_card_matches_mlp(dev, card_mesh):
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+
+    cfg = get_smoke_config("stablelm_1_6b").with_(dtype="float32")
+    p = L.init_mlp(L.Init(0, torch.float32, dev), cfg.d_model, cfg.d_ff)
+    x = torch.randn(4, 1, cfg.d_model, generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    with shd.use_mesh(card_mesh):
+        got = L.mlp_ws_decode(
+            _sharded(p, card_mesh, L.init_mlp(L.SpecInit(), cfg.d_model, cfg.d_ff)), cfg, x)
+    torch.testing.assert_close(got.full_tensor(), L.mlp(p, x), atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decode_mlp", ["auto", "ws"])
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "internlm2_20b"])
+def test_sharded_decode_on_the_card_matches_unsharded(dev, card_mesh, arch, decode_mlp):
+    """float32 greedy tokens equal, and the slot kernels launch under the
+    mesh; with ``decode_mlp="ws"`` the weight-stationary MLP runs at every
+    decode step (without a mesh it is ``mlp``)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models import layers as L
+    from repro_torch.models.zoo import param_specs
+
+    cfg = get_smoke_config(arch).with_(dtype="float32", decode_mlp=decode_mlp)
+    params = init_params(cfg, 0, dev)
+    toks = torch.randint(0, cfg.vocab, (4, 12), generator=torch.Generator(dev).manual_seed(2),
+                         device=dev)
+
+    def greedy(ps):
+        lg, cache = prefill(ps, cfg, toks, max_len=32)
+        out = []
+        for _ in range(5):
+            lg = lg.full_tensor() if shd.is_dtensor(lg) else lg
+            out.append(lg.argmax(-1))
+            lg, cache = decode_step(ps, cfg, cache, out[-1])
+        return torch.stack(out, 1)
+
+    want = greedy(params)
+    with shd.use_mesh(card_mesh):
+        ps = _sharded(params, card_mesh, param_specs(cfg))
+        ops.reset_launch_counts()
+        L.reset_ws_calls()
+        got = greedy(ps)
+        counts = ops.launch_counts()
+    assert torch.equal(got, want)
+    for name in ("flash_attention", "decode_attention", "rmsnorm"):
+        assert counts[name] > 0, name
+    ws_steps = 5 * cfg.n_layers if decode_mlp == "ws" else 0
+    assert L.WS_CALLS == {"ws_body": ws_steps, "fallback": 0}
+
+
+@pytest.mark.gpu
+def test_compressed_psum_on_the_card_equals_compress_decompress(dev, card_mesh):
+    from repro_torch.distributed import compression as comp
+
+    x = torch.randn(64, 96, generator=torch.Generator(dev).manual_seed(3), device=dev)
+    assert torch.equal(comp.compressed_psum(x, card_mesh.get_group("data")),
+                       comp.compress_decompress(x)[0])
+
+
+@pytest.mark.gpu
+def test_restore_onto_the_card_mesh_is_bit_equal(dev, card_mesh, tmp_path):
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.zoo import param_specs
+
+    cfg = get_smoke_config("internlm2_20b")
+    params = init_params(cfg, 0, dev)
+    sh = shd.tree_shardings(param_specs(cfg), params, card_mesh)
+    ckpt.save_checkpoint(str(tmp_path), 2, shd.device_put_tree(params, sh))
+    restored, step = ckpt.restore_checkpoint(str(tmp_path), like=params, shardings=sh)
+    assert step == 2
+    for name in ("embedding", "lm_head", "final_norm"):
+        assert shd.is_dtensor(restored[name])
+        assert torch.equal(restored[name].to_local(), params[name])
+    for k, v in restored["blocks"]["0"]["attn"].items():
+        assert torch.equal(v.to_local(), params["blocks"]["0"]["attn"][k])

@@ -20,6 +20,8 @@ REQUIRED = (
     "models/zoo.py", "serving/cluster.py", "kernels/flash_attention.py",
     "kernels/decode_attention.py", "kernels/ssm_scan.py", "models/ssm.py",
     "models/moe.py", "configs/jamba_1_5_large_398b.py",
+    # the sharding layer and the multi-rank paths
+    "distributed/sharding.py", "distributed/compression.py", "launch/mesh.py",
 )
 
 

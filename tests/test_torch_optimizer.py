@@ -240,11 +240,19 @@ def test_checkpoint_crash_restart_resumes():
 
 
 def test_checkpoint_sharded_restore_is_not_ported():
+    """A sharding tree whose leaf count differs from the target's is
+    ignored, as in JAX (``repro/distributed/checkpoint.py:122-125``): the
+    restore is the plain one.  The resharding restore itself is held on
+    gloo ranks in ``tests/test_torch_multirank.py``.  (The name dates from
+    when the port refused ``shardings=``; it is kept so that the test's
+    record runs on under one name.)"""
     t = _tree()
     with tempfile.TemporaryDirectory() as d:
         ckpt.save_checkpoint(d, 1, t)
-        with pytest.raises(NotImplementedError):
-            ckpt.restore_checkpoint(d, like=t, shardings={"w": None})
+        restored, step = ckpt.restore_checkpoint(d, like=t, shardings={"w": None})
+        assert step == 1
+        assert torch.equal(restored["w"], t["w"])
+        assert torch.equal(restored["nested"]["b"], t["nested"]["b"])
 
 
 def _bits(x) -> np.ndarray:
