@@ -114,7 +114,7 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    layer plus once per admission and step; no decode-attention launch: MLA
    decodes in the latent space), a profiled window of 4 decode steps with
    the host's launches, syncs and routed-MoE calls a step, then LLMSched
-   over one DeepSeek slot replica (4 planning jobs, token scale 16);
+   over one DeepSeek slot replica (2 planning jobs, token scale 16);
 11. ``dense``  — Llama-3-405B (2 of 126 layers), Qwen1.5-110B (2 of 80,
    QKV bias) and Kimi-K2 (1 of 61: 384 experts top-8 and the shared
    expert) at their published widths in bf16, one at a time, each through
@@ -130,7 +130,7 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    ``LLMEngine``: 4 requests of 64-256 prompt tokens and 32 new tokens,
    launches matched (RMSNorm once a layer plus the final norm per
    admission and step, no attention kernel), a profiled decode window,
-   then LLMSched over one xLSTM slot replica (6 planning jobs at the
+   then LLMSched over one xLSTM slot replica (3 planning jobs at the
    testbed's token scale 4);
 14. ``held_encdec`` — Whisper-tiny whole (4 encoder and 4 decoder layers,
    1500 frames) and Llama-3.2-Vision-90B at its published widths cut to
@@ -228,7 +228,14 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    launched under the mesh, and the weight-stationary body run at every
    decode step of every layer (``WS_CALLS``); ``compressed_psum`` bit-equal
    to ``compress_decompress``; a checkpoint of sharded weights restored
-   with ``shardings=``, leaves bit-equal.
+   with ``shardings=``, leaves bit-equal; the scan's forward and backward
+   on DTensors at Jamba-1.5-Large's layer widths (1 x 1024, d_inner 16384,
+   N 16, float32) against the plain-tensor call (y, h_T, every gradient,
+   ``ssm_scan_bwd`` launched as often); one ``build_train_step`` step of
+   stablelm-1.6b whole in float32 (2 x 256) with its weights on the mesh
+   against the unsharded step: the loss, every gradient leaf, the updated
+   params, and the flash and RMSNorm kernels and their backward kernels
+   launched as many times.
    The ``kernels`` phase holds the scan's backward kernel
    (``ssm_scan_bwd``) against ``ssm_scan_bwd_ref`` in f32 and bf16 (Jamba's
    training shape, N 8 and 16, ragged T and D, with and without h0 and
@@ -284,6 +291,7 @@ fails when no CUDA device is present or the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import itertools
 import json
@@ -2768,10 +2776,11 @@ def phase_hybrid(dev) -> dict:
 # Qwen1.5-110B, Kimi-K2)
 # ---------------------------------------------------------------------------
 MLA_ARCH = "deepseek_v2_lite_16b"
-# 4 jobs and 4 profiled decode steps: its testbed (~140 s at 6 jobs) and
-# its trace of ~13,500 launches a step (~80 s at 8 steps) are the script's
-# longest phases, and it must end well inside its time limit
-MLA_JOBS = 4
+# 2 jobs and 4 profiled decode steps: its testbed (~140 s at 6 jobs, ~45 s
+# at 4) and its trace of ~13,500 launches a step (~80 s at 8 steps) are
+# among the script's longest phases, and it must end well inside its time
+# limit
+MLA_JOBS = 2
 MLA_PROFILE_STEPS = 4
 # DeepSeek's testbed tasks decode ~2-40 tokens (~8 on average), a quarter
 # of the other testbeds': its host-bound ~0.2 s decode steps would take
@@ -2974,7 +2983,9 @@ def phase_dense(dev) -> dict:
 # phases: held_xlstm and xlstm (xLSTM-350M through the slot engine)
 # ---------------------------------------------------------------------------
 XLSTM_ARCH = "xlstm_350m"
-XLSTM_JOBS = 6
+# 3 jobs: its testbed took ~100 s at 6, host-bound (~20 launches a token
+# a layer), and the script must end well inside its time limit
+XLSTM_JOBS = 3
 
 
 def _set_recurrence(params, dev, seed: int) -> None:
@@ -3038,7 +3049,7 @@ def phase_xlstm(dev) -> dict:
     (RMSNorm once a layer plus the final norm per admission and step, no
     attention kernel: the cells are plain PyTorch, as JAX's ``lax.scan``);
     then a profiled decode window and LLMSched over one xLSTM slot replica
-    (6 planning jobs at the testbed's token scale)."""
+    (3 planning jobs at the testbed's token scale)."""
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, layer_kind, prefill
     from repro_torch.serving import LLMEngine, Request, ServeConfig, build_engines
@@ -4500,12 +4511,142 @@ def _sharded_restore(dev, mesh) -> dict:
             "gb": sum(p.numel() * p.element_size() for p in flat_p) / 1e9}
 
 
+#: the mesh train step: stablelm-1.6b whole, float32, this batch (rows x
+#: tokens); one copy of params, grads and AdamW state is ~26 GB
+SHARDED_TRAIN_BATCH = (2, 256)
+#: the scan on DTensors: Jamba-1.5-Large's layer widths (B, T, d_inner, N)
+SHARDED_SCAN = (1, 1024, 16384, 16)
+#: the kernels of the train step whose launches must match unsharded
+SHARDED_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+
+
+def _sharded_train(dev, mesh) -> dict:
+    """stablelm-1.6b whole, float32, TF32 off: ``loss_and_grads`` and one
+    ``build_train_step`` step with its weights on the card mesh (the
+    port's spec tree), against both without a mesh: the loss, every
+    gradient leaf (``_bwd_err``'s form), ``grad_norm`` and the updated
+    params (``tests/test_torch_train.py``'s rule); the forward and backward
+    kernels launched as many times under the mesh as without it."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.optimizer import OptConfig, init_opt_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params, zoo
+    from repro_torch.models.zoo import param_specs
+
+    t0 = time.perf_counter()
+    cfg = get_config(SHARDED_DECODE_ARCH).with_(dtype="float32")
+    B, S = SHARDED_TRAIN_BATCH
+    opt = OptConfig(lr=1e-5, warmup_steps=1)
+    batch = synthetic_batch(np.random.default_rng(0), cfg, B, S, device=dev)
+    params = init_params(cfg, 15, dev)
+    runs = {}
+    for key in ("plain", "sharded"):
+        # the plain run steps a copy; the sharded run, the placed weights
+        p = _clone_tree(params) if key == "plain" else _placed(params, mesh, param_specs(cfg))
+        with shd.use_mesh(None if key == "plain" else mesh):
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            loss, grads = zoo.loss_and_grads(p, cfg, batch)
+            torch.cuda.synchronize()
+            grad_s = time.perf_counter() - t1
+            counts = {k: ops.launch_counts()[k] for k in SHARDED_TRAIN_KERNELS}
+            t1 = time.perf_counter()
+            _, _, m = zoo.build_train_step(cfg, opt)(p, init_opt_state(p, opt), batch)
+            torch.cuda.synchronize()
+            runs[key] = {"loss": float(loss), "step_loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                         "launches": counts, "grads": grads, "params": p,
+                         "grad_s": grad_s, "step_s": time.perf_counter() - t1}
+        del p, grads, m
+        _free_card()
+    del params
+    plain, sh = runs["plain"], runs["sharded"]
+    check(all(shd.is_dtensor(g) for g in _leaves(sh["grads"])),
+          "sharded train: the gradients are not DTensors")
+    grad_err = max(_bwd_err(g.full_tensor(), w, torch.float32, "sharded train grad")
+                   for g, w in zip(_leaves(sh["grads"]), _leaves(plain["grads"])))
+    del sh["grads"], plain["grads"]
+    lr1, d_max, frac = plain["lr"], 0.0, 0.0
+    for got, want in zip(_leaves(sh["params"]), _leaves(plain["params"])):
+        d = (got.full_tensor() - want).abs()
+        d_max, frac = max(d_max, float(d.max())), max(frac, float((d > 1e-5).float().mean()))
+    del sh["params"], plain["params"]
+    for k in ("loss", "step_loss", "grad_norm"):
+        check(abs(sh[k] - plain[k]) <= 1e-5 * abs(plain[k]),
+              f"sharded train: {k} {sh[k]} against {plain[k]}")
+    check(d_max <= 2 * lr1 + 1e-5 and frac < 0.01,
+          f"sharded train: params moved {d_max} apart ({frac} of a leaf past 1e-5)")
+    check(sh["launches"] == plain["launches"] and all(sh["launches"].values()),
+          f"sharded train: launches {sh['launches']} against {plain['launches']}")
+    return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "batch": [B, S], "dtype": "float32",
+            "loss": sh["loss"], "loss_plain": plain["loss"],
+            "grad_norm": sh["grad_norm"], "grad_norm_plain": plain["grad_norm"],
+            "max_abs_grad_err": grad_err, "max_abs_param_err": d_max,
+            "param_frac_past_1e-5": frac, "launches": sh["launches"],
+            "launches_plain": plain["launches"], "grad_s": sh["grad_s"],
+            "grad_s_plain": plain["grad_s"], "step_s": sh["step_s"],
+            "step_s_plain": plain["step_s"], "run_s": time.perf_counter() - t0}
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _sharded_scan(dev, mesh) -> dict:
+    """The scan's forward and backward on DTensors at Jamba-1.5-Large's
+    layer widths (float32, h0 given) against the plain-tensor call on the
+    card: y, h_T and the gradient of every input, ``ssm_scan`` and
+    ``ssm_scan_bwd`` launched as often under the mesh."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    B, T, D, N = SHARDED_SCAN
+    args = _scan_inputs(np.random.default_rng(16), B, T, D, N, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    dy = torch.randn(B, T, D, generator=g, device=dev)
+    dhT = 0.5 * torch.randn(B, D, N, generator=g, device=dev)
+    rows = [Shard(0), Replicate()]
+    runs = {}
+    for key in ("plain", "sharded"):
+        xs = [a.detach().clone().requires_grad_(True) for a in args]
+        if key == "sharded":
+            xs = [distribute_tensor(a.detach(), mesh, rows if a.dim() == 3 else
+                                    [Replicate(), Replicate()]).requires_grad_(True)
+                  for a in xs]
+        ops.reset_launch_counts()
+        y, hT = ops.ssm_scan(*xs[:6], h0=xs[6])
+        if key == "sharded":
+            check(shd.is_dtensor(y) and shd.is_dtensor(hT), "sharded scan: no DTensor out")
+            y, hT = y.full_tensor(), hT.full_tensor()
+        grads = torch.autograd.grad((y * dy).sum() + (hT * dhT).sum(), xs)
+        grads = [gr.full_tensor() if shd.is_dtensor(gr) else gr for gr in grads]
+        counts = {k: ops.launch_counts()[k] for k in ("ssm_scan", "ssm_scan_bwd")}
+        runs[key] = (y.detach(), hT.detach(), grads, counts)
+    (y0, h0_, g0, c0), (y1, h1, g1, c1) = runs["plain"], runs["sharded"]
+    errs = {"y": _bwd_err(y1, y0, torch.float32, "sharded scan y", SSM_TOL),
+            "h_T": _bwd_err(h1, h0_, torch.float32, "sharded scan h_T", SSM_TOL)}
+    for name, a, b in zip(SCAN_GRADS, g1, g0):
+        errs[name] = _bwd_err(a, b, torch.float32, f"sharded scan {name}", SSM_TOL)
+    check(c1 == c0 and c1["ssm_scan_bwd"] > 0,
+          f"sharded scan: launches {c1} against {c0}")
+    return {"shape": {"B": B, "T": T, "D": D, "N": N}, "max_abs_err": errs,
+            "launches": c1, "launches_plain": c0, "run_s": time.perf_counter() - t0}
+
+
 def phase_sharded(dev) -> dict:
     """``sharded``: the port's sharded paths at world size 1 over NCCL, on
     a (data 1, model 1) mesh on the card, each against the unsharded path
     on the card: ``moe_ep`` at DeepSeek-V2-Lite-16B's MoE layer,
     ``mlp_ws_decode`` and a greedy decode of stablelm-1.6b whole, the
-    compressed all-reduce, and a resharding restore."""
+    compressed all-reduce, a resharding restore, the scan's forward and
+    backward on DTensors at Jamba's widths, and a float32 train step of
+    stablelm-1.6b whole (``_sharded_scan``, ``_sharded_train``)."""
     import tempfile
 
     import torch.distributed as dist
@@ -4528,6 +4669,10 @@ def phase_sharded(dev) -> dict:
             _free_card()
             res["compression"] = _sharded_compression(dev, mesh)
             res["restore"] = _sharded_restore(dev, mesh)
+            _free_card()
+            res["scan"] = _sharded_scan(dev, mesh)
+            _free_card()
+            res["train"] = _sharded_train(dev, mesh)
     finally:
         dist.destroy_process_group()
         import shutil

@@ -27,6 +27,9 @@ one directory per step —
   :class:`~repro_torch.distributed.sharding.NamedSharding` on the current
   mesh, which may differ from the one that saved it.  A sharding tree
   whose leaf count differs from the target's is ignored, as in JAX.
+- A ``(params, opt_state)`` pair on a mesh is saved as any other tree
+  (the state's DTensors gathered as the parameters are, the step by rank
+  0 alone).
 """
 
 from __future__ import annotations
@@ -54,6 +57,33 @@ def _flatten(tree) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [leaf for x in tree for leaf in _flatten(x)]
     return [tree]
+
+
+def _flatten_along(shardings, like) -> List[Any]:
+    """The leaves of a sharding tree in the order of ``like``'s leaves,
+    walked along ``like``: a ``None`` where ``like`` has a leaf (or a
+    subtree) stands for that many plain leaves.  ``[]`` where the two
+    trees differ in structure."""
+    def walk(sh, node):
+        if node is None:
+            return []
+        if isinstance(node, (dict, tuple, list)):
+            n = len(_flatten(node))
+            if sh is None:
+                return [None] * n
+            if isinstance(node, dict):
+                if not isinstance(sh, dict) or set(sh) != set(node):
+                    raise KeyError
+                return [x for k in sorted(node) for x in walk(sh[k], node[k])]
+            if not isinstance(sh, (tuple, list)) or len(sh) != len(node):
+                raise KeyError
+            return [x for a, b in zip(sh, node) for x in walk(a, b)]
+        return [sh]
+
+    try:
+        return walk(shardings, like)
+    except KeyError:
+        return []
 
 
 def _unflatten(like, leaves) -> Any:
@@ -197,7 +227,12 @@ def restore_checkpoint(
     for a leaf that is not a tensor); reshard onto ``shardings`` (a
     matching tree of ``NamedSharding``) if given: each leaf becomes a
     DTensor on its sharding's mesh (every rank holds the same host
-    array)."""
+    array).  A ``None`` in ``shardings`` leaves its leaves plain.
+
+    ``(params, opt_state)`` restores onto a mesh with ``shardings=(sh,
+    optimizer.state_shardings(sh, opt_state))``: the state is placed as
+    the parameters (where JAX's elastic example replicates it, ``P()``),
+    its step a plain tensor."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -213,7 +248,7 @@ def restore_checkpoint(
     if shardings is not None:
         from torch.distributed.tensor import distribute_tensor
 
-        sh_leaves = _flatten(shardings)
+        sh_leaves = _flatten_along(shardings, like)
         if len(sh_leaves) != len(leaves):  # partial sharding trees allowed
             sh_leaves = [None] * len(leaves)
     out_leaves = []

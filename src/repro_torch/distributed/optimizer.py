@@ -11,6 +11,10 @@ quarter of the float32 state's bytes.
 Trees are nested dicts of tensors; leaves are visited in the JAX package's
 order (dict keys sorted), so the gradient norm sums in the same order.
 
+On a mesh the parameters, their gradients and the state are DTensors
+placed alike (``init_opt_state``), and the update runs on each rank's
+shards; the clip's norm is over whole leaves.
+
 One departure in form, not in values: JAX donates the parameters and the
 state to its jitted step, and this module updates both **in place** under
 ``torch.no_grad()`` (a float32 state leaf is overwritten, an int8 one
@@ -25,6 +29,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Tuple, Union
 
 import torch
+
+from . import sharding as shd
 
 
 @dataclass(frozen=True)
@@ -68,8 +74,20 @@ State = Union[torch.Tensor, QTensor]
 
 def _encode(x: torch.Tensor, mode: str) -> State:
     if mode == "int8":
-        return QTensor(*_q8(x))
+        q, s = _q8(x)
+        if shd.is_dtensor(s):   # DTensor leaves its row reduction's layout open
+            s = s.redistribute(s.device_mesh, _scale_placements(x.placements, x.dim()))
+        return QTensor(q, s)
     return x
+
+
+def _scale_placements(placements, ndim: int) -> tuple:
+    """The int8 state's scales placed as their ``ndim``-dim leaf, but
+    whole along its last dim (each row's scale reduces it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Replicate() if isinstance(pl, Shard) and pl.dim == ndim - 1 else pl
+                 for pl in placements)
 
 
 def _decode(x: State, mode: str) -> torch.Tensor:
@@ -105,17 +123,38 @@ def tree_unflatten(like, leaves) -> Any:
 # -- adamw -------------------------------------------------------------------
 def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
     """``{"step": int32 0, "mv": {leaf: {"m", "v"}}}``, zeros on each
-    parameter's device (int8 state: codes and scales of zeros)."""
+    parameter's device (int8 state: codes and scales of zeros).
+
+    On DTensor params ``m`` and ``v`` are DTensors placed as their
+    parameter (int8: the codes so, the scales so but whole along the
+    last dim, which each row's scale reduces); the step is a plain 0-dim
+    tensor on every rank."""
     def one(p: torch.Tensor) -> Dict[str, State]:
         # distinct buffers for m and v: both are updated in place
-        m, v = (torch.zeros(p.shape, dtype=torch.float32, device=p.device) for _ in range(2))
+        m, v = (torch.zeros_like(p, dtype=torch.float32) for _ in range(2))
         return {"m": _encode(m, cfg.state_dtype), "v": _encode(v, cfg.state_dtype)}
 
-    dev = tree_leaves(params)[0].device
+    first = tree_leaves(params)[0]
+    dev = (first.to_local() if shd.is_dtensor(first) else first).device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
         "mv": tree_unflatten(params, [one(p) for p in tree_leaves(params)]),
     }
+
+
+def state_shardings(params_shardings, state) -> Dict[str, Any]:
+    """The sharding tree of ``state`` (``init_opt_state``'s) for
+    ``restore_checkpoint(shardings=)``: each ``m`` and ``v`` placed as its
+    parameter in ``params_shardings`` (int8: the scales whole along the
+    last dim), the step ``None`` (a plain tensor)."""
+    def walk(sh, mv):
+        if isinstance(sh, dict):
+            return {k: walk(sh[k], mv[k]) for k in sh}
+        return {k: QTensor(sh, shd.NamedSharding(sh.mesh, _scale_placements(
+                    sh.placements, x.q.dim()))) if isinstance(x, QTensor) else sh
+                for k, x in mv.items()}
+
+    return {"step": None, "mv": walk(params_shardings, state["mv"])}
 
 
 def _lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -140,11 +179,13 @@ def adamw_update(params, grads, state, cfg: OptConfig):
         raise ValueError(f"params, grads and state differ in leaves: {len(flat_p)}, "
                          f"{len(flat_g)}, {len(flat_mv)} // 2")
 
-    # global-norm clip (fp32), summed leaf by leaf in leaf order
+    # global-norm clip (fp32), summed leaf by leaf in leaf order; a DTensor
+    # leaf's sum is over the whole leaf (reduced over its shards)
     gnorm = torch.zeros((), dtype=torch.float32, device=step.device)
     for g in flat_g:
         if g is not None:
-            gnorm = gnorm + torch.sum(torch.square(g.float()))
+            sq = torch.sum(torch.square(g.float()))
+            gnorm = gnorm + (sq.full_tensor() if shd.is_dtensor(sq) else sq)
     gnorm = torch.sqrt(gnorm)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
@@ -155,8 +196,7 @@ def adamw_update(params, grads, state, cfg: OptConfig):
 
     new_mv = []
     for p, g, m_st, v_st in zip(flat_p, flat_g, flat_mv[0::2], flat_mv[1::2]):
-        g = (torch.zeros(p.shape, dtype=torch.float32, device=p.device) if g is None
-             else g.float()) * scale
+        g = (torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()) * scale
         m = _decode(m_st, cfg.state_dtype)
         v = _decode(v_st, cfg.state_dtype)
         m = b1 * m + (1 - b1) * g

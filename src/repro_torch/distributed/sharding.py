@@ -32,6 +32,10 @@ join JAX's under ``jit``.
 :func:`local_call` runs a function on the local shards of its DTensor
 arguments (``local_map``): the kernel entry points of
 :mod:`repro_torch.kernels.ops` use it, so a kernel never sees a DTensor.
+Under grad it sums the gradient of an argument taken replicated over the
+mesh dims the call splits, as JAX's ``jit`` does; inside such a call
+:func:`psum` and :func:`all_to_all` are the collectives with JAX's
+gradients.
 """
 
 from __future__ import annotations
@@ -299,13 +303,36 @@ def device_put_tree(tree, shardings):
     return distribute_tensor(tree, mesh, list(placements))
 
 
+def _grad_placements(in_placements: Sequence[Any], ndim: int) -> Tuple[Any, ...]:
+    """The placements of each argument's gradient in a :func:`local_call`:
+    an argument replicated on a mesh dim that shards another argument
+    gets a gradient that is ``Partial`` there (each rank's covers only its
+    own rows, experts or columns; DTensor sums them), one sharded keeps
+    its placements."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    split = [any(pls is not None and not isinstance(pls[m], Replicate)
+                 for pls in in_placements) for m in range(ndim)]
+    return tuple(None if pls is None else
+                 [Partial() if split[m] and isinstance(pl, Replicate) else pl
+                  for m, pl in enumerate(pls)] for pls in in_placements)
+
+
 def local_call(fn: Callable, args: Sequence[Any], in_placements: Sequence[Any],
                out_placements, mesh) -> Any:
     """``fn`` on the local shards of ``args`` (``local_map``): each tensor
     argument is redistributed to its entry of ``in_placements`` (``None``
     for an argument that is not a tensor) and the outputs are DTensors
     with ``out_placements``.  A plain tensor argument counts as
-    replicated."""
+    replicated.
+
+    Under grad, an argument taken as replicated on a mesh dim over which
+    another argument is sharded gets its gradient summed over that dim
+    (:func:`_grad_placements`): ``fn`` must then split its work over that
+    dim, its outputs sharded or partial there or summed inside it (with
+    :func:`psum`), as every body in the port does.  Without it RMSNorm's
+    gamma and the scan's ``A`` and ``D`` would get only a rank's rows'
+    share of their gradient on a ``data``-sharded mesh."""
     from torch.distributed.tensor import DTensor, Placement, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -318,9 +345,63 @@ def local_call(fn: Callable, args: Sequence[Any], in_placements: Sequence[Any],
     rep = [Replicate()] * mesh.ndim
     args = [DTensor.from_local(a, mesh, rep, run_check=False)
             if isinstance(a, torch.Tensor) and not is_dtensor(a) else a for a in args]
-    return local_map(fn, out_placements=one(out_placements),
-                     in_placements=tuple(one(p) for p in in_placements),
+    in_pls = tuple(one(p) for p in in_placements)
+    return local_map(fn, out_placements=one(out_placements), in_placements=in_pls,
+                     in_grad_placements=_grad_placements(in_pls, mesh.ndim),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+class _PSum(torch.autograd.Function):
+    """Sum over a process group; the gradient passes through unchanged
+    (JAX's ``psum`` inside ``shard_map``: the result is the same on every
+    rank of the group, so is its gradient, which is each term's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (a new tensor), differentiable as JAX's
+    ``psum``."""
+    return _PSum.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """JAX's tiled ``all_to_all`` over dim 0, whose gradient is the reverse
+    exchange (the same exchange: block j of rank i went to block i of
+    rank j)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a_blocks(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _a2a_blocks(dy, ctx.group), None
+
+
+def _a2a_blocks(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Equal row blocks of ``x``, block j to the group's rank j, received
+    blocks in rank order; differentiable."""
+    return _AllToAll.apply(x, group)
 
 
 def shard_offsets(x, placements=None) -> List[Tuple[int, int]]:

@@ -29,7 +29,8 @@ scales), a grouped GEMM over the local experts (one product an expert:
 ``ragged_dot`` is a plain product in JAX too), the return
 ``all_to_all``, the combine in ``combine_dtype`` (each token's terms
 added in a fixed order, where JAX's ``segment_sum`` leaves the order
-open) and an all-reduce over ``model``.  Where JAX's ``moe_ep`` falls
+open) and a sum over ``model`` (``psum``: the gradient passes through, as
+JAX's).  Where JAX's ``moe_ep`` falls
 back to ``moe_dense``, the port falls back to the one-device body, on the
 local expert shards when the weights are DTensors.
 """
@@ -39,7 +40,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..distributed import sharding as shd
@@ -199,14 +199,6 @@ def reset_ep_calls() -> None:
         EP_CALLS[k] = 0
 
 
-def _a2a(x: torch.Tensor, group) -> torch.Tensor:
-    """JAX's tiled ``all_to_all`` over dim 0: equal row blocks, block j to
-    the group's rank j, received blocks in rank order."""
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
-
-
 def _q8_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rowwise int8 payload and float32 scales of the int8 dispatch."""
     rf = rows.float()
@@ -329,12 +321,12 @@ def _ep_body_dedup(
 
     if m.dispatch_dtype == "int8":
         q8, scl = _q8_rows(send_rows[:-1])
-        recv_rows = (_a2a(q8, ep_group).float()
-                     * _a2a(scl[:, None], ep_group)).to(x_local.dtype)
+        recv_rows = (shd.all_to_all(q8, ep_group).float()
+                     * shd.all_to_all(scl[:, None], ep_group)).to(x_local.dtype)
     else:
-        recv_rows = _a2a(send_rows[:-1], ep_group)
-    recv_eid = _a2a(send_eid[:-1], ep_group)
-    recv_w = _a2a(send_w[:-1], ep_group)
+        recv_rows = shd.all_to_all(send_rows[:-1], ep_group)
+    recv_eid = shd.all_to_all(send_eid[:-1], ep_group)
+    recv_w = shd.all_to_all(send_w[:-1], ep_group)
 
     # --- receiver: expand pairs -> assignments (local memory, not wire) ---
     C2 = max(8, int(T_l * k * m.capacity_factor) // max(1, dsize) * dsize)
@@ -357,13 +349,13 @@ def _ep_body_dedup(
 
     # --- return + combine -------------------------------------------------
     comb_dt = torch.float32 if m.combine_dtype == "float32" else torch.bfloat16
-    back = _a2a(y_pairs.to(comb_dt), ep_group)                    # (R, d)
+    back = shd.all_to_all(y_pairs.to(comb_dt), ep_group)      # (R, d)
     back = torch.cat([back, torch.zeros((1, d), dtype=back.dtype, device=dev)])
     # each token's pairs in destination order; a pair never sent reads
     # the zero row
     y = _sum_rows(back, _unsort(slot, order).reshape(T_l, dsize))
     if tp_group is not None:
-        dist.all_reduce(y, group=tp_group)
+        y = shd.psum(y, tp_group)
     return y.to(x_local.dtype)
 
 
@@ -414,12 +406,12 @@ def _ep_body(
     if m.dispatch_dtype == "int8":
         # quantized dispatch: rowwise int8 payload + f32 scales
         q8, scl = _q8_rows(payload)
-        recv_q = _a2a(q8, ep_group)
-        recv_s = _a2a(scl[:, None], ep_group)[:, 0]
+        recv_q = shd.all_to_all(q8, ep_group)
+        recv_s = shd.all_to_all(scl[:, None], ep_group)[:, 0]
         recv_rows = (recv_q.float() * recv_s[:, None]).to(x_local.dtype)
     else:
-        recv_rows = _a2a(payload, ep_group)
-    recv_eid = _a2a(send_eid[:-1].reshape(dsize * cap, 1), ep_group)[:, 0]
+        recv_rows = shd.all_to_all(payload, ep_group)
+    recv_eid = shd.all_to_all(send_eid[:-1].reshape(dsize * cap, 1), ep_group)[:, 0]
 
     # --- local grouped GEMM ------------------------------------------------
     leid = recv_eid - didx * E_l                          # local expert id
@@ -435,7 +427,7 @@ def _ep_body(
     yr = yr[inv] * valid[:, None]
 
     # --- return to source shards + combine ---------------------------------
-    back = _a2a(yr, ep_group)                             # (dsize*cap, d)
+    back = shd.all_to_all(yr, ep_group)                   # (dsize*cap, d)
     back = torch.cat([back, torch.zeros((1, d), dtype=back.dtype, device=dev)])
     comb_dt = torch.float32 if m.combine_dtype == "float32" else torch.bfloat16
     # each token's k outputs summed in ascending expert order, the order in
@@ -445,7 +437,7 @@ def _ep_body(
                   (flat_w * _unsort(keep, order)).reshape(T_l, m.top_k).gather(1, by_e),
                   comb_dt)
     if tp_group is not None:
-        dist.all_reduce(y, group=tp_group)                # sum FFN partials
+        y = shd.psum(y, tp_group)                         # sum FFN partials
     return y.to(x_local.dtype)
 
 

@@ -701,10 +701,49 @@ def lm_loss(
     ``forward`` writes nothing in place on this path, so autograd
     differentiates it as it stands; on CUDA tensors its flash attention and
     RMSNorm calls take the kernels' autograd functions
-    (``repro_torch.kernels.ops``).
+    (``repro_torch.kernels.ops``).  DTensor logits (under a mesh) take
+    :func:`_sharded_token_losses`, and the loss is a plain 0-dim tensor
+    there too.
     """
     logits, _ = forward(params, cfg, tokens, enc_input=enc_input)
+    if shd.is_dtensor(logits):
+        return torch.mean(_sharded_token_losses(logits, targets)).full_tensor()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _sharded_token_losses(logits, targets: torch.Tensor):
+    """Each position's ``logsumexp - gold`` of DTensor ``logits``, vocab-
+    parallel: each rank holds the rows of the ``batch`` rule and the vocab
+    columns of ``vocab_act``; the max, the sum of exponentials and the gold
+    logit (on the rank that holds its column) are reduced over the vocab's
+    mesh dims, so the ``(B, S, V)`` logits are never gathered.  A DTensor
+    sharded as the rows."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    mesh = logits.device_mesh
+    spec = shd.resolve_spec(("batch", None, "vocab_act"), logits.shape, mesh)
+    pls = shd.placements_of(spec, mesh)
+    groups = [mesh.get_group(m) for m, pl in enumerate(pls)
+              if isinstance(pl, Shard) and pl.dim == 2]
+    v0, nv = shd.shard_offsets(logits, pls)[2]
+
+    def body(lg, tg):
+        lg = lg.float()
+        mx = lg.detach().amax(-1)
+        for g in groups:
+            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=g)
+        se = torch.exp(lg - mx[..., None]).sum(-1)
+        idx = tg.long() - v0
+        hit = (idx >= 0) & (idx < nv)
+        gold = torch.where(hit, torch.gather(lg, -1, idx.clamp(0, nv - 1)[..., None])[..., 0],
+                           torch.zeros((), device=lg.device))
+        for g in groups:
+            se, gold = shd.psum(se, g), shd.psum(gold, g)
+        return mx + torch.log(se) - gold
+
+    rows = shd.placements_of(spec[:2], mesh)
+    return shd.local_call(body, [logits, targets], [pls, rows], rows, mesh)

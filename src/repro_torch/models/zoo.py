@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import sharding as shd
 from ..distributed.optimizer import OptConfig, adamw_update, tree_leaves, tree_unflatten
 from . import transformer as T
 from .config import ModelConfig, ShapeConfig
@@ -238,6 +239,11 @@ def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
     into that leaf.  A leaf the loss does not use gets zeros, as JAX gives
     it.  The graph, the float32 logits' gradient included, is freed before
     this returns.
+
+    On DTensor params (under ``sharding.use_mesh``) each gradient is a
+    DTensor placed as its parameter: a gradient that autograd leaves
+    ``Partial`` (a replicated parameter's, summed over the rows' shards)
+    is reduced here, as JAX's ``jit`` reduces it.
     """
     flat = tree_leaves(params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
@@ -245,8 +251,15 @@ def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
         loss = T.lm_loss(tree_unflatten(params, leaves), cfg, batch["tokens"],
                          batch["targets"], enc_input=batch.get("enc_input"))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    grads = [torch.zeros_like(p) if g is None else _placed_as(g, p)
+             for p, g in zip(flat, grads)]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if shd.is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: Optional[OptConfig] = None):

@@ -25,7 +25,18 @@ Held in float32:
   test's 2e-3; JAX's own sharded decode fails at its vocab-sharded
   gather), greedy tokens equal;
 - the sharded decode of every smoke config against the unsharded port;
-- the resharding restore, bit for bit.
+- the resharding restore, bit for bit;
+- training on a mesh, on (data 4, model 2) in the first launch and on
+  (data 2, model 2) in the second: every gradient leaf of
+  ``loss_and_grads`` and one ``build_train_step`` step (loss,
+  ``grad_norm``, gradients, updated params) of internlm2's, Jamba's and
+  Kimi's smoke configs against the same calls without a mesh (internlm2
+  also with int8 AdamW state, and its (4, 2) step against JAX's jitted
+  step on one device), at ``tests/test_torch_train.py``'s tolerances;
+- the gradients of the ``ops`` entry points on DTensors against the
+  plain-tensor calls', and of ``moe_ep`` in each variant against
+  ``jax.grad`` of JAX's ``moe_ep`` and, at a capacity that drops nothing,
+  of ``moe_dense``.
 """
 
 import json
@@ -48,11 +59,16 @@ from repro.distributed.compression import quantize_rowwise as jax_quantize_rowwi
 from repro.models import decode_step as jax_decode_step
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
+from repro.distributed.optimizer import OptConfig as JaxOptConfig
+from repro.distributed.optimizer import init_opt_state as jax_init_opt_state
+from repro.launch.train import synthetic_batch as jax_synthetic_batch
 from repro.models.layers import mlp as jax_mlp
+from repro.models.zoo import build_train_step as jax_build_train_step
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.models import layers as TL
 
 import torch_multirank_worker as W
+from test_torch_train import GRAD_TOL, LOSS_TOL, PARAM_TOL
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = Path(W.__file__).resolve()
@@ -101,18 +117,32 @@ JAX_MOE = """
     d = sys.argv[1]
     z = dict(np.load(d + "/moe_in.npz"))
     x = jnp.asarray(z.pop("x"))
+    z.pop("ct")
     p = {k: jnp.asarray(v) for k, v in z.items() if "/" not in k}
     p["shared"] = {k.split("/")[1]: jnp.asarray(v) for k, v in z.items() if "/" in k}
     base = get_smoke_config("kimi_k2_1t_a32b").with_(dtype="float32")
     mesh = jax.make_mesh((4, 2), ("data", "model"))
+    ct = jnp.asarray(np.load(d + "/moe_ct.npy"))
+
+    def grads(fn):
+        g = jax.jit(jax.grad(lambda p, x: jnp.sum(fn(p, x) * ct), argnums=(0, 1)))(p, x)
+        flat = {"x": g[1], **{k: v for k, v in g[0].items() if k != "shared"}}
+        flat.update({"shared/" + k: v for k, v in g[0]["shared"].items()})
+        return {k: np.asarray(v) for k, v in flat.items()}
+
     out = {"dense": np.asarray(M.moe_dense(p, base, x))}
+    for k, v in grads(lambda p, x: M.moe_dense(p, base, x)).items():
+        out["grad/dense/" + k] = v
     for variant, fields in VARIANTS.items():
         for tag, cf in CAPACITIES.items():
             cfg = base.with_(moe=dataclasses.replace(base.moe, impl="ep", capacity_factor=cf,
                                                      **fields))
             with use_mesh(mesh):
                 y = jax.jit(lambda p, x: M.moe_ep(p, cfg, x, mesh=mesh))(p, x)
+                g = grads(lambda p, x: M.moe_ep(p, cfg, x, mesh=mesh))
             out[variant + "/" + tag] = np.asarray(y)
+            for k, v in g.items():
+                out["grad/" + variant + "/" + tag + "/" + k] = v
     np.savez(d + "/jax_moe.npz", **out)
 """
 
@@ -136,7 +166,10 @@ def _inputs(d: Path) -> dict:
     def w(*shape, fan_in):
         return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
 
+    ct = np.random.default_rng(1).normal(size=MOE_TOKENS + (dm,)).astype(np.float32)
+    np.save(d / "moe_ct.npy", ct)
     np.savez(d / "moe_in.npz", x=(0.5 * rng.normal(size=MOE_TOKENS + (dm,))).astype(np.float32),
+             ct=ct,
              router=w(dm, E, fan_in=dm), w_gate=w(E, dm, f, fan_in=E),
              w_up=w(E, dm, f, fan_in=E), w_down=w(E, f, dm, fan_in=E),
              **{"shared/w_gate": w(dm, sf, fan_in=dm), "shared/w_up": w(dm, sf, fan_in=dm),
@@ -158,7 +191,16 @@ def _inputs(d: Path) -> dict:
     for _ in range(W.DECODE_STEPS):
         lg, cache = jax_decode_step(params, jcfg, cache, jnp.argmax(logits[-1], -1))
         logits.append(np.asarray(lg))
-    return {"internlm2": logits, "ws": np.asarray(jax_mlp(ws, ws["x"])), "ws_in": ws}
+    # JAX's single-device train step on the same weights and batch as the
+    # ranks' internlm2 train step
+    jopt = JaxOptConfig(**W.TRAIN_OPT)
+    batch = jax_synthetic_batch(np.random.default_rng(0), jcfg, W.TRAIN_B, W.TRAIN_S)
+    jp, _, jm = jax.jit(jax_build_train_step(jcfg, jopt))(
+        params, jax_init_opt_state(params, jopt), batch)
+    step = {"loss": float(jm["loss"]), "grad_norm": float(jm["grad_norm"]),
+            "lr": float(jm["lr"]), "params": W.flat(jax.tree.map(np.asarray, jp))}
+    return {"internlm2": logits, "ws": np.asarray(jax_mlp(ws, ws["x"])), "ws_in": ws,
+            "internlm2_step": step}
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +212,7 @@ def runs(tmp_path_factory):
     _wait([jax_proc], "JAX moe_ep on 8 host devices")
     _wait(_launch("restore", 4, d, d / "store_restore"), "restore job")
     out = dict(np.load(d / "main_out.npz"))
+    out.update(np.load(d / "restore_out.npz"))
     comp = [dict(np.load(d / f"comp_{r}.npz")) for r in range(8)]
     restore = [json.loads((d / f"restore_{r}.json").read_text()) for r in range(4)]
     return {"ref": ref, "out": out, "jax_moe": dict(np.load(d / "jax_moe.npz")),
@@ -293,3 +336,156 @@ def test_restore_reshards_bit_for_bit(runs):
         assert all(rep["placed"].values())
         # (data 2, model 2): the embedding's vocab over model, d over data
         assert rep["local_shape"]["embedding"] == [128, 48]
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh
+# ---------------------------------------------------------------------------
+def _train(runs, tag: str, arch: str) -> dict:
+    pre = f"train/{tag}/{arch}/"
+    return {k[len(pre):]: v for k, v in runs["out"].items() if k.startswith(pre)}
+
+
+def _leaves(t: dict, what: str) -> dict:
+    pre = f"plain/{what}/"
+    return {k[len(pre):]: (v, t[f"sharded/{what}/" + k[len(pre):]])
+            for k, v in t.items() if k.startswith(pre)}
+
+
+def _check_grads(t: dict, label: str) -> None:
+    """Every gradient leaf against the unsharded one, relative to the
+    leaf's largest magnitude (``tests/test_torch_train.py``'s form)."""
+    for name, (want, got) in _leaves(t, "grad").items():
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert _err(got, want) <= GRAD_TOL * scale, f"{label} {name}: {_err(got, want)} / {scale}"
+
+
+def _check_params(got: dict, want: dict, lr1: float, label: str) -> None:
+    """``test_train_step_matches_jax``'s rule for one AdamW step."""
+    assert got.keys() == want.keys()
+    for name in want:
+        d = np.abs(np.asarray(got[name], np.float64) - np.asarray(want[name], np.float64))
+        assert d.max() <= 2 * lr1 + PARAM_TOL, f"{label} {name}: {d.max()}"
+        assert (d > PARAM_TOL).mean() < 0.01, f"{label} {name}: {(d > PARAM_TOL).mean()}"
+
+
+#: the leaves a ``local_call`` body takes replicated while the rows are
+#: sharded over ``data``, whose gradients must be summed over it
+_REPLICATED_LEAVES = {
+    "internlm2_20b": ("final_norm", "norm1", "norm2"),
+    "jamba_1_5_large_398b": ("final_norm", "norm1", "norm2", "A_log", "/D", "dt_bias"),
+}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("tag", ["4x2", "2x2"])
+@pytest.mark.parametrize("arch", ["internlm2_20b", "jamba_1_5_large_398b"])
+def test_sharded_gradients_match_unsharded(runs, arch, tag):
+    """Every gradient leaf of ``loss_and_grads`` on params placed by the
+    param specs equals the unsharded one: RMSNorm's gamma and the scan's
+    ``A_log``, ``D`` and ``dt_bias`` too, whose gradients each rank holds
+    for its own rows only until they are summed over ``data``."""
+    t = _train(runs, tag, arch)
+    np.testing.assert_allclose(t["sharded/loss"], t["plain/loss"], rtol=LOSS_TOL)
+    names = list(_leaves(t, "grad"))
+    for part in _REPLICATED_LEAVES[arch]:
+        assert any(part in n for n in names), part
+    _check_grads(t, f"{arch} {tag}")
+    assert bool(t["placed"])
+
+
+_STEP_CASES = [(a, tag) for tag in ("4x2", "2x2") for a in W.TRAIN_ARCHS] + [
+    ("internlm2_20b", "2x2_int8")]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("arch,tag", _STEP_CASES)
+def test_sharded_train_step_matches_unsharded(runs, arch, tag):
+    """One ``build_train_step`` step on the mesh: the loss, ``grad_norm``,
+    every gradient leaf and the updated params against the same step
+    without a mesh; the gradients and the AdamW state placed as their
+    parameters, the step counter a plain tensor."""
+    t = _train(runs, tag, arch)
+    for key in ("step_loss", "grad_norm"):
+        np.testing.assert_allclose(t[f"sharded/{key}"], t[f"plain/{key}"], rtol=LOSS_TOL)
+    _check_grads(t, f"{arch} {tag}")
+    lr1 = W.TRAIN_OPT["lr"] / W.TRAIN_OPT["warmup_steps"]
+    params = _leaves(t, "param")
+    _check_params({k: g for k, (_, g) in params.items()}, {k: w for k, (w, _) in params.items()},
+                  lr1, f"{arch} {tag}")
+    assert bool(t["placed"])
+    if arch == "kimi_k2_1t_a32b":   # the expert-parallel body, never its fallback
+        n_moe = get_smoke_config(arch).n_layers
+        assert t["ep_calls"].tolist() == [n_moe, 0, 0]
+
+
+@pytest.mark.slow
+def test_sharded_train_step_matches_jax_single_device(runs):
+    """internlm2's step on (data 4, model 2) against JAX's jitted step on
+    one device, on JAX's weights and batch (JAX's own sharded step fails at
+    its vocab-sharded gather under the installed JAX)."""
+    t = _train(runs, "4x2", "internlm2_20b")
+    ref = runs["ref"]["internlm2_step"]
+    np.testing.assert_allclose(t["sharded/step_loss"], ref["loss"], rtol=LOSS_TOL)
+    np.testing.assert_allclose(t["sharded/grad_norm"], ref["grad_norm"], rtol=LOSS_TOL)
+    got = {k[len("sharded/param/"):]: v for k, v in t.items() if k.startswith("sharded/param/")}
+    _check_params(got, ref["params"], ref["lr"], "internlm2 4x2 vs JAX")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("tag", sorted(W.MOE_CAPACITIES))
+@pytest.mark.parametrize("variant", list(W.MOE_VARIANTS))
+def test_moe_ep_gradient_matches_jax(runs, variant, tag):
+    """``moe_ep`` under grad (the all-to-all's backward is the reverse
+    exchange; the int8 dispatch's rounding passes no gradient, as in JAX):
+    the input's and every expert leaf's gradient against ``jax.grad`` of
+    JAX's ``moe_ep`` on 8 host devices."""
+    pre = f"moe_grad/{variant}/{tag}/"
+    got = {k[len(pre):]: v for k, v in runs["out"].items() if k.startswith(pre)}
+    want = {k[len("grad/" + variant + "/" + tag + "/"):]: v
+            for k, v in runs["jax_moe"].items() if k.startswith(f"grad/{variant}/{tag}/")}
+    assert got.keys() == want.keys() and "x" in got and "w_down" in got
+    for name, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert _err(got[name], w) <= GRAD_TOL * scale, f"{name}: {_err(got[name], w)} / {scale}"
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("variant", ["plain", "dedup"])
+def test_moe_ep_gradient_matches_moe_dense(runs, variant):
+    """At capacity factor 2.0 nothing is dropped: the gradients equal
+    ``moe_dense``'s (JAX's ``jax.grad``), and at 0.5 they do not."""
+    for tag, close in (("full", True), ("drop", False)):
+        pre = f"moe_grad/{variant}/{tag}/"
+        errs = {}
+        for k, v in runs["out"].items():
+            if k.startswith(pre):
+                want = runs["jax_moe"]["grad/dense/" + k[len(pre):]]
+                errs[k[len(pre):]] = _err(v, want) / max(float(np.abs(want).max()), 1e-30)
+        assert len(errs) == 8
+        if close:
+            assert max(errs.values()) <= GRAD_TOL, errs
+        else:
+            assert errs["w_down"] > 1e-2, errs
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["attention", "rmsnorm", "ssm_scan"])
+def test_kernel_entry_point_gradients_on_dtensors(runs, name):
+    """The gradient of every input of an ``ops`` entry point on DTensors
+    (laid out unlike what it takes) against the plain-tensor call's: on
+    the card the backward kernels run on the local shards."""
+    assert float(runs["out"][f"ops/grad/{name}"]) < TOL
+    assert int(runs["out"][f"ops/grad/{name}/n"]) == {"attention": 3, "rmsnorm": 2,
+                                                       "ssm_scan": 7}[name]
+
+
+@pytest.mark.slow
+def test_int8_state_restores_onto_the_mesh(runs):
+    """``(params, opt_state)`` with int8 AdamW state after a step on
+    (data 2, model 2), saved and restored with ``state_shardings``: every
+    leaf (codes, scales, the step) equal to the bit and placed as it was."""
+    out = runs["out"]
+    assert bool(out["state_restore/equal"]) and bool(out["state_restore/placed"])
+    # 12 params, each m and v as codes and scales, and the step
+    assert int(out["state_restore/n"]) == 12 + 12 * 4 + 1

@@ -33,14 +33,13 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.distributed.optimizer import OptConfig as JaxOptConfig
 from repro.distributed.optimizer import init_opt_state as jax_init_opt_state
 from repro.launch.train import synthetic_batch as jax_synthetic_batch
-from repro.models import init_params as jax_init_params
 from repro.models.transformer import lm_loss as jax_lm_loss
 from repro.models.zoo import build_train_step as jax_build_train_step
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.optimizer import OptConfig, init_opt_state, tree_leaves
 from repro_torch.launch import train as train_mod
-from repro_torch.models import lm_loss
+from repro_torch.models import init_params, lm_loss
 from repro_torch.models.zoo import (
     build_decode_step,
     build_forward,
@@ -86,8 +85,14 @@ def _case(arch):
         return _CASES[arch]
     jcfg = jax_smoke_config(arch).with_(dtype="float32")
     cfg = get_smoke_config(arch).with_(dtype="float32")
-    params, _ = jax_init_params(jcfg, jax.random.key(0))
-    pnp = jax.tree.map(np.asarray, params)
+    # the port's seeded draw, bridged into JAX: the same weights in every
+    # process.  JAX's own draw folds in hash(name), so it changed with each
+    # process's hash seed, and so did the Kimi step's router check: an
+    # expert that no token of the batch chooses has a router column whose
+    # gradient is rounding noise around an exact zero in both frameworks,
+    # which AdamW's first step turns into moves of up to lr of either sign
+    pnp = params_to_numpy(init_params(cfg, 0, "cpu"))
+    params = jax.tree.map(jnp.asarray, pnp)
     rng = np.random.default_rng(11)
     toks = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
     tgts = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
@@ -150,6 +155,26 @@ def test_train_step_matches_jax(arch):
         d = np.abs(_np(got) - want)
         assert d.max() <= 2 * lr1 + PARAM_TOL, f"{arch}{name}: {d.max()}"
         assert (d > PARAM_TOL).mean() < 0.01, f"{arch}{name}: {(d > PARAM_TOL).mean()}"
+
+
+@pytest.mark.parametrize("threads", [2, 3, 8])
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "jamba_1_5_large_398b"])
+def test_moe_gradient_is_bit_equal_at_any_thread_count(arch, threads):
+    """The one-device MoE gradient (routing, the routed sum's
+    ``index_put_`` and its backward, the shared expert) does not depend on
+    the intra-op thread count: every leaf bit-equal to the one-thread run."""
+    c = _case(arch)
+    before = torch.get_num_threads()
+    grads = []
+    try:
+        for n in (1, threads):
+            torch.set_num_threads(n)
+            _, g = loss_and_grads(params_from_numpy(c["pnp"], "cpu"), c["cfg"], c["tbatch"])
+            grads.append(dict(_flat(g)))
+    finally:
+        torch.set_num_threads(before)
+    for name, g1 in grads[0].items():
+        assert torch.equal(g1, grads[1][name]), name
 
 
 def test_loss_and_grads_leaves_the_callers_tensors_alone():

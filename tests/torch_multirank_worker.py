@@ -15,6 +15,11 @@ Jobs:
   checkpoint of the sharded internlm2 weights;
 - ``restore`` (4 ranks): that checkpoint restored with ``shardings=`` onto
   a (data 2, model 2) mesh.
+
+Both jobs also train: ``loss_and_grads`` and one train step of each of
+``TRAIN_ARCHS`` on their mesh and without one (``train_case``), and the
+main job takes the gradients of the ``ops`` entry points and of
+``moe_ep`` on DTensors.
 """
 
 from __future__ import annotations
@@ -35,10 +40,20 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import compression as comp
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.optimizer import (
+    OptConfig,
+    QTensor,
+    init_opt_state,
+    state_shardings,
+    tree_leaves,
+    tree_unflatten,
+)
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import synthetic_batch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.models import zoo
 from repro_torch.models.zoo import param_specs
 
 #: the MoE variants held against JAX's ``moe_ep`` (name -> MoEConfig fields)
@@ -53,6 +68,13 @@ MOE_CAPACITIES = {"drop": 0.5, "full": 2.0}
 DECODE_STEPS = 4
 #: smoke configs whose sharded decode also runs with ``decode_mlp="ws"``
 WS_ARCHS = ("internlm2_20b", "llama3_405b")
+#: smoke configs trained on each mesh: a dense GQA model, the hybrid
+#: (Mamba + MoE, on the local expert shards) and an expert-parallel MoE
+TRAIN_ARCHS = ("internlm2_20b", "jamba_1_5_large_398b", "kimi_k2_1t_a32b")
+#: the train step's optimizer (``tests/test_torch_train.py``'s)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5)
+#: the train batch: rows the ``data`` dims of both meshes divide
+TRAIN_B, TRAIN_S = 8, 16
 
 
 def flat(tree, prefix=""):
@@ -83,6 +105,113 @@ def load_tree(path):
 
 def full(x):
     return x.full_tensor() if shd.is_dtensor(x) else x
+
+
+def train_cfg(arch: str):
+    """A float32 smoke config; Kimi's MoE on the expert-parallel path at a
+    capacity that drops nothing on a ``data`` dim of 4 or fewer (each
+    destination can take all of a shard's assignments)."""
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    if arch == "kimi_k2_1t_a32b":
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, impl="ep", capacity_factor=4.0))
+    return cfg
+
+
+def train_batch(cfg):
+    return synthetic_batch(np.random.default_rng(0), cfg, TRAIN_B, TRAIN_S)
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _placed_as(x, p) -> bool:
+    return shd.is_dtensor(x) and tuple(x.placements) == tuple(p.placements)
+
+
+def train_case(params, cfg, mesh, state_dtype: str = "float32") -> dict:
+    """``loss_and_grads`` and one ``build_train_step`` step on ``params``
+    put on ``mesh`` by the param specs, and both without a mesh: the
+    gradients (whole), losses, ``grad_norm`` and updated params of each
+    (keys ``sharded/...`` and ``plain/...``), and whether every gradient
+    and state leaf was placed as its parameter."""
+    batch = train_batch(cfg)
+    opt = OptConfig(state_dtype=state_dtype, **TRAIN_OPT)
+    out = {}
+    with shd.use_mesh(None):
+        plain = _clone(params)
+        loss, grads = zoo.loss_and_grads(plain, cfg, batch)
+        _, _, m = zoo.build_train_step(cfg, opt)(plain, init_opt_state(plain, opt), batch)
+    res = {"plain": (loss, grads, m, plain)}
+    with shd.use_mesh(mesh):
+        ps = shd.device_put_tree(_clone(params),
+                                 shd.tree_shardings(param_specs(cfg), params, mesh))
+        M.reset_ep_calls()
+        loss, grads = zoo.loss_and_grads(ps, cfg, batch)
+        out["ep_calls"] = np.asarray([M.EP_CALLS[k] for k in ("ep_body", "ep_body_dedup",
+                                                                "fallback")])
+        state = init_opt_state(ps, opt)
+        mv = tree_leaves(state["mv"])
+        placed = [_placed_as(g, p) for g, p in zip(tree_leaves(grads), tree_leaves(ps))]
+        for p, m_st, v_st in zip(tree_leaves(ps), mv[0::2], mv[1::2]):
+            for st in (m_st, v_st):
+                placed.append(_placed_as(st.q if isinstance(st, QTensor) else st, p))
+        _, state, m = zoo.build_train_step(cfg, opt)(ps, state, batch)
+        placed.append(not shd.is_dtensor(state["step"]) and int(state["step"]) == 1)
+    out["placed"] = np.asarray(all(placed))
+    res["sharded"] = (loss, grads, m, ps)
+    for key, (loss, grads, m, p) in res.items():
+        out[f"{key}/loss"] = np.asarray(float(loss))
+        out[f"{key}/grad_norm"] = np.asarray(float(m["grad_norm"]))
+        out[f"{key}/step_loss"] = np.asarray(float(m["loss"]))
+        for name, g in flat(grads).items():
+            out[f"{key}/grad/{name}"] = full(g).detach().numpy()
+        for name, v in flat(p).items():
+            out[f"{key}/param/{name}"] = full(v).detach().numpy()
+    return out
+
+
+def state_roundtrip(params, cfg, mesh, d: str) -> dict:
+    """One int8-state step on ``mesh``, ``(params, opt_state)`` saved and
+    restored onto the same mesh with ``state_shardings``: whether every
+    leaf came back equal to the bit and placed as it was, the step a plain
+    tensor."""
+    opt = OptConfig(state_dtype="int8", **TRAIN_OPT)
+    path = os.path.join(d, "ckpt_state")
+    with shd.use_mesh(mesh):
+        sh = shd.tree_shardings(param_specs(cfg), params, mesh)
+        ps = shd.device_put_tree(_clone(params), sh)
+        state = init_opt_state(ps, opt)
+        zoo.build_train_step(cfg, opt)(ps, state, train_batch(cfg))
+        ckpt.save_checkpoint(path, 1, (ps, state))
+        like = (params, init_opt_state(params, opt))
+        got, step = ckpt.restore_checkpoint(
+            path, like=like, shardings=(sh, state_shardings(sh, like[1])))
+    before, after = ckpt._flatten((ps, state)), ckpt._flatten(got)
+    return {"equal": np.asarray(step == 1 and all(
+                torch.equal(full(a), full(b)) for a, b in zip(before, after))),
+            "placed": np.asarray(all(
+                shd.is_dtensor(b) and tuple(a.placements) == tuple(b.placements)
+                if shd.is_dtensor(a) else not shd.is_dtensor(b)
+                for a, b in zip(before, after))),
+            "n": np.asarray(len(after))}
+
+
+def train_checks(mesh, d: str, tag: str) -> dict:
+    """:func:`train_case` of each of ``TRAIN_ARCHS`` (internlm2 on JAX's
+    weights, the others on the port's draw), keys prefixed
+    ``train/{tag}/{arch}/``."""
+    res = {}
+    for arch in TRAIN_ARCHS:
+        cfg = train_cfg(arch)
+        if arch == "internlm2_20b":
+            params = bridge.params_from_numpy(load_tree(os.path.join(d, "internlm2.npz")),
+                                              device="cpu")
+        else:
+            params = T.init_params(cfg, 0, "cpu")
+        for k, v in train_case(params, cfg, mesh).items():
+            res[f"train/{tag}/{arch}/{k}"] = v
+    return res
 
 
 def moe_cfg(variant: str, cf: float):
@@ -159,6 +288,39 @@ def entry_points(mesh) -> dict:
         got = fn(*sharded)
         assert shd.is_dtensor(got), name
         out[name] = float((got.full_tensor() - fn(*plain)).abs().max())
+    # under grad: the gradient of every floating input, the scan's through
+    # y and h_T
+    grad_cases = {
+        "attention": (ops.attention, cases["attention"][1:]),
+        "rmsnorm": (cases["rmsnorm"][0], cases["rmsnorm"][1:]),
+        "ssm_scan": (ops.ssm_scan, cases["ssm_scan"][1:]),
+    }
+    for name, (fn, (plain, sharded)) in grad_cases.items():
+        grads = []
+        for i, args in enumerate((plain, sharded)):
+            args = [a.detach().requires_grad_(True) if a.is_floating_point() else a
+                    for a in args]
+            outs = fn(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            assert all(shd.is_dtensor(o) for o in outs) == (i == 1), name
+            g2 = torch.Generator().manual_seed(6)
+            loss = sum((full(o) * torch.randn(o.shape, generator=g2)).sum() for o in outs)
+            wrt = [a for a in args if a.requires_grad]
+            grads.append([full(x) for x in torch.autograd.grad(loss, wrt)])
+        out[f"grad/{name}"] = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        out[f"grad/{name}/n"] = len(grads[0])
+    return out
+
+
+def moe_grads(ps, cfg, x: torch.Tensor, ct: torch.Tensor) -> dict:
+    """The gradient of ``sum(moe_block(ps, cfg, x) * ct)`` in ``x`` and in
+    every leaf of ``ps`` (whole tensors, keys ``x`` and the leaf paths)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(ps)]
+    xg = x.detach().requires_grad_(True)
+    y = M.moe_block(tree_unflatten(ps, leaves), cfg, xg)
+    grads = torch.autograd.grad((full(y) * ct).sum(), [xg] + leaves)
+    out = {"x": full(grads[0]).numpy()}
+    out.update({k: full(g).numpy() for k, g in flat(tree_unflatten(ps, grads[1:])).items()})
     return out
 
 
@@ -169,6 +331,7 @@ def job_main(rank: int, d: str) -> None:
         # expert-parallel MoE on (data 4, model 2)
         moe_in = load_tree(os.path.join(d, "moe_in.npz"))
         x = torch.from_numpy(moe_in.pop("x"))
+        ct = torch.from_numpy(moe_in.pop("ct"))
         for variant in MOE_VARIANTS:
             for tag, cf in MOE_CAPACITIES.items():
                 cfg = moe_cfg(variant, cf)
@@ -181,6 +344,8 @@ def job_main(rank: int, d: str) -> None:
                 res[f"moe_calls/{variant}/{tag}"] = np.asarray(
                     [M.EP_CALLS["ep_body"], M.EP_CALLS["ep_body_dedup"],
                      M.EP_CALLS["fallback"]])
+                for k, g in moe_grads(ps, cfg, x, ct).items():
+                    res[f"moe_grad/{variant}/{tag}/{k}"] = g
         # a decode-sized call takes the fallback on the local expert shards
         M.reset_ep_calls()
         res["moe/fallback"] = full(M.moe_block(ps, moe_cfg("plain", 2.0), x[:4, :1])).numpy()
@@ -242,6 +407,9 @@ def job_main(rank: int, d: str) -> None:
                 res[f"{key}/{arch}/ws_calls"] = np.asarray(
                     [L.WS_CALLS["ws_body"], L.WS_CALLS["fallback"]])
 
+        # training on (data 4, model 2)
+        res.update(train_checks(mesh, d, "4x2"))
+
     # int8 gradient all-reduce over pod on (pod 2, data 2, model 2)
     mesh3 = make_mesh((2, 2, 2), ("pod", "data", "model"))
     g = np.random.default_rng(100 + rank)
@@ -264,6 +432,14 @@ def job_restore(rank: int, d: str) -> None:
         sh = shd.tree_shardings(param_specs(cfg), orig, mesh)
         restored, step = ckpt.restore_checkpoint(os.path.join(d, "ckpt"), like=orig,
                                                  shardings=sh)
+        # training on (data 2, model 2); internlm2 also with int8 state
+        res = train_checks(mesh, d, "2x2")
+        for k, v in train_case(orig, cfg, mesh, "int8").items():
+            res[f"train/2x2_int8/internlm2_20b/{k}"] = v
+        for k, v in state_roundtrip(orig, cfg, mesh, d).items():
+            res[f"state_restore/{k}"] = v
+    if rank == 0:
+        np.savez(os.path.join(d, "restore_out.npz"), **res)
     rf, of, sf = flat(restored), flat(orig), flat(sh)
     report = {
         "step": step,
