@@ -236,6 +236,26 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    against the unsharded step: the loss, every gradient leaf, the updated
    params, and the flash and RMSNorm kernels and their backward kernels
    launched as many times.
+20. ``dryrun`` — the port's dry run (``repro_torch.launch.dryrun``) in a
+   process of its own (its fake process group must not meet the
+   ``sharded`` phase's NCCL group), on the CPU only, for stablelm-1.6b at
+   train_4k, prefill_32k and decode_32k, DeepSeek-V2-Lite-16B at
+   decode_32k (an MoE cell), Jamba-1.5-Large at prefill_32k (the Mamba
+   mixer's ``ff``-sharded products) and xLSTM-350M at long_500k on a
+   16 x 16 fake mesh: rc 0, every key of each cell's record, one more layer of
+   stablelm's train and prefill adding an all-reduce, a ``dryrun_cell``
+   line each; then the card against the roofline, from the earlier phases' own
+   times (nothing is re-run): the analytic compute and memory terms at
+   world size 1 with the H100's rates for the ``train`` phase's
+   stablelm-1.6b steps (4 x 1024, float32 and int8 state; the port does
+   not rematerialize, so the terms are taken with ``remat="none"``) and
+   for the ``engine`` phase's decode steps (its measured l(b) at each
+   batch size b, the context the requests' mean prompt plus half their
+   new tokens), each ratio measured / max(compute, memory), which must be
+   at least 1; and ``roofline_profile``'s l(b) at stablelm-1.6b's bf16
+   weights and KV bytes beside the ``testbed`` phase's measured l(b)
+   (LLMSched's slot replica), with the step overhead the smallest
+   measured residual over the bytes term.
    The ``kernels`` phase holds the scan's backward kernel
    (``ssm_scan_bwd``) against ``ssm_scan_bwd_ref`` in f32 and bf16 (Jamba's
    training shape, N 8 and 16, ragged T and D, with and without h0 and
@@ -311,9 +331,9 @@ ROOT = Path(__file__).resolve().parent
 STARTED = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet (dense, no sparsity): HBM rate and peak rates
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM data sheet (dense, no sparsity): the float32 peak; the HBM rate
+# and the bf16 peak are the port's one copy (``card_rates``)
+F32_PEAK_FLOPS = 67e12
 TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 # the selective scan against its plain version: f32 state math in both, in
 # another summation order over N and with expf's last bit, compounding over
@@ -330,7 +350,7 @@ SPIN_CLOCK_HZ = 1.98e9
 SPIN_MAX_S = 0.2
 PHASES = ("kernels", "held", "held_slot", "engine", "testbed", "held_hybrid", "hybrid",
           "held_mla", "mla", "dense", "held_xlstm", "xlstm", "held_encdec", "encdec",
-          "held_train", "train", "train_families", "sharded")
+          "held_train", "train", "train_families", "sharded", "dryrun")
 # run only when named: the RMSNorm and scan timings alone, and the scan's
 # backward alone (its checks, row 6b and the forward's row 6p; ``kernels``
 # has them all)
@@ -551,9 +571,21 @@ def _decode_row(kernel, kernel_in, plain, library, library_in, nbytes, flops, de
     return row
 
 
+def card_rates():
+    """``(HBM bytes/s, {dtype: peak FLOP/s})`` of one NVIDIA H100 80GB HBM3
+    (SXM, 700 W), data sheet, dense: the HBM rate and the bf16 peak are
+    ``repro_torch.launch.dryrun``'s ``HBM_BW`` and ``PEAK_FLOPS`` (imported
+    from the tree ``main`` put on the path), the float32 peak this
+    script's."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.HBM_BW, {torch.bfloat16: dryrun.PEAK_FLOPS, torch.float32: F32_PEAK_FLOPS}
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    hbm, peaks = card_rates()
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = flops / peaks[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1174,9 +1206,9 @@ def _ssm_timing(dev, rng, B, T, D, N, with_h0: bool) -> dict:
               + B * D * N * 4 * (2 if with_h0 else 1))
     clock = _sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_bytes = nbytes / card_rates()[0] * 1e3
     t_exp = B * T * D * N / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock) * 1e3
-    t_flops = 7 * B * T * D * N / PEAK_FLOPS[torch.float32] * 1e3
+    t_flops = 7 * B * T * D * N / F32_PEAK_FLOPS * 1e3
     bound_ms = max(t_bytes, t_exp, t_flops)
     return dict(
         ms=time_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, Dk, h0=h0)),
@@ -3718,9 +3750,9 @@ def _scan_bwd_row(dev, B=1, T=1024, D=16384, N=16) -> dict:
               + B * nc * D * N * 4)
     clock = _sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_bytes = nbytes / card_rates()[0] * 1e3
     t_exp = B * T * D * N / (SFU_EXP_PER_CLOCK_PER_SM * sms * clock) * 1e3
-    t_flops = 15 * B * T * D * N / PEAK_FLOPS[torch.float32] * 1e3
+    t_flops = 15 * B * T * D * N / F32_PEAK_FLOPS * 1e3
 
     def kernel():
         return ssm_scan_bwd(x, dt, A, Bm, Cm, Dk, states, dy)
@@ -4039,7 +4071,7 @@ def _train_run(dev, state_dtype: str) -> dict:
            "first_loss": losses[0], "last_loss": losses[-1],
            "step_ms": [t * 1e3 for t in step_s], "step_ms_p50": p50 * 1e3,
            "train_tok_s": tok_s, "params": n,
-           "mfu": 6 * n["total"] * tok_s / PEAK_FLOPS[torch.bfloat16],
+           "mfu": 6 * n["total"] * tok_s / card_rates()[1][torch.bfloat16],
            "mfu_note": "6 N tokens/s / 989e12, N = embedding + non-embedding parameters",
            "peak_gib": peak, "launches": counts, "tc_launches": tcs,
            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items() if v},
@@ -4231,7 +4263,7 @@ def _launcher_run(dev, arch: str, cfg, batch: int, seq: int, steps: int, lr: str
             "steps": steps, "wall_s": wall, "losses": losses,
             "step_ms": [t * 1e3 for t in step_s],
             "step_ms_p50": p50 * 1e3, "train_tok_s": tok_s, "params": n,
-            "mfu": 6 * n["active"] * tok_s / PEAK_FLOPS[torch.bfloat16],
+            "mfu": 6 * n["active"] * tok_s / card_rates()[1][torch.bfloat16],
             "peak_gib": peak, "launches_per_step": {k: v / steps for k, v in counts.items() if v},
             "tc_launches_per_step": {k: v / steps for k, v in tcs.items() if v},
             "profile": prof}
@@ -4291,7 +4323,7 @@ def _jamba_grads(dev) -> dict:
             "batch": B, "seq": S, "passes": JAMBA_PASSES, "init_s": init_s, "losses": losses,
             "grad_norms": norms, "pass_ms": [t * 1e3 for t in pass_s],
             "step_ms_p50": p50 * 1e3, "train_tok_s": B * S / p50, "params": n,
-            "mfu": 6 * n["active"] * B * S / p50 / PEAK_FLOPS[torch.bfloat16],
+            "mfu": 6 * n["active"] * B * S / p50 / card_rates()[1][torch.bfloat16],
             "peak_gib": peak,
             "launches_per_step": {k: v / JAMBA_PASSES for k, v in counts.items() if v},
             "tc_launches_per_step": {k: v / JAMBA_PASSES for k, v in tcs.items() if v},
@@ -4683,6 +4715,120 @@ def phase_sharded(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase: dryrun (the dry run on shapes alone; the card against the roofline)
+# ---------------------------------------------------------------------------
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "prefill_32k"),
+                ("stablelm-1.6b", "decode_32k"), ("deepseek-v2-lite-16b", "decode_32k"),
+                ("jamba-1.5-large-398b", "prefill_32k"), ("xlstm-350m", "long_500k"))
+DRYRUN_KEYS = ("arch", "shape", "variant", "mesh", "n_chips", "kind", "device", "lower_s",
+               "extrapolated", "probes", "memory", "analytic_flops", "analytic_bytes",
+               "traced_flops", "collectives", "collectives_per_superblock", "collective_bytes",
+               "model_flops", "roofline", "useful_flops_ratio")
+#: sharded cells whose every layer must move bytes: the row-parallel
+#: products' partial sums are all-reduced over ``model``
+DRYRUN_LAYER_MOVES = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "prefill_32k"))
+DRYRUN_LIMIT_S = 240
+
+
+def _dryrun_cells(src: Path) -> dict:
+    """The dry run's cells, one process, no card (``CUDA_VISIBLE_DEVICES``
+    empty): each record's keys checked, one line a cell."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--workers", "1",
+               "--out", out, "--cells", ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS)]
+        env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_LIMIT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"dryrun: rc {proc.returncode}: {proc.stdout[-2000:]} "
+                                    f"{proc.stderr[-2000:]}")
+        cells = {}
+        for arch, shape in DRYRUN_CELLS:
+            tag = f"{arch.replace('.', '_').replace('-', '_')}__{shape}__16x16"
+            rec = json.loads((Path(out) / f"dryrun_{tag}.json").read_text())
+            missing = [k for k in DRYRUN_KEYS if k not in rec]
+            check(not missing and rec["device"] == "fake" and rec["n_chips"] == 256,
+                  f"dryrun {arch} {shape}: keys missing {missing}")
+            per = rec["collectives_per_superblock"]
+            check((arch, shape) not in DRYRUN_LAYER_MOVES
+                  or (per["count"] > 0 and per["all-reduce"] > 0),
+                  f"dryrun {arch} {shape}: a layer adds no all-reduce: {per}")
+            line = {k: rec[k] for k in ("arch", "shape", "mesh", "lower_s", "extrapolated",
+                                        "collective_bytes", "traced_flops", "roofline")}
+            line["arg_bytes_per_dev"] = rec["memory"]["analytic_arg_bytes_per_dev"]
+            line["collectives"] = rec["collectives"]
+            line["collectives_per_superblock"] = per
+            emit("dryrun_cell", **line)
+            cells[f"{arch} {shape}"] = line
+    return {"wall_s": wall, "cells": cells}
+
+
+def _roofline_s(cfg, kind: str, batch: int, seq: int, **kw) -> float:
+    """max(compute, memory) of the analytic terms on one card, seconds."""
+    from repro_torch.launch import roofline_model as RM
+    from repro_torch.models.config import ShapeConfig
+
+    shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+    hbm, peaks = card_rates()
+    return max(RM.analytic_flops(cfg, shape) / peaks[torch.bfloat16],
+               RM.analytic_bytes(cfg, shape, **kw) / hbm)
+
+
+def phase_dryrun(trn, eng, tb) -> dict:
+    """``dryrun``: the dry run's cells (``_dryrun_cells``), then the
+    ``train``, ``engine`` and ``testbed`` phases' own times against the
+    roofline of one card (a phase not run is left out)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import roofline_profile
+    from repro_torch.kernels import _build
+
+    res = _dryrun_cells(Path(_build.__file__).resolve().parents[2])
+    cfg = get_config(TRAIN_ARCH)
+    ratios = {}
+    if trn is not None:
+        # the port's trainer keeps its activations: no rematerializing pass
+        plain = cfg.with_(remat="none")
+        for sd, opt_bytes in (("float32", 8.0), ("int8", 2.0)):
+            roof = _roofline_s(plain, "train", TRAIN_BATCH, TRAIN_SEQ,
+                               opt_state_bytes_per_param=opt_bytes)
+            ms = trn["runs"][sd]["step_ms_p50"]
+            ratios[f"train {sd} state"] = {"measured_ms": ms, "roofline_ms": roof * 1e3,
+                                           "ratio": ms / (roof * 1e3)}
+    if eng is not None:
+        run1 = eng["runs"][0]
+        ctx = round(run1["prompt_tokens"] / run1["requests"] + 32 / 2)
+        for b, ms in sorted(run1["l_b_ms"].items()):
+            roof = _roofline_s(cfg, "decode", int(b), ctx)
+            ratios[f"engine decode b={b}"] = {"measured_ms": ms, "roofline_ms": roof * 1e3,
+                                              "ratio": ms / (roof * 1e3), "context": ctx}
+    for name, r in ratios.items():
+        check(r["ratio"] >= 1.0, f"dryrun: {name} measured below its roofline term: {r}")
+    res["measured_over_roofline"] = ratios
+    if tb is not None:
+        l_b = {int(b): ms for b, ms in tb["llmsched"]["l_b_ms"][0].items()}
+        ctx = TESTBED_SHARED_PROMPT + 2 + 15
+        w_bytes = 2.0 * cfg.param_count()[0]
+        kv = cfg.kv_bytes_per_token() * ctx
+        hbm = card_rates()[0]
+        overhead = min(ms / 1e3 - (w_bytes + b * kv) / hbm for b, ms in l_b.items())
+        check(overhead >= 0, f"dryrun: a testbed step beat its bytes term: {l_b}")
+        bare = roofline_profile(w_bytes, kv, step_overhead_s=0.0)
+        fitted = roofline_profile(w_bytes, kv, step_overhead_s=overhead)
+        res["testbed_l_b"] = {
+            "context": ctx, "weight_bytes": w_bytes, "kv_bytes_per_request": kv,
+            "step_overhead_s": overhead,
+            "l_b_ms": {b: {"measured": ms, "roofline": bare.l(b) * 1e3,
+                           "roofline_with_overhead": fitted.l(b) * 1e3}
+                       for b, ms in sorted(l_b.items())}}
+    emit("dryrun", **res)
+    return res
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4770,6 +4916,8 @@ def main(argv=None) -> int:
     if "sharded" in phases:
         _free_card()
         phase_sharded(dev)
+    if "dryrun" in phases:
+        phase_dryrun(trn, eng, tb)
     if all(x is not None for x in (kern, eng, tb, hyb, trn, fam)):
         # launches: the paged kernels' and RMSNorm's from the engine phase's
         # first run, the int8 paged kernels' from its third, the slot

@@ -26,7 +26,7 @@ from .dag import (
     make_job,
 )
 from .bayesnet import BayesNet, Discretizer, Factor, fit_discretizer
-from .calibration import LatencyProfile, measured_profile
+from .calibration import LatencyProfile, measured_profile, roofline_profile
 from .entropy import (
     binary_entropy,
     conditional_mutual_information,
@@ -58,7 +58,7 @@ __all__ = [
     "ApplicationTemplate", "Job", "Stage", "StageTemplate", "StageType",
     "Task", "TaskState", "make_job",
     "BayesNet", "Discretizer", "Factor", "fit_discretizer",
-    "LatencyProfile", "measured_profile",
+    "LatencyProfile", "measured_profile", "roofline_profile",
     "binary_entropy", "conditional_mutual_information",
     "dynamic_stage_entropy", "entropy", "uncertainty_reduction",
     "AppProfile", "JobTrace", "ProfileStore", "RunMetrics",

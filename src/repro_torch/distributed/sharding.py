@@ -254,6 +254,20 @@ def constrain(x: torch.Tensor, logical: Sequence[Optional[str]]) -> torch.Tensor
     return x.redistribute(mesh, placements_of(spec, mesh))
 
 
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its ``Partial`` placements summed into ``Replicate`` (an
+    all-reduce over each such mesh dim); a plain tensor, or one with no
+    ``Partial``, as it is.  For a product over a sharded dim that a
+    differently placed tensor meets next: some torch versions cannot make
+    that tensor ``Partial`` to match."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not is_dtensor(x) or not any(isinstance(pl, Partial) for pl in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if isinstance(pl, Partial) else pl
+                                          for pl in x.placements])
+
+
 def _is_container(x) -> bool:
     """A dict, or a tuple/list of subtrees (the VLM's and Whisper's
     ``(k, v)`` pairs), never a shape tuple of ints."""
@@ -467,3 +481,29 @@ def unflatten(x: torch.Tensor, dim: int, sizes: Tuple[int, ...]) -> torch.Tensor
             x = x.redistribute(mesh, [Replicate() if o else pl
                                       for o, pl in zip(on, x.placements)])
     return x.unflatten(dim, sizes)
+
+
+class _MergeLast2(torch.autograd.Function):
+    """``x.flatten(-2)`` whose gradient is split back by :func:`unflatten`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.sizes = tuple(x.shape[-2:])
+        return x.flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, -1, ctx.sizes)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x.flatten(-2)``: an attention output's heads and head dim merged.
+
+    On a DTensor that needs a gradient, the gradient (sharded on the
+    merged dim by the output projection) is split back through
+    :func:`unflatten`, which gathers it first where the shards do not hold
+    whole heads (Whisper's six heads over a 16-wide ``model``): DTensor's
+    own view refuses that split."""
+    if is_dtensor(x) and x.requires_grad:
+        return _MergeLast2.apply(x)
+    return x.flatten(-2)

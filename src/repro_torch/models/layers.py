@@ -95,7 +95,8 @@ class Init:
         its own, in order.
         """
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
-        self._fill(out, 1.0 / math.sqrt(max(1, fan_in)))
+        if self.gen is not None:      # a meta tensor has nothing to draw
+            self._fill(out, 1.0 / math.sqrt(max(1, fan_in)))
         return out
 
     def _fill(self, out: torch.Tensor, std: float) -> None:
@@ -225,8 +226,7 @@ def attention_full(
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal)
-    B, S, _ = x.shape
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = shd.merge_heads(out) @ p["wo"]
     return out, {"k": k, "v": v}
 
 
@@ -342,12 +342,11 @@ def cross_attention(
 ) -> torch.Tensor:
     """Decoder queries over precomputed encoder K/V: bidirectional, no
     RoPE, through the flash kernel with Sq != Sk (Sq = 1 in decode)."""
-    B, S, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     q = shd.unflatten(x @ p["wq"], -1, (h, hd))
     k, v = enc_kv
     out = ops.attention(q, k, v, causal=False)
-    return out.reshape(B, S, h * hd) @ p["wo"]
+    return shd.merge_heads(out) @ p["wo"]
 
 
 def cross_kv(p: Params, cfg: ModelConfig,
@@ -421,13 +420,12 @@ def mla_full(
     nope + rope / v (DeepSeek: 192 / 128).  Returns (out, the compressed
     cache ``{"c_kv", "k_rope"}``)."""
     m = cfg.mla
-    B, S, _ = x.shape
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
     k, v = _mla_expand(p, cfg, c_kv, k_rope)
     q = torch.cat([q_nope, q_rope], dim=-1)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
     out = ops.attention(q, k, v, causal=True, scale=scale)
-    out = out.reshape(B, S, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    out = shd.merge_heads(out) @ p["wo"]
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 

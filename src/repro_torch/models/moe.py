@@ -37,7 +37,7 @@ local expert shards when the weights are DTensors.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,13 +113,7 @@ def _routed_sum(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor, w_gate: t
     order = torch.argsort(flat, stable=True)
     tok = order // ids.shape[-1]
     gate = w.reshape(-1)[order]
-    start = 0
-    if e0 is None:
-        counts = torch.bincount(flat, minlength=E_l).tolist()
-    else:
-        # [below e0, expert 0 .. E_l - 1, past them]
-        start, *counts = torch.bincount(flat.clamp(-1, E_l) + 1, minlength=E_l + 2).tolist()
-        counts = counts[:E_l]
+    start, counts = _expert_counts(flat, E_l, e0)
     y = torch.zeros((x2d.shape[0], w_down.shape[-1]), dtype=torch.float32, device=x2d.device)
     for e, n in enumerate(counts):
         if n == 0:
@@ -132,6 +126,17 @@ def _routed_sum(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor, w_gate: t
                      accumulate=True)
         start += n
     return y
+
+
+def _expert_counts(flat: torch.Tensor, E_l: int, e0: Optional[int]) -> Tuple[int, List[int]]:
+    """``_routed_sum``'s split of the assignments ``flat`` (expert ids,
+    less ``e0`` on a shard), as Python ints: how many lie below the
+    shard's first expert, and each of its ``E_l`` experts' count."""
+    if e0 is None:
+        return 0, torch.bincount(flat, minlength=E_l).tolist()
+    # [below e0, expert 0 .. E_l - 1, past them]
+    start, *counts = torch.bincount(flat.clamp(-1, E_l) + 1, minlength=E_l + 2).tolist()
+    return start, counts[:E_l]
 
 
 def _moe_one_device(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -206,14 +211,21 @@ def _q8_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(rf / scl[:, None]), -127, 127).to(torch.int8), scl
 
 
+def _group_counts(eid: torch.Tensor, E_l: int) -> List[int]:
+    """The rows of each of ``E_l`` local experts in the expert-parallel
+    bodies' grouped GEMM (``eid`` >= ``E_l``: no local expert), as Python
+    ints."""
+    return torch.bincount(eid.clamp(0, E_l), minlength=E_l + 1)[:E_l].tolist()
+
+
 def _grouped_mlp(rows: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-                 w_down: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+                 w_down: torch.Tensor, counts: List[int]) -> torch.Tensor:
     """JAX's three ``ragged_dot`` calls: the rows, sorted by local expert,
     through their expert's gated MLP (silu·u in float32, cast to the rows'
     dtype); rows past the groups give zeros.  One product an expert."""
     out = torch.zeros((rows.shape[0], w_down.shape[-1]), dtype=rows.dtype, device=rows.device)
     start = 0
-    for e, n in enumerate(counts.tolist()):
+    for e, n in enumerate(counts):
         if n:
             r = rows[start:start + n]
             act = (F.silu((r @ w_gate[e]).float()) * (r @ w_up[e]).float()).to(rows.dtype)
@@ -336,8 +348,7 @@ def _ep_body_dedup(
     g_order = torch.argsort(torch.where(a_eid < E_l, a_eid, E_l), stable=True)[:C2]
     rows = recv_rows[a_pair[g_order]]                             # (C2, d)
     sel_eid = a_eid[g_order]
-    counts = torch.bincount(sel_eid.clamp(0, E_l), minlength=E_l + 1)[:E_l]
-    yr = _grouped_mlp(rows, w_gate, w_up, w_down, counts)         # (C2, d)
+    yr = _grouped_mlp(rows, w_gate, w_up, w_down, _group_counts(sel_eid, E_l))   # (C2, d)
     # each pair's outputs summed in ascending local expert order; an
     # assignment past C2 or with no expert reads the zero row
     row_of = torch.full((R * k,), C2, dtype=torch.long, device=dev)
@@ -419,8 +430,8 @@ def _ep_body(
     leid = torch.where(valid, leid, E_l)
     g_order = torch.argsort(leid, stable=True)
     rows = recv_rows[g_order]
-    counts = torch.bincount(leid.clamp(0, E_l), minlength=E_l + 1)[:E_l]
-    yr = _grouped_mlp(rows, w_gate, w_up, w_down, counts)  # (R, d) partial over f
+    yr = _grouped_mlp(rows, w_gate, w_up, w_down,
+                      _group_counts(leid, E_l))   # (R, d) partial over f
     # unsort back to slot order; zero the invalid rows
     inv = torch.empty_like(g_order)
     inv[g_order] = torch.arange(g_order.shape[0], device=dev)

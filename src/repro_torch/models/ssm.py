@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as shd
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import Init, Params, Shape
@@ -89,7 +90,9 @@ def mamba_full(
     x = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(m.d_conv)) + p["conv_b"]
     x = F.silu(x)
 
-    proj = x @ p["x_proj"]
+    # on a mesh: dt, B and C summed over the sharded inner dim here, before
+    # the ``ff``-sharded dt_proj and dt_bias meet them
+    proj = shd.reduce_partial(x @ p["x_proj"])
     dt = F.softplus(proj[..., :r] @ p["dt_proj"] + p["dt_bias"])
     Bm = proj[..., r:r + m.d_state]        # column slices: the kernel reads
     Cm = proj[..., r + m.d_state:]         # them through their strides
@@ -187,7 +190,7 @@ def mlstm_full(
         n = f_g[..., None] * n + i_g[..., None] * kt
         denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", n, qt).abs(), 1.0)
         ys.append(torch.einsum("bhde,bhe->bhd", C, qt) / denom[..., None])
-    y = torch.stack(ys, dim=1).reshape(B, S, di).to(x_in.dtype)
+    y = shd.merge_heads(torch.stack(ys, dim=1)).to(x_in.dtype)
     y = y * F.silu(z)
     out = (y * torch.sigmoid(u @ p["w_o"])) @ p["down_proj"]
     return out, {"C": C, "n": n, "m": m}

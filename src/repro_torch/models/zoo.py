@@ -11,9 +11,15 @@ RMSNorm backward kernels on the card (``repro_torch.kernels.ops``).
 The logical sharding of the inputs (``input_logical``), of the decode
 caches (``cache_logical``) and of the parameters (``param_specs``, the
 spec tree of JAX's ``param_shapes``), which
-:mod:`repro_torch.distributed.sharding` resolves on a mesh.  The dry-run
-shape helpers (``input_specs``, the shape tree of ``param_shapes``,
-``opt_state_shapes``) are not ported yet.
+:mod:`repro_torch.distributed.sharding` resolves on a mesh.
+
+The dry-run shape helpers (``input_specs``, ``param_shapes``,
+``opt_state_shapes``) stand in for JAX's ``ShapeDtypeStruct`` trees with
+tensors on the ``meta`` device: shapes and dtypes, nothing allocated.
+JAX's dtypes map to the port's one for one: ``int32`` -> ``torch.int32``
+(the tokens and ``lengths``, as the port's steps take them),
+``bfloat16`` -> ``torch.bfloat16``, ``float32`` -> ``torch.float32``,
+``int8`` -> ``torch.int8``.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..distributed import sharding as shd
-from ..distributed.optimizer import OptConfig, adamw_update, tree_leaves, tree_unflatten
+from ..distributed.optimizer import (OptConfig, adamw_update, init_opt_state, tree_leaves,
+                                     tree_unflatten)
 from . import transformer as T
 from .config import ModelConfig, ShapeConfig
 
@@ -96,6 +103,49 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameters' logical-axis tree: the spec tree of JAX's
     ``param_shapes(cfg)`` (:func:`repro_torch.models.transformer.param_specs`)."""
     return T.param_specs(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Input, parameter and optimizer-state shapes (dry-run currency)
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` tensors in the shapes and dtypes of every input of the
+    cell's step: ``tokens`` (and ``targets`` to train), a decode cell's
+    empty cache (:func:`~repro_torch.models.transformer.init_cache` on
+    ``meta``, ``seq_len + 8`` rounded up to a multiple of 256 so its
+    sequence dim shards), and the VLM's and Whisper's
+    ``enc_input`` outside decode.  Built without a mesh whatever is
+    active: the caller places them."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    out: Dict[str, Any] = {}
+    if shape.kind == "train":
+        out["tokens"] = torch.empty((B, S), dtype=torch.int32, device=meta)
+        out["targets"] = torch.empty((B, S), dtype=torch.int32, device=meta)
+    elif shape.kind == "prefill":
+        out["tokens"] = torch.empty((B, S), dtype=torch.int32, device=meta)
+    else:  # decode: one new token against a cache of length S
+        out["tokens"] = torch.empty((B,), dtype=torch.int32, device=meta)
+        max_len = ((S + 8 + 255) // 256) * 256
+        with shd.use_mesh(None):
+            out["cache"] = T.init_cache(cfg, B, max_len, meta)
+    if cfg.family in ("vlm", "audio") and shape.kind != "decode":
+        out["enc_input"] = torch.empty((B, cfg.encoder.n_ctx, cfg.d_model),
+                                       dtype=cfg.tdtype, device=meta)
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(shape_tree, spec_tree)``: :func:`init_params` on ``meta`` and
+    :func:`param_specs`; nothing is allocated."""
+    return T.init_params(cfg, 0, "meta"), param_specs(cfg)
+
+
+def opt_state_shapes(cfg: ModelConfig, opt_cfg: OptConfig, params_shapes) -> Dict[str, Any]:
+    """:func:`~repro_torch.distributed.optimizer.init_opt_state` of
+    ``params_shapes`` (``meta`` tensors) on ``meta``: float32 ``m``/``v``,
+    or int8 codes beside float32 row scales."""
+    return init_opt_state(params_shapes, opt_cfg)
 
 
 @dataclass(frozen=True)

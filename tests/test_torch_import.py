@@ -22,6 +22,8 @@ REQUIRED = (
     "models/moe.py", "configs/jamba_1_5_large_398b.py",
     # the sharding layer and the multi-rank paths
     "distributed/sharding.py", "distributed/compression.py", "launch/mesh.py",
+    # the dry run and the roofline model
+    "launch/dryrun.py", "launch/roofline_model.py",
 )
 
 

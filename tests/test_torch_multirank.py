@@ -394,6 +394,22 @@ def test_sharded_gradients_match_unsharded(runs, arch, tag):
     assert bool(t["placed"])
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("arch", W.HEAD_SPLIT_ARCHS)
+def test_sharded_gradients_where_model_splits_a_head(runs, arch):
+    """Four heads over a ``model`` dim of 8: each rank holds half a head's
+    columns of ``wq``/``wk``/``wv``, so the heads are gathered before
+    attention and the merged output's gradient is split back through
+    ``sharding.merge_heads`` (Whisper's encoder, self- and
+    cross-attention; DeepSeek's MLA).  Every gradient leaf against the
+    unsharded ``loss_and_grads``."""
+    t = _train(runs, "1x8", arch)
+    np.testing.assert_allclose(t["sharded/loss"], t["plain/loss"], rtol=LOSS_TOL)
+    assert any("xattn" in n for n in _leaves(t, "grad")) or arch != "whisper_tiny"
+    _check_grads(t, f"{arch} 1x8")
+    assert bool(t["placed"])
+
+
 _STEP_CASES = [(a, tag) for tag in ("4x2", "2x2") for a in W.TRAIN_ARCHS] + [
     ("internlm2_20b", "2x2_int8")]
 

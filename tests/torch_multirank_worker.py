@@ -18,8 +18,8 @@ Jobs:
 
 Both jobs also train: ``loss_and_grads`` and one train step of each of
 ``TRAIN_ARCHS`` on their mesh and without one (``train_case``), and the
-main job takes the gradients of the ``ops`` entry points and of
-``moe_ep`` on DTensors.
+main job trains ``HEAD_SPLIT_ARCHS`` on (data 1, model 8) and takes the
+gradients of the ``ops`` entry points and of ``moe_ep`` on DTensors.
 """
 
 from __future__ import annotations
@@ -71,6 +71,9 @@ WS_ARCHS = ("internlm2_20b", "llama3_405b")
 #: smoke configs trained on each mesh: a dense GQA model, the hybrid
 #: (Mamba + MoE, on the local expert shards) and an expert-parallel MoE
 TRAIN_ARCHS = ("internlm2_20b", "jamba_1_5_large_398b", "kimi_k2_1t_a32b")
+#: smoke configs trained on a (data 1, model 8) mesh, where their four
+#: heads do not divide ``model``: each rank's columns end inside a head
+HEAD_SPLIT_ARCHS = ("whisper_tiny", "deepseek_v2_lite_16b")
 #: the train step's optimizer (``tests/test_torch_train.py``'s)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=5)
 #: the train batch: rows the ``data`` dims of both meshes divide
@@ -118,7 +121,14 @@ def train_cfg(arch: str):
 
 
 def train_batch(cfg):
-    return synthetic_batch(np.random.default_rng(0), cfg, TRAIN_B, TRAIN_S)
+    """The launcher's batch; an encoder's frames drawn from a seed (the
+    launcher's are one constant, which leaves its attention's queries and
+    keys no gradient to hold)."""
+    batch = synthetic_batch(np.random.default_rng(0), cfg, TRAIN_B, TRAIN_S)
+    if "enc_input" in batch:
+        g = torch.Generator().manual_seed(3)
+        batch["enc_input"] = torch.randn(batch["enc_input"].shape, generator=g)
+    return batch
 
 
 def _clone(tree):
@@ -409,6 +419,13 @@ def job_main(rank: int, d: str) -> None:
 
         # training on (data 4, model 2)
         res.update(train_checks(mesh, d, "4x2"))
+
+        # training where ``model`` splits a head (attention, cross-attention, MLA)
+        split = make_mesh((1, 8), ("data", "model"))
+        for arch in HEAD_SPLIT_ARCHS:
+            cfg = train_cfg(arch)
+            for k, v in train_case(T.init_params(cfg, 0, "cpu"), cfg, split).items():
+                res[f"train/1x8/{arch}/{k}"] = v
 
     # int8 gradient all-reduce over pod on (pod 2, data 2, model 2)
     mesh3 = make_mesh((2, 2, 2), ("pod", "data", "model"))
