@@ -4054,7 +4054,9 @@ def _train_run(dev, state_dtype: str) -> dict:
     p50 = statistics.median(step_s)
     tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
     rng = np.random.default_rng(1)
-    state = {"params": report["params"], "opt": report["opt_state"]}
+    # the state moves out of the report: an int8 state left there would
+    # stay live beside the new one the step makes
+    state = {"params": report.pop("params"), "opt": report.pop("opt_state")}
 
     def step():
         batch = train_mod.synthetic_batch(rng, cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
@@ -4062,6 +4064,15 @@ def _train_run(dev, state_dtype: str) -> dict:
                                                              batch)
         float(m["loss"])
 
+    # one step's peak (the dry run's traced_peak_bytes is held on it), its
+    # counter reset after a warm step
+    step()
+    torch.cuda.synchronize(dev)
+    step_base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step()
+    torch.cuda.synchronize(dev)
+    step_peak = torch.cuda.max_memory_allocated(dev)
     prof = _profile_window(step, TRAIN_TRACE_STEPS, f"{TRAIN_TRACE_STEPS} train steps",
                            share_kernels=TRAIN_SHARE_KERNELS)
     del report, state
@@ -4073,7 +4084,8 @@ def _train_run(dev, state_dtype: str) -> dict:
            "train_tok_s": tok_s, "params": n,
            "mfu": 6 * n["total"] * tok_s / card_rates()[1][torch.bfloat16],
            "mfu_note": "6 N tokens/s / 989e12, N = embedding + non-embedding parameters",
-           "peak_gib": peak, "launches": counts, "tc_launches": tcs,
+           "peak_gib": peak, "step_peak_bytes": step_peak, "step_base_bytes": step_base,
+           "launches": counts, "tc_launches": tcs,
            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items() if v},
            "backward_launches_per_step": (counts["flash_attention_bwd"]
                                           + counts["rmsnorm_bwd"]) / TRAIN_STEPS,
@@ -4139,6 +4151,7 @@ def phase_train(dev) -> dict:
     _free_card()
     restart = _restart_check(dev)
     res = {"runs": {k: {x: v[x] for x in ("step_ms_p50", "train_tok_s", "mfu", "peak_gib",
+                                          "step_peak_bytes", "step_base_bytes",
                                           "first_loss", "last_loss",
                                           "backward_launches_per_step")}
                     | {"device_idle_share": v["profile"]["device_idle_share"]}
@@ -4723,12 +4736,54 @@ DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "prefill_32k"),
                 ("jamba-1.5-large-398b", "prefill_32k"), ("xlstm-350m", "long_500k"))
 DRYRUN_KEYS = ("arch", "shape", "variant", "mesh", "n_chips", "kind", "device", "lower_s",
                "extrapolated", "probes", "memory", "analytic_flops", "analytic_bytes",
-               "traced_flops", "collectives", "collectives_per_superblock", "collective_bytes",
-               "model_flops", "roofline", "useful_flops_ratio")
+               "traced_flops", "traced_cost", "collectives", "collectives_per_superblock",
+               "collective_bytes", "model_flops", "roofline", "useful_flops_ratio")
 #: sharded cells whose every layer must move bytes: the row-parallel
 #: products' partial sums are all-reduced over ``model``
 DRYRUN_LAYER_MOVES = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "prefill_32k"))
 DRYRUN_LIMIT_S = 240
+#: the memory fields of every cell's record
+DRYRUN_MEMORY = ("analytic_arg_bytes_per_dev", "traced_argument_bytes", "traced_output_bytes",
+                 "traced_peak_bytes", "traced_temp_bytes")
+#: the prefill cell whose cache is made on its shards: no scatter,
+#: broadcast or send (``collective-permute``) places it
+DRYRUN_NO_PERMUTE = ("stablelm-1.6b", "prefill_32k")
+#: the ``train`` phase's step traced at world size 1: its traced peak must
+#: fall within this fraction of the step's measured peak
+DRYRUN_STEP_TOL = 0.10
+#: the trace of that step, in a process with no card: on a fake (1, 1)
+#: mesh (the dry run's own probes) and, without a mesh, the very program
+#: the train phase runs; one JSON line
+DRYRUN_STEP_CODE = """
+import json, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.distributed.optimizer import OptConfig, init_opt_state
+from repro_torch.launch import dryrun as D
+from repro_torch.models import init_params, zoo
+from repro_torch.models.config import ShapeConfig
+
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = get_config(arch)
+shape = ShapeConfig(f"train_{batch}x{seq}", seq, batch, "train")
+out = {}
+with D.fake_mesh((1, 1)) as mesh:
+    for sd in ("float32", "int8"):
+        c = D.extrapolated_costs(cfg, shape, mesh, sd)
+        out[sd] = {"mesh_1x1": c["memory"], "traced_cost": c["cost"], "probes": c["probes"]}
+for sd in ("float32", "int8"):
+    opt = OptConfig(state_dtype=sd)
+
+    def make_args():
+        p = init_params(cfg, 0, "cpu")
+        tok = torch.zeros((batch, seq), dtype=torch.int32)
+        return p, init_opt_state(p, opt), {"tokens": tok, "targets": tok.clone()}
+
+    out[sd]["unsharded"] = D.step_memory(zoo.build_train_step(cfg, opt), make_args)["memory"]
+print(json.dumps(out))
+"""
+#: the testbed example on the card, one subprocess: its jobs and its limit
+EXAMPLE_JOBS, EXAMPLE_LIMIT_S = 2, 60
 
 
 def _dryrun_cells(src: Path) -> dict:
@@ -4758,14 +4813,83 @@ def _dryrun_cells(src: Path) -> dict:
             check((arch, shape) not in DRYRUN_LAYER_MOVES
                   or (per["count"] > 0 and per["all-reduce"] > 0),
                   f"dryrun {arch} {shape}: a layer adds no all-reduce: {per}")
+            mem = rec["memory"]
+            check(all(k in mem for k in DRYRUN_MEMORY)
+                  and mem["traced_argument_bytes"] == mem["analytic_arg_bytes_per_dev"]
+                  and mem["traced_peak_bytes"] >= mem["traced_argument_bytes"] > 0
+                  and mem["traced_temp_bytes"] == (mem["traced_peak_bytes"]
+                                                   - mem["traced_argument_bytes"])
+                  and mem["traced_output_bytes"] > 0
+                  and set(rec.get("traced_cost", {})) == {"bytes accessed", "transcendentals"},
+                  f"dryrun {arch} {shape}: memory fields {mem}, cost {rec.get('traced_cost')}")
+            check((arch, shape) != DRYRUN_NO_PERMUTE
+                  or rec["collectives"]["collective-permute"] == 0,
+                  f"dryrun {arch} {shape}: the cache is placed by collective-permute: "
+                  f"{rec['collectives']}")
             line = {k: rec[k] for k in ("arch", "shape", "mesh", "lower_s", "extrapolated",
-                                        "collective_bytes", "traced_flops", "roofline")}
-            line["arg_bytes_per_dev"] = rec["memory"]["analytic_arg_bytes_per_dev"]
+                                        "collective_bytes", "traced_flops", "roofline",
+                                        "traced_cost")}
+            line["arg_bytes_per_dev"] = mem["analytic_arg_bytes_per_dev"]
+            line["memory"] = {k: mem[k] for k in DRYRUN_MEMORY[1:]}
             line["collectives"] = rec["collectives"]
             line["collectives_per_superblock"] = per
             emit("dryrun_cell", **line)
             cells[f"{arch} {shape}"] = line
     return {"wall_s": wall, "cells": cells}
+
+
+def _dryrun_step(src: Path, trn) -> dict:
+    """The ``train`` phase's step traced at world size 1 (``DRYRUN_STEP_CODE``,
+    no card), each state's traced peak beside the step's measured one
+    (``trn``; the check is left out where the train phase did not run)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_STEP_CODE, TRAIN_ARCH,
+                           str(TRAIN_BATCH), str(TRAIN_SEQ)], env=env, capture_output=True,
+                          text=True, timeout=DRYRUN_LIMIT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dryrun step: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {"wall_s": wall, "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+    for sd, t in traced.items():
+        row = {"traced_peak_bytes": t["mesh_1x1"]["peak"],
+               "traced_argument_bytes": t["mesh_1x1"]["argument"],
+               "traced_phase_peak_bytes": t["mesh_1x1"]["phase_peaks"],
+               "unsharded_traced_peak_bytes": t["unsharded"]["peak"],
+               "unsharded_phase_peak_bytes": t["unsharded"]["phase_peaks"],
+               "traced_cost": t["traced_cost"], "probes": t["probes"]}
+        if trn is not None:
+            measured = trn["runs"][sd]["step_peak_bytes"]
+            row.update(measured_peak_bytes=measured,
+                       measured_base_bytes=trn["runs"][sd]["step_base_bytes"],
+                       traced_over_measured=row["traced_peak_bytes"] / measured,
+                       unsharded_over_measured=row["unsharded_traced_peak_bytes"] / measured)
+            check(abs(row["traced_over_measured"] - 1) <= DRYRUN_STEP_TOL,
+                  f"dryrun step ({sd} state): traced peak {row['traced_peak_bytes']} B against "
+                  f"the measured {measured} B")
+        out[sd] = row
+    return out
+
+
+def _example_run(src: Path) -> dict:
+    """``examples/serve_compound_torch.py --jobs EXAMPLE_JOBS`` on the card,
+    in a subprocess under ``EXAMPLE_LIMIT_S``: every run finishes its jobs."""
+    import os
+
+    example = Path(__file__).resolve().parent / "examples" / "serve_compound_torch.py"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(example), "--jobs", str(EXAMPLE_JOBS)], env=env,
+                          capture_output=True, text=True, timeout=EXAMPLE_LIMIT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    runs = [ln for ln in lines if " jobs=" in ln]
+    check(proc.returncode == 0 and len(runs) == 4
+          and all(f" jobs={EXAMPLE_JOBS} " in ln for ln in runs),
+          f"example: rc {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return {"wall_s": wall, "lines": lines}
 
 
 def _roofline_s(cfg, kind: str, batch: int, seq: int, **kw) -> float:
@@ -4780,14 +4904,19 @@ def _roofline_s(cfg, kind: str, batch: int, seq: int, **kw) -> float:
 
 
 def phase_dryrun(trn, eng, tb) -> dict:
-    """``dryrun``: the dry run's cells (``_dryrun_cells``), then the
-    ``train``, ``engine`` and ``testbed`` phases' own times against the
-    roofline of one card (a phase not run is left out)."""
+    """``dryrun``: the dry run's cells (``_dryrun_cells``), the ``train``
+    phase's step traced at world size 1 against its measured peak
+    (``_dryrun_step``), the testbed example on the card (``_example_run``),
+    then the ``train``, ``engine`` and ``testbed`` phases' own times
+    against the roofline of one card (a phase not run is left out)."""
     from repro_torch.configs import get_config
     from repro_torch.core import roofline_profile
     from repro_torch.kernels import _build
 
-    res = _dryrun_cells(Path(_build.__file__).resolve().parents[2])
+    src = Path(_build.__file__).resolve().parents[2]
+    res = _dryrun_cells(src)
+    res["step"] = _dryrun_step(src, trn)
+    res["example"] = _example_run(src)
     cfg = get_config(TRAIN_ARCH)
     ratios = {}
     if trn is not None:

@@ -12,11 +12,13 @@ Copy of ``repro/launch/dryrun.py`` in PyTorch's idiom.  For each cell:
      tensors of those shapes under ``FakeTensorMode`` (nothing is
      allocated, nothing is computed);
   3. run the step (``build_train_step`` / ``build_prefill_step`` /
-     ``build_decode_step``) once on them, under :func:`collective_bytes`
-     and ``FlopCounterMode``: the program's own DTensor sharding runs
-     its collectives, and :func:`collective_bytes` reads each one's
-     bytes, also those DTensor runs inside an operation's dispatch;
-  4. take compute and memory from the analytic terms
+     ``build_decode_step``) once on them, under :func:`collective_bytes`,
+     :func:`track_memory` and ``FlopCounterMode``: the program's own
+     DTensor sharding runs its collectives, and :func:`collective_bytes`
+     reads each one's bytes, also those DTensor runs inside an
+     operation's dispatch; :func:`track_memory` counts a device's live
+     bytes;
+  4. take compute and memory traffic from the analytic terms
      (:mod:`repro_torch.launch.roofline_model`) and write the cell's JSON
      under ``--out`` (``dryrun_torch_out/`` by default).
 
@@ -64,8 +66,18 @@ over the same trace, with DTensor operations counted once at their global
 shapes (the logical computation) and the operations on plain tensors (the
 kernels' bodies under ``local_call``, their backward, the MoE dispatch)
 counted on this rank's shards and multiplied by the mesh's size, since
-every rank runs them.  The ``xla_*`` memory fields have no compiler
-behind them here and are left out.
+every rank runs them.
+
+The memory fields stand in for JAX's ``xla_*`` ones, read off the same
+trace by :class:`MemoryTracker` (hooked where the collectives are
+counted): ``traced_argument_bytes`` (equal to
+``analytic_arg_bytes_per_dev``), ``traced_output_bytes``,
+``traced_peak_bytes`` and ``traced_temp_bytes``, and ``traced_cost``
+(``bytes accessed``, ``transcendentals``) for ``xla_cost``'s.  They are
+rank 0's, as the trace is, and eager PyTorch's live bytes, not XLA's
+buffer assignment.  Inside the trace every ``ops`` entry point is counted
+as its kernel (:func:`as_kernels`): the plain versions a CPU runs hold
+what the card's kernels never do (attention's S x S scores).
 
 Hardware constants, one NVIDIA H100 80GB HBM3 (SXM, power limit 700 W),
 from its data sheet: :data:`PEAK_FLOPS`, :data:`HBM_BW` (the one copy is
@@ -88,6 +100,7 @@ import json
 import pathlib
 import sys
 import time
+import weakref
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -282,6 +295,365 @@ def _real_index_math():
         yield
     finally:
         cls.local_shard_size_and_offset = orig
+
+
+# ---------------------------------------------------------------------------
+# Memory: a device's live bytes, read off the trace
+# ---------------------------------------------------------------------------
+#: operations (aten names, overload dropped) whose output elements count as
+#: transcendentals, as XLA's cost analysis counts exp, log, tanh, ...
+_TRANSCENDENTAL = frozenset({
+    "exp", "exp_", "exp2", "expm1", "log", "log_", "log1p", "log2", "log10", "tanh",
+    "tanh_", "sigmoid", "sigmoid_", "rsqrt", "rsqrt_", "sqrt", "sqrt_", "erf", "erfc",
+    "erfinv", "pow", "pow_", "sin", "cos", "silu", "silu_", "gelu", "softplus",
+    "_softmax", "_log_softmax", "logsumexp", "silu_backward", "gelu_backward",
+})
+#: operations that allocate without reading or writing a value
+_NO_ACCESS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
+                        "new_empty_strided"})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _extent(t: torch.Tensor) -> int:
+    """The bytes of storage ``t`` reaches: a fresh output's allocation on
+    a device (a fake collective's storage may be rounded up past it)."""
+    if t.numel() == 0:
+        return 0
+    last = t.storage_offset() + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return (last + 1) * t.element_size()
+
+
+class MemoryTracker:
+    """One device's live bytes over a traced step, and what its
+    operations touch: the counterpart of XLA's ``memory_analysis`` and of
+    ``cost_analysis``'s ``bytes accessed`` / ``transcendentals``.
+
+    Each storage an operation outputs is counted, at the bytes that output
+    reaches (:func:`_extent`), from its making until it is freed
+    (``weakref.finalize`` on the storage, whose Python object lives
+    exactly as long as the storage does); a view or
+    an in-place result shares a counted storage and adds nothing.  This is
+    eager PyTorch's live bytes, not XLA's buffer assignment: a tensor
+    lives while Python or autograd holds it.  ``peak`` is the most bytes
+    live at once, and ``peaks`` the most in each phase of the step
+    (:meth:`phase`).  ``accessed`` sums each operation's inputs and outputs
+    (views, bare allocations and ``prim`` metadata queries move nothing
+    and are left out),
+    ``transcendentals`` the output elements of :data:`_TRANSCENDENTAL`
+    operations.  Inside :meth:`paused` nothing is counted but, with
+    ``work``, the transcendentals (:func:`as_kernels` runs the plain
+    versions there for their values and FLOPs)."""
+
+    def __init__(self) -> None:
+        self.live = self.peak = self.accessed = self.transcendentals = 0
+        self.peaks: Dict[str, int] = {}
+        self._phase = "step"
+        self._tracked: set = set()
+        self._paused = 0
+        self._work = True
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Inside, the live bytes count toward ``peaks[name]``."""
+        prev, self._phase = self._phase, name
+        self.peaks[name] = max(self.peaks.get(name, 0), self.live)
+        try:
+            yield
+        finally:
+            self._phase = prev
+
+    def track(self, t) -> int:
+        """Counts ``t``'s storage live from now (once); returns the bytes
+        added."""
+        if not isinstance(t, torch.Tensor) or shd.is_dtensor(t):
+            return 0
+        try:
+            st = t.untyped_storage()
+        except (NotImplementedError, RuntimeError):
+            return 0
+        key = id(st)
+        if key in self._tracked:
+            return 0
+        n = _extent(t)
+        self._tracked.add(key)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        self.peaks[self._phase] = max(self.peaks.get(self._phase, 0), self.live)
+        weakref.finalize(st, self._free, key, n)
+        return n
+
+    def _free(self, key: int, n: int) -> None:
+        self._tracked.discard(key)
+        self.live -= n
+
+    def track_tree(self, tree) -> int:
+        """Counts every tensor of ``tree`` (dicts, tuples, lists; a
+        DTensor's local shard); returns the bytes added."""
+        if isinstance(tree, dict):
+            return sum(self.track_tree(v) for v in tree.values())
+        if isinstance(tree, (tuple, list)):
+            return sum(self.track_tree(v) for v in tree)
+        if shd.is_dtensor(tree):
+            return self.track(tree._local_tensor)
+        return self.track(tree)
+
+    def observe(self, func, args, kwargs, out) -> None:
+        """One operation: its outputs' storages, its bytes and transcendentals."""
+        if self._paused and not self._work:
+            return
+        from torch.utils._pytree import tree_leaves
+
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        name = func._schema.name.split("::")[-1]
+        if name in _TRANSCENDENTAL:
+            self.transcendentals += sum(t.numel() for t in outs)
+        if self._paused:
+            return
+        for t in outs:
+            self.track(t)
+        if not func.is_view and name not in _NO_ACCESS and func.namespace != "prim":
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            self.accessed += sum(_nbytes(t) for t in ins + outs)
+
+    @contextlib.contextmanager
+    def paused(self, work: bool = True):
+        prev = self._work
+        self._paused += 1
+        self._work = prev and work
+        try:
+            yield
+        finally:
+            self._paused -= 1
+            self._work = prev
+
+
+@contextlib.contextmanager
+def track_memory(tracker: Optional[MemoryTracker] = None, real: bool = False):
+    """Counts into ``tracker`` (a new :class:`MemoryTracker` by default)
+    every operation on fake tensors inside the block, at
+    ``FakeTensorMode.dispatch`` as :func:`collective_bytes` counts (so also
+    the temporaries DTensor makes inside its own dispatch; of an operation
+    the fake mode decomposes, the operation and not its parts, as a device
+    runs it); yields the tracker.  With ``real``, every operation on real plain tensors
+    instead, through a dispatch mode (DTensor's own operations pass no
+    mode, so not for DTensors)."""
+    tracker = tracker if tracker is not None else MemoryTracker()
+    if real:
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class _Observe(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                tracker.observe(func, args, kwargs, out)
+                return out
+
+        with _Observe():
+            yield tracker
+        return
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    orig = FakeTensorMode.dispatch
+    depth = [0]
+
+    def dispatch(self, func, types, args=(), kwargs=None):
+        # an operation the fake mode decomposes dispatches its parts here
+        # too, but only where its cache misses: only the outermost counts
+        depth[0] += 1
+        try:
+            out = orig(self, func, types, args, kwargs or {})
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            tracker.observe(func, args, kwargs, out)
+        return out
+
+    FakeTensorMode.dispatch = dispatch
+    try:
+        with _unseen_meta_propagation(tracker):
+            yield tracker
+    finally:
+        FakeTensorMode.dispatch = orig
+
+
+@contextlib.contextmanager
+def _unseen_meta_propagation(tracker: MemoryTracker):
+    """DTensor works out an operation's output shape by running it on
+    global-shaped fake tensors in the active fake mode (its sharding
+    propagation): no device allocates those, so ``tracker`` is paused
+    there."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator as SP
+
+    names = [n for n in ("propagate_op_sharding_non_cached",
+                         "_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+             if hasattr(SP, n)]
+    orig = {n: getattr(SP, n) for n in names}
+
+    def paused(fn):
+        def call(*args, **kwargs):
+            with tracker.paused(work=False):
+                return fn(*args, **kwargs)
+
+        return call
+
+    for n in names:
+        setattr(SP, n, paused(orig[n]))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(SP, n, fn)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' memory (dry run only)
+# ---------------------------------------------------------------------------
+#: CTAs of the RMSNorm backward kernel on one H100 (132 SMs, at most two
+#: CTAs a SM): its f32 dgamma scratch is one row a CTA
+_RMSNORM_BWD_CTAS = 2 * 132
+
+
+@contextlib.contextmanager
+def _flops_uncounted(counter):
+    """FlopCounterMode ``counter``'s counts as they were before the block."""
+    if counter is None:
+        yield
+        return
+    saved = {k: dict(v) for k, v in counter.flop_counts.items()}
+    try:
+        yield
+    finally:
+        counter.flop_counts.clear()
+        for k, v in saved.items():
+            counter.flop_counts[k].update(v)
+
+
+@contextlib.contextmanager
+def as_kernels(tracker: MemoryTracker, flops=None):
+    """Inside: every ``ops`` entry point takes the kernel route (its
+    autograd Function under grad, which saves what the card's saves: flash
+    attention's q, k, v, output and LSE, RMSNorm's x and gamma, the scan's
+    inputs and its 32-step checkpoints), and each kernel wrapper is counted
+    as its kernel: its outputs, and the workspace its wrapper allocates
+    (the flash backward's ``delta``, RMSNorm backward's dgamma rows, the
+    scan backward's partials).  Its values come from the plain version,
+    run with ``tracker`` paused, so the S x S scores of plain attention or
+    the (B, T, D, N) states of :func:`_scan_at_once` are never counted
+    live.  FLOPs do not move: a forward wrapper runs the plain forward
+    once; a backward wrapper runs the plain forward again with ``flops``
+    (a FlopCounterMode) restored after it, then autograd's backward of it,
+    counted as the plain route's backward is."""
+    from ..kernels import _build, ops
+    from ..kernels import ref as R
+
+    f32 = torch.float32
+
+    def plain(fn, *args, **kwargs):
+        with tracker.paused(), torch.no_grad():
+            return fn(*args, **kwargs)
+
+    def made(inputs, *outs, workspace=()):
+        """Fresh copies of ``outs`` (the kernel writes fresh tensors),
+        counted live, and ``workspace`` (shape, dtype) counted while the
+        call runs."""
+        with tracker.paused():
+            fresh = [o.clone() for o in outs]
+            dev = fresh[0].device
+            ws = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in workspace]
+        for t in fresh + ws:
+            tracker.track(t)
+        tracker.accessed += (sum(_nbytes(t) for t in inputs if t is not None)
+                             + sum(_nbytes(t) for t in fresh) + 2 * sum(_nbytes(t) for t in ws))
+        return fresh
+
+    def grads(fn, inputs, grad_outs):
+        """The plain version's gradients at ``inputs`` for ``grad_outs``
+        (``None`` where an output's gradient is)."""
+        leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+        with tracker.paused(work=False), _flops_uncounted(flops), torch.enable_grad():
+            outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outs) if g is not None]
+        with tracker.paused():
+            got = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                                      allow_unused=True)
+        return [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, got)]
+
+    def fa(q, k, v, causal=True, scale=None, q_offset=0, kv_len=None, return_lse=False):
+        out = plain(R.attention_ref, q, k, v, causal=causal, scale=scale,
+                    q_offset=q_offset, kv_len=kv_len)
+        B, Sq, H, _ = q.shape
+        if not return_lse:
+            return made((q, k, v), out)[0]
+        with tracker.paused():
+            lse = torch.empty((B, H, Sq), dtype=f32, device=q.device)
+        return tuple(made((q, k, v), out, lse))
+
+    def fab(q, k, v, o, lse, do, causal=True, scale=None):
+        g = grads(lambda q, k, v: R.attention_ref(q, k, v, causal=causal, scale=scale),
+                  (q, k, v), (do,))
+        B, Sq, H, _ = q.shape
+        return tuple(made((q, k, v, o, lse, do), *g, workspace=[((B, H, Sq), f32)]))
+
+    def rn(x, gamma, eps=1e-5):
+        return made((x, gamma), plain(R.rmsnorm_ref, x, gamma, eps=eps))[0]
+
+    def rnb(x, gamma, dy, eps=1e-5):
+        g = grads(lambda x, gm: R.rmsnorm_ref(x, gm, eps=eps), (x, gamma), (dy,))
+        rows, d = x.numel() // max(1, x.shape[-1]), x.shape[-1]
+        return tuple(made((x, gamma, dy), *g,
+                          workspace=[((min(rows, _RMSNORM_BWD_CTAS), d), f32)]))
+
+    def ss(x, dt, A, Bm, Cm, D, h0=None, return_states=False):
+        y, hT = plain(R.ssm_scan_ref, x, dt, A, Bm, Cm, D, h0=h0)
+        B, T, Dd = x.shape
+        if not return_states:
+            return tuple(made((x, dt, A, Bm, Cm, D, h0), y, hT))
+        with tracker.paused():
+            states = torch.empty((B, _build.ssm_checkpoints(T), Dd, A.shape[1]), dtype=f32,
+                                 device=x.device)
+        return tuple(made((x, dt, A, Bm, Cm, D, h0), y, hT, states))
+
+    def ssb(x, dt, A, Bm, Cm, D, states, dy, h0=None, dhT=None):
+        ins = (x, dt, A, Bm, Cm, D) + (() if h0 is None else (h0,))
+        g = grads(lambda *a: R.ssm_scan_ref(*a[:6], h0=a[6] if len(a) > 6 else None),
+                  ins, (dy, dhT))
+        B, T, Dd = x.shape
+        N = A.shape[1]
+        n_blk = -(-Dd // _build.SSM_CHANNELS_PER_CTA)
+        out = made((*ins, states, dy, dhT), *g,
+                   workspace=[((2, n_blk, B, T, N), f32), ((B, Dd, N), f32), ((B, Dd), f32)])
+        return (*out[:6], out[6] if h0 is not None else None)
+
+    def da(q, k_cache, v_cache, lengths, scale=None):
+        out = plain(R.decode_attention_ref, q, k_cache, v_cache, lengths, scale=scale)
+        return made((q, k_cache, v_cache, lengths), out)[0]
+
+    def paged(fn, int8):
+        def call(q, kp, vp, table, pos, *scales, scale=None):
+            kw = dict(k_scales=scales[0], v_scales=scales[1]) if int8 else {}
+            out = plain(fn, q, kp, vp, table, pos, scale=scale, **kw)
+            return made((q, kp, vp, table, pos if torch.is_tensor(pos) else None, *scales),
+                        out)[0]
+
+        return call
+
+    patched = {"_use_kernel": lambda impl, x: impl != "ref", "_fa": fa, "_fab": fab,
+               "_rn": rn, "_rnb": rnb, "_ss": ss, "_ssb": ssb, "_da": da,
+               "_pda": paged(R.paged_decode_attention_ref, False),
+               "_pda8": paged(R.paged_decode_attention_ref, True),
+               "_ppa": paged(R.paged_prefill_attention_ref, False),
+               "_ppa8": paged(R.paged_prefill_attention_ref, True)}
+    orig = {name: getattr(ops, name) for name in patched}
+    for name, fn in patched.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -488,67 +860,165 @@ def _fake(tree):
     return _map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="cpu"), tree)
 
 
+@contextlib.contextmanager
+def _train_phases(tracker: MemoryTracker):
+    """A train step's two phases for ``tracker``: ``grads`` (the forward
+    and its backward, ``zoo.loss_and_grads``) and ``update`` (AdamW).  Each
+    phase's peak is affine in depth where the step's is not: which phase
+    peaks can change with depth (the update's largest leaf against the
+    backward's activations)."""
+    grads_fn, update_fn = zoo.loss_and_grads, zoo.adamw_update
+
+    def in_phase(name, fn):
+        def call(*args, **kwargs):
+            with tracker.phase(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    zoo.loss_and_grads = in_phase("grads", grads_fn)
+    zoo.adamw_update = in_phase("update", update_fn)
+    try:
+        yield
+    finally:
+        zoo.loss_and_grads, zoo.adamw_update = grads_fn, update_fn
+
+
+def _memory(argument: int, output: int, peaks: Dict[str, int]) -> Dict[str, Any]:
+    peak = max([argument, *peaks.values()])
+    return {"argument": argument, "output": output, "peak": peak, "temp": peak - argument,
+            "phase_peaks": dict(peaks)}
+
+
+def _placed_args(cfg: ModelConfig, shape: ShapeConfig, mesh, opt_state_dtype: str):
+    """(the cell's step, its arguments placed on ``mesh``, analytic
+    argument bytes a device), under the active ``FakeTensorMode`` and
+    mesh."""
+    shardings = _cell_shardings(cfg, shape, mesh, opt_state_dtype)
+    p_shapes, param_sh, specs_in, batch_sh, _, _ = shardings
+    params = shd.device_put_tree(_fake(p_shapes), param_sh)
+    batch = shd.device_put_tree(_fake(specs_in), batch_sh)
+    if shape.kind == "train":
+        opt_cfg = OptConfig(state_dtype=opt_state_dtype)
+        args = (params, init_opt_state(params, opt_cfg), batch)
+        step = zoo.build_train_step(cfg, opt_cfg)
+    elif shape.kind == "prefill":
+        args = (params, batch)
+        step = zoo.build_prefill_step(cfg, max_len=shape.seq_len + 8)
+    else:
+        args = (params, batch)
+        step = zoo.build_decode_step(cfg)
+    return step, args, _arg_bytes(mesh, *shardings)
+
+
+def step_memory(step, make_args, fake: bool = True) -> Dict[str, Any]:
+    """The memory fields and cost of ``step(*make_args())`` on one device
+    without a mesh, as :func:`trace_cell` counts them (the kernel rule
+    on): the arguments made
+    under ``FakeTensorMode``, or with ``fake=False`` on real tensors of the
+    CPU (a dispatch mode counts there)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        args = make_args()
+        tracker = MemoryTracker()
+        arguments = tracker.track_tree(args)
+        with track_memory(tracker, real=not fake), as_kernels(tracker), \
+                _train_phases(tracker), tracker.phase("step"):
+            out = step(*args)
+        output = MemoryTracker().track_tree(out)
+    return {"memory": _memory(arguments, output, tracker.peaks),
+            "cost": {"bytes accessed": tracker.accessed,
+                     "transcendentals": tracker.transcendentals}}
+
+
+def placed_arg_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                     opt_state_dtype: str = "int8", rules=None) -> int:
+    """The bytes this rank holds of the cell's placed arguments
+    (``traced_argument_bytes``): the local shards' storages, placed as
+    :func:`trace_cell` places them, without running the step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(), shd.use_mesh(mesh, rules=rules), _real_index_math():
+        _, args, _ = _placed_args(cfg, shape, mesh, opt_state_dtype)
+        return MemoryTracker().track_tree(args)
+
+
 def trace_cell(
     cfg: ModelConfig,
     shape: ShapeConfig,
     mesh,
     opt_state_dtype: str = "int8",
     rules=None,
+    kernels: bool = True,
 ) -> Tuple[Dict[str, int], Dict[str, Any]]:
     """Run one cell's step on fake tensors placed on ``mesh``: returns
     (its collectives, as :func:`collective_bytes` counts them, and
-    ``{"arg_bytes_per_dev", "flops"}``).  The counterpart of JAX's
-    ``lower_cell``; ``mesh`` is a DeviceMesh on a fake group
-    (:func:`fake_mesh`)."""
+    ``{"arg_bytes_per_dev", "flops", "memory", "cost"}``).  The
+    counterpart of JAX's ``lower_cell``; ``mesh`` is a DeviceMesh on a
+    fake group (:func:`fake_mesh`).
+
+    ``memory`` is rank 0's, as the trace is (a rank with another shard of
+    an uneven split holds other sizes): ``argument`` bytes (the placed
+    parameters, optimizer state, batch and cache), ``output`` bytes (what
+    the step returns), ``peak`` (the most bytes live at once, the
+    arguments included), ``temp`` (the peak less the arguments) and
+    ``phase_peaks`` (the peak of each phase, :func:`_train_phases`);
+    ``cost`` holds ``bytes accessed`` and ``transcendentals``
+    (:class:`MemoryTracker`).  With ``kernels`` every ``ops`` entry point
+    is counted as its kernel (:func:`as_kernels`); the FLOPs are the same
+    either way."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     n_chips = mesh.size()
     with FakeTensorMode(), shd.use_mesh(mesh, rules=rules), _real_index_math():
-        shardings = _cell_shardings(cfg, shape, mesh, opt_state_dtype)
-        p_shapes, param_sh, specs_in, batch_sh, _, _ = shardings
-        arg_bytes = _arg_bytes(mesh, *shardings)
-        params = shd.device_put_tree(_fake(p_shapes), param_sh)
-        batch = shd.device_put_tree(_fake(specs_in), batch_sh)
-        if shape.kind == "train":
-            opt_cfg = OptConfig(state_dtype=opt_state_dtype)
-            args = (params, init_opt_state(params, opt_cfg), batch)
-            step = zoo.build_train_step(cfg, opt_cfg)
-        elif shape.kind == "prefill":
-            args = (params, batch)
-            step = zoo.build_prefill_step(cfg, max_len=shape.seq_len + 8)
-        else:
-            args = (params, batch)
-            step = zoo.build_decode_step(cfg)
+        step, args, arg_bytes = _placed_args(cfg, shape, mesh, opt_state_dtype)
+        tracker = MemoryTracker()
+        arguments = tracker.track_tree(args)
         flops = _flop_counter(n_chips)
+        rule = as_kernels(tracker, flops) if kernels else contextlib.nullcontext()
         with _nccl_shard_moves(), balanced_experts(cfg), _scan_unrolled(), flops, \
-                collective_bytes() as coll:
-            step(*args)
-    return coll, {"arg_bytes_per_dev": arg_bytes, "flops": flops.get_total_flops()}
+                collective_bytes() as coll, track_memory(tracker), rule, \
+                _train_phases(tracker), tracker.phase("step"):
+            out = step(*args)
+        output = MemoryTracker().track_tree(out)
+    memory = _memory(arguments, output, tracker.peaks)
+    cost = {"bytes accessed": tracker.accessed, "transcendentals": tracker.transcendentals}
+    return coll, {"arg_bytes_per_dev": arg_bytes, "flops": flops.get_total_flops(),
+                  "memory": memory, "cost": cost}
 
 
-def _cell_costs(cfg, shape, mesh, opt_state_dtype, rules=None) -> Dict[str, Any]:
-    """(traced flops, collective bytes) of one traced cell."""
-    coll, aux = trace_cell(cfg, shape, mesh, opt_state_dtype=opt_state_dtype, rules=rules)
+def _cell_costs(cfg, shape, mesh, opt_state_dtype, rules=None,
+                kernels: bool = True) -> Dict[str, Any]:
+    """(traced flops, collective bytes, memory and cost) of one traced cell."""
+    coll, aux = trace_cell(cfg, shape, mesh, opt_state_dtype=opt_state_dtype, rules=rules,
+                           kernels=kernels)
     return {
         "flops": int(aux["flops"]),
         "coll": int(sum(v for k, v in coll.items() if k != "count")),
         "coll_by_kind": dict(coll),
+        "memory": aux["memory"],
+        "cost": aux["cost"],
     }
 
 
 def _extend(x_a: Dict[str, Any], x_b: Dict[str, Any], steps: int, per: int) -> Dict[str, Any]:
-    """``x_a + steps/per · max(0, x_b - x_a)`` of every count, exact in
-    integers (``per`` divides ``steps``)."""
+    """``x_a + steps/per · max(0, x_b - x_a)`` of every count (nested
+    dicts included), exact in integers (``per`` divides ``steps``).  The
+    peak is the largest of the phases' peaks so extended: each phase's
+    peak is assumed affine in depth and length, as the other counts are."""
     if steps % per:
         raise ValueError(f"a probe step of {per} does not divide {steps}")
 
     def one(a, b):
+        if isinstance(a, dict):
+            return {k: one(a[k], b[k]) for k in a}
         return a + (steps // per) * max(0, b - a)
 
-    return {"flops": one(x_a["flops"], x_b["flops"]),
-            "coll": one(x_a["coll"], x_b["coll"]),
-            "coll_by_kind": {k: one(x_a["coll_by_kind"][k], x_b["coll_by_kind"][k])
-                             for k in x_a["coll_by_kind"]}}
+    out = one(x_a, x_b)
+    mem = out["memory"]
+    out["memory"] = _memory(mem["argument"], mem["output"], mem["phase_peaks"])
+    return out
 
 
 def _seq_probed(cfg: ModelConfig, shape: ShapeConfig) -> bool:
@@ -558,14 +1028,15 @@ def _seq_probed(cfg: ModelConfig, shape: ShapeConfig) -> bool:
 def _probe(args) -> Dict[str, Any]:
     """One probe in a process of its own (a worker of the pool): its own
     fake group and mesh."""
-    cfg, shape, mesh_shape, opt_state_dtype, rules = args
+    cfg, shape, mesh_shape, opt_state_dtype, rules, kernels = args
     with fake_mesh(mesh_shape) as mesh:
-        return _cell_costs(cfg, shape, mesh, opt_state_dtype, rules)
+        return _cell_costs(cfg, shape, mesh, opt_state_dtype, rules, kernels)
 
 
 def extrapolated_costs(cfg, shape, mesh, opt_state_dtype, rules=None,
-                       workers: int = 1) -> Dict[str, Any]:
-    """The cell's traced flops and collective bytes from short probes.
+                       workers: int = 1, kernels: bool = True) -> Dict[str, Any]:
+    """The cell's traced flops, collective bytes, memory and cost from
+    short probes.
 
     Every count is affine in the number of scanned superblocks: trace
     depth probes at 2 and 3 superblocks and extrapolate exactly, as JAX's
@@ -590,12 +1061,13 @@ def extrapolated_costs(cfg, shape, mesh, opt_state_dtype, rules=None,
         import concurrent.futures as cf
         import multiprocessing as mp
 
-        jobs = [(c, sh, tuple(mesh.shape), opt_state_dtype, rules) for c, sh in cells.values()]
+        jobs = [(c, sh, tuple(mesh.shape), opt_state_dtype, rules, kernels)
+                for c, sh in cells.values()]
         with cf.ProcessPoolExecutor(min(workers, len(jobs)),
                                     mp_context=mp.get_context("spawn")) as pool:
             got = dict(zip(keys, pool.map(_probe, jobs)))
     else:
-        got = {k: _cell_costs(c, sh, mesh, opt_state_dtype, rules)
+        got = {k: _cell_costs(c, sh, mesh, opt_state_dtype, rules, kernels)
                for k, (c, sh) in cells.items()}
     probes = [[cells[k][0].n_layers, cells[k][1].seq_len] for k in keys]
     a, b = SEQ_PROBES
@@ -731,10 +1203,14 @@ def run_cell(
         "lower_s": round(t_trace, 1),
         "extrapolated": costs["extrapolated"],
         "probes": costs["probes"],
-        "memory": {"analytic_arg_bytes_per_dev": int(arg_bytes)},
+        "memory": {"analytic_arg_bytes_per_dev": int(arg_bytes),
+                   **{f"traced_{k}_bytes": int(costs["memory"][k])
+                      for k in ("argument", "output", "peak", "temp")},
+                   "traced_phase_peak_bytes": costs["memory"]["phase_peaks"]},
         "analytic_flops": flops,
         "analytic_bytes": bytes_hbm,
         "traced_flops": costs["flops"],
+        "traced_cost": {k: int(v) for k, v in costs["cost"].items()},
         "collectives": coll,
         "collectives_per_superblock": costs["per_superblock"],
         "collective_bytes": coll_total,
@@ -829,6 +1305,7 @@ def main(argv=None) -> int:
                 print(
                     f"[OK]   {tag}: trace={r['lower_s']}s "
                     f"args/dev={r['memory']['analytic_arg_bytes_per_dev']/2**30:.2f}GiB "
+                    f"peak/dev={r['memory']['traced_peak_bytes']/2**30:.2f}GiB "
                     f"compute={rt['compute_s']*1e3:.2f}ms "
                     f"hbm={rt['memory_s']*1e3:.2f}ms "
                     f"coll={rt['collective_s']*1e3:.2f}ms",

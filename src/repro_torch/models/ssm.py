@@ -28,7 +28,7 @@ the same function on one token with the carried state.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,9 @@ from ..distributed import sharding as shd
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import Init, Params, Shape
+
+#: a leaf factory ``(shape, dtype, value) -> leaf`` of the state builders
+Full = Callable[[Shape, torch.dtype, float], Any]
 
 
 def _dt_rank(cfg: ModelConfig) -> int:
@@ -110,15 +113,24 @@ def mamba_decode(
     return mamba_full(p, cfg, x_in, state=state)
 
 
+def _filler(device: torch.device, full: Optional[Full]) -> Full:
+    if full is not None:
+        return full
+    return lambda shape, dtype, value: torch.full(shape, value, dtype=dtype, device=device)
+
+
 def mamba_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                     device: torch.device, lead: Shape = ()) -> Dict[str, torch.Tensor]:
-    """Zero decode state for ``batch`` rows, stacked over ``lead``."""
+                     device: torch.device, lead: Shape = (),
+                     full: Optional[Full] = None) -> Dict[str, torch.Tensor]:
+    """Zero decode state for ``batch`` rows, stacked over ``lead``.
+    ``full(shape, dtype, value)`` makes each leaf (default: ``torch.full``
+    on ``device``)."""
     m = cfg.mamba
     di = cfg.d_model * m.expand
+    full = _filler(device, full)
     return {
-        "conv": torch.zeros(lead + (batch, m.d_conv - 1, di), dtype=dtype, device=device),
-        "ssm": torch.zeros(lead + (batch, di, m.d_state), dtype=torch.float32,
-                           device=device),
+        "conv": full(lead + (batch, m.d_conv - 1, di), dtype, 0.0),
+        "ssm": full(lead + (batch, di, m.d_state), torch.float32, 0.0),
     }
 
 
@@ -243,12 +255,17 @@ def slstm_full(
 
 
 def xlstm_init_state(cfg: ModelConfig, batch: int, is_slstm: bool,
-                     device: torch.device, lead: Shape = ()) -> Dict[str, torch.Tensor]:
+                     device: torch.device, lead: Shape = (),
+                     full: Optional[Full] = None) -> Dict[str, torch.Tensor]:
     """Fresh float32 state of one cell for ``batch`` rows, stacked over
     ``lead``: sLSTM ``c, n, h, m (B, d)`` (``n`` ones), mLSTM ``C (B, H,
-    hd, hd)``, ``n (B, H, hd)``, ``m (B, H)``; ``m`` is :data:`M0`."""
+    hd, hd)``, ``n (B, H, hd)``, ``m (B, H)``; ``m`` is :data:`M0`.
+    ``full(shape, dtype, value)`` makes each leaf (default: ``torch.full``
+    on ``device``)."""
+    make = _filler(device, full)
+
     def full(shape, value):
-        return torch.full(lead + shape, value, dtype=torch.float32, device=device)
+        return make(lead + shape, torch.float32, value)
 
     d = cfg.d_model
     x = cfg.xlstm

@@ -56,6 +56,7 @@ dtype for both families (JAX casts the VLM's patches only).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -505,39 +506,80 @@ def _check_cache_dtype(cfg: ModelConfig) -> None:
             "it through the float decode, with undefined results)")
 
 
+@dataclass(frozen=True)
+class _Leaf:
+    """A cache leaf yet to be made: its shape, dtype and the constant it
+    holds (:func:`_make_cache`)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    value: float = 0.0
+
+
+def _map_leaves(fn, tree, other=None):
+    """``fn(leaf, other_leaf)`` over a tree of dicts and tuples of
+    :class:`_Leaf` (``other``: a tree of the same structure, or None)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, None if other is None else other[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v, None if other is None else other[i])
+                          for i, v in enumerate(tree))
+    return fn(tree, other)
+
+
+def _make_cache(cfg: ModelConfig, tree: Dict[str, Any], dev: torch.device) -> Dict[str, Any]:
+    """Every :class:`_Leaf` of ``tree`` made on ``dev``.
+
+    Under an active mesh each leaf is made on its shards, laid out by
+    :func:`repro_torch.models.zoo.cache_logical` (JAX shards its decode
+    cache so in the dry-run's cells): DTensor's ``full`` gives each rank
+    a tensor of its own shard's shape (``compute_local_shape_and_global_offset``,
+    uneven splits included), so no rank allocates the whole cache and no
+    collective places it, as JAX's partitioner gives each device its
+    shard of the zeros made inside its jitted ``prefill``."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return _map_leaves(lambda leaf, _: torch.full(leaf.shape, leaf.value,
+                                                      dtype=leaf.dtype, device=dev), tree)
+    from torch.distributed.tensor import full
+
+    from .zoo import cache_logical
+
+    specs = cache_logical(cfg, tree, shd.mesh_shape(mesh).get("model", 1))
+    return _map_leaves(
+        lambda leaf, sh: full(leaf.shape, leaf.value, dtype=leaf.dtype,
+                              device_mesh=sh.mesh, placements=list(sh.placements)),
+        tree, shd.tree_shardings(specs, tree, mesh))
+
+
 def _slot_caches(cfg: ModelConfig, batch: int, max_len: int,
                  dev: torch.device) -> Dict[str, Any]:
-    """``lengths`` and every layer's empty cache (see :func:`init_cache`)."""
+    """``lengths`` and every layer's empty cache (see :func:`init_cache`),
+    made by :func:`_make_cache`."""
     _check_cache_dtype(cfg)
     n_prefix, pat, n_sb = _scan_layout(cfg)
 
-    def layer_cache(kind: str, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+    def layer_cache(kind: str, lead: Tuple[int, ...]) -> Dict[str, _Leaf]:
         mixer = kind.split("+")[0]
         if mixer == "cross":
             return {}
         if mixer == "mamba":
-            return S.mamba_init_state(cfg, batch, cfg.tdtype, dev, lead)
+            return S.mamba_init_state(cfg, batch, cfg.tdtype, dev, lead, full=_Leaf)
         if mixer in ("mlstm", "slstm"):
-            return S.xlstm_init_state(cfg, batch, mixer == "slstm", dev, lead)
+            return S.xlstm_init_state(cfg, batch, mixer == "slstm", dev, lead, full=_Leaf)
         if mixer == "mla":
             m = cfg.mla
-            return {"c_kv": torch.zeros(lead + (batch, max_len, m.kv_lora_rank),
-                                        dtype=cfg.tdtype, device=dev),
-                    "k_rope": torch.zeros(lead + (batch, max_len, m.rope_head_dim),
-                                          dtype=cfg.tdtype, device=dev)}
+            return {"c_kv": _Leaf(lead + (batch, max_len, m.kv_lora_rank), cfg.tdtype),
+                    "k_rope": _Leaf(lead + (batch, max_len, m.rope_head_dim), cfg.tdtype)}
         shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.hd)
         if cfg.kv_cache_dtype == "int8":
-            return {
-                "k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-                "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-            }
-        return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
-                "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
+            return {"k": _Leaf(shape, torch.int8), "v": _Leaf(shape, torch.int8),
+                    "k_s": _Leaf(shape[:-1], torch.float32),
+                    "v_s": _Leaf(shape[:-1], torch.float32)}
+        return {"k": _Leaf(shape, cfg.tdtype), "v": _Leaf(shape, cfg.tdtype)}
 
-    cache: Dict[str, Any] = {"lengths": torch.zeros((batch,), dtype=torch.int32,
-                                                    device=dev)}
+    cache: Dict[str, Any] = {"lengths": _Leaf((batch,), torch.int32)}
     for i in range(n_prefix):
         cache[f"prefix_{i}"] = layer_cache(layer_kind(cfg, i), ())
     if n_sb > 0:
@@ -545,20 +587,7 @@ def _slot_caches(cfg: ModelConfig, batch: int, max_len: int,
             str(j): layer_cache("attn+mlp" if cfg.family == "audio"
                                 else layer_kind(cfg, n_prefix + j), (n_sb,))
             for j in range(pat)}
-    return _shard_cache(cfg, cache)
-
-
-def _shard_cache(cfg: ModelConfig, cache: Dict[str, Any]) -> Dict[str, Any]:
-    """Under an active mesh, every leaf of ``cache`` as a DTensor laid out
-    by :func:`repro_torch.models.zoo.cache_logical` (JAX shards its decode
-    cache so in the dry-run's cells); without one, ``cache`` as it is."""
-    mesh = shd.active_mesh()
-    if mesh is None:
-        return cache
-    from .zoo import cache_logical
-
-    specs = cache_logical(cfg, cache, shd.mesh_shape(mesh).get("model", 1))
-    return shd.device_put_tree(cache, shd.tree_shardings(specs, cache, mesh))
+    return _make_cache(cfg, cache, dev)
 
 
 def init_cache(
@@ -597,13 +626,12 @@ def init_cache(
     n_prefix, pat, n_sb = _scan_layout(cfg)
     Se = cfg.encoder.n_ctx if cfg.encoder is not None else 0
     shape = (n_sb, batch, Se, cfg.n_kv_heads, cfg.hd)
-    cross = {str(j): (torch.zeros(shape, dtype=cfg.tdtype, device=dev),
-                      torch.zeros(shape, dtype=cfg.tdtype, device=dev))
+    cross = {str(j): (_Leaf(shape, cfg.tdtype), _Leaf(shape, cfg.tdtype))
              for j in range(pat)
              if Se and (cfg.family == "audio"
                         or layer_kind(cfg, n_prefix + j).startswith("cross"))}
     if cross:
-        cache["__cross"] = _shard_cache(cfg, {"__cross": cross})["__cross"]
+        cache["__cross"] = _make_cache(cfg, {"__cross": cross}, dev)["__cross"]
     return cache
 
 

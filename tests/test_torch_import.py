@@ -24,6 +24,9 @@ REQUIRED = (
     "distributed/sharding.py", "distributed/compression.py", "launch/mesh.py",
     # the dry run and the roofline model
     "launch/dryrun.py", "launch/roofline_model.py",
+    # the determinism and seed lint
+    "analysis/framework.py", "analysis/determinism.py", "analysis/seeds.py",
+    "analysis/perf.py",
 )
 
 
