@@ -110,8 +110,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    of weights drawn on the card from a seed) through
    ``LLMEngine.admit``/``step``: 4 requests of 128-512 prompt tokens and 32
    new tokens each, every launch matched (flash once a layer per
-   admission, through its CUDA-core body at 192 / 128; RMSNorm twice a
-   layer plus once per admission and step; no decode-attention launch: MLA
+   admission, every one through its tensor-core body at 192 / 128; RMSNorm
+   twice a layer plus once per admission and step; no decode-attention
+   launch: MLA
    decodes in the latent space), a profiled window of 4 decode steps with
    the host's launches, syncs and routed-MoE calls a step, then LLMSched
    over one DeepSeek slot replica (2 planning jobs, token scale 16);
@@ -200,7 +201,8 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    DeepSeek-V2-Lite-16B cut to its first 6 of 27 layers (MLA + the dense
    MLP, then MLA + 64 experts top-6 + 2 shared) through the launcher with
    ``get_config`` given the cut, float32 state, 10 steps at 4 x 1024, lr
-   1e-5 (the flash backward at 192 / 128 in every step); Jamba-1.5-Large's
+   1e-5 (the flash forward and backward at 192 / 128 in every step, every
+   call through their tensor-core bodies); Jamba-1.5-Large's
    first 2 of 72 layers (Mamba + MoE, Mamba + MLP), gradients only (its
    AdamW state does not fit one card): 3 ``loss_and_grads`` passes at
    1 x 1024 through the scan's backward kernel; Whisper-tiny (4 x 256) and
@@ -261,7 +263,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    training shape, N 8 and 16, ragged T and D, with and without h0 and
    dh_T, B and C strided, each checkpoint of the forward equal to the bit
    to h_T of the forward cut there, reruns bit-equal) and the flash
-   backward at MLA's 24 / 16 and 192 / 128 on its CUDA-core body; it times
+   backward at MLA's 24 / 16 (CUDA-core body) and 192 / 128 (tensor-core
+   body in bf16: causal and bidirectional, ragged, H = K and GQA, and once
+   off 16 bytes through the CUDA-core body); it times
    the scan's backward at Jamba's training shape (``timing_bf16``, row 6b:
    its bound the exps, f32 operations or bytes; ``form``, the registers,
    spilled bytes, shared bytes, CTAs a SM and waves of the form launched;
@@ -269,7 +273,9 @@ csrc`` (``nvcc``, ``sm_90a``), then prints one JSON line per phase:
    DeepSeek-V2-Lite's (B = 4, S = 1024, H = K = 16, causal, the shape
    ``train_families`` gives it; held first against the plain backward in
    bf16, a rerun bit-equal; ``timing_bf16_backward_mla``, beside autograd's
-   SDPA backward).
+   SDPA backward and the CUDA-core body it replaces, called through its
+   ctypes entry on the same inputs: the tensor-core body must be
+   ``MLA_TC_GAIN`` = 10 times faster).
 
 The ``testbed`` phase also runs the ``ladder3`` cascade fleet: the
 stablelm-1.6b, internlm2-20b and Kimi-K2 smoke configs on three paged
@@ -277,7 +283,11 @@ replicas behind a ``DeterministicGate`` (strictness 0.8), built by
 ``build_engines`` as the launcher builds it; every job must finish.  The
 ``kernels`` phase also holds and times (``timing_bf16_mla_dense``) flash at
 DeepSeek-V2-Lite's MLA prefill (B = 1, Sq = Sk = 512, H = K = 16, hd 192 /
-hd_v 128, causal), paged decode over fp pages at Llama-3-405B's H = 128 /
+hd_v 128, causal; the tensor-core body, warm and cold, beside SDPA and the
+CUDA-core body it replaces, which must be ``MLA_TC_GAIN`` = 10 times slower;
+first held at ``MLA_FWD_CASES``, causal and bidirectional, ragged, GQA, NaN
+past Sk, and with three bf16 calls that must take the CUDA-core body), paged
+decode over fp pages at Llama-3-405B's H = 128 /
 K = 8 and Kimi-K2's and Qwen1.5-110B's H = 64 / K = 8, paged prefill at
 Llama-3-405B's widths and RMSNorm at 4 x 16384 and 4 x 7168.
 
@@ -653,8 +663,10 @@ def _sass_mma(build_mod, lib_path: str):
         names = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True,
                                text=True, check=True, timeout=60).stdout.splitlines()
         counts = dict(zip(names, counts.values()))
+    # flash at the four head-dim pairs, the paged prefill at three, bf16 and
+    # int8 pages
     tc = {k: v for k, v in counts.items() if "attention_tc_kernel" in k}
-    check(len(tc) == 9 and all(v["HMMA"] + v["HGMMA"] > 0 for v in tc.values()),
+    check(len(tc) == 10 and all(v["HMMA"] + v["HGMMA"] > 0 for v in tc.values()),
           f"a tensor-core body without tensor-core instructions: {tc}")
     return counts
 
@@ -732,7 +744,8 @@ def _backward_ptxas(log: str, sass) -> dict:
     from repro_torch.kernels import _build
 
     tc = {k: v for k, v in out.items() if k.startswith(("dkdv_tc", "dq_tc"))}
-    check(len(tc) == 2 * len(_build.TC_HEAD_DIMS), f"backward tensor-core kernels: {sorted(tc)}")
+    check(len(tc) == 2 * len(_build.TC_HEAD_DIM_PAIRS),
+          f"backward tensor-core kernels: {sorted(tc)}")
     check(all(v.get("spill_stores", 0) == v.get("spill_loads", 0) == 0 for v in tc.values()),
           f"a backward tensor-core kernel spills: {tc}")
     check(sass is None or all(v.get("HMMA", 0) > 0 for v in tc.values()),
@@ -1404,6 +1417,114 @@ def _wide_timing(dev, errs) -> dict:
 #: the MLA / dense models' new widths: (H, K, hd) of paged attention
 MLA_DENSE_PAGED = {"llama3-405b": (128, 8, 128), "kimi-k2 / qwen1.5-110b": (64, 8, 128)}
 MLA_DENSE_RMSNORM = ((4, 16384), (4, 7168))
+#: (B, S, H, K) of the flash checks at MLA's 192 / 128, each causal and
+#: bidirectional: ragged S (37, 100, 386 and 1024 = 16 tiles), H = K and GQA
+MLA_FWD_CASES = ((2, 37, 16, 16), (2, 100, 16, 4), (1, 386, 16, 16), (1, 1024, 16, 4))
+#: the tensor-core bodies at MLA's 192 / 128 must beat the CUDA-core bodies
+#: they replace by this factor at the timed shapes (device ms, one call)
+MLA_TC_GAIN = 10.0
+
+
+def _flash_cuda_core_bf16(q, k, v, causal: bool, scale: float, out=None):
+    """The flash forward's CUDA-core body on bf16 q, k, v through its
+    ctypes entry: a call the wrapper sends to the tensor-core body, run on
+    the body that served it before, for the old body's time beside the new
+    one's in one call (the port never calls it so)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import BLOCK_ROWS
+
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    hd_v = v.shape[3]
+    if out is None:
+        out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+    code = _build.entry("flash_attention_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, Sq, Sk, H, K, hd,
+        hd_v, int(causal), BLOCK_ROWS, *q.stride(), *k.stride(), *v.stride(), scale,
+        _build.current_stream(q.device))
+    _build.check(code, "flash_attention_bf16")
+    return out
+
+
+def _flash_bwd_cuda_core_bf16(q, k, v, o, lse, do, causal: bool, scale: float):
+    """The flash backward's CUDA-core body on bf16 inputs through its ctypes
+    entry, as ``_flash_cuda_core_bf16`` does for the forward."""
+    from repro_torch.kernels import _build
+
+    B, Sq, H, hd = q.shape
+    _, Sk, K, _ = k.shape
+    hd_v = v.shape[3]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    code = _build.entry("flash_attention_bwd_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd,
+        hd_v, int(causal), *q.stride(), *k.stride(), *v.stride(), *o.stride(), *do.stride(),
+        scale, _build.current_stream(q.device))
+    _build.check(code, "flash_attention_bwd_bf16")
+    return dq, dk, dv
+
+
+def _check_mla_flash(dev, errs, cases) -> dict:
+    """Flash at MLA's 192 / 128 against its plain version (``MLA_FWD_CASES``,
+    causal and bidirectional, NaN in the keys past Sk of a longer buffer):
+    every bf16 call through the tensor-core body, every f32 one through the
+    CUDA-core body, and three bf16 calls that must take the CUDA-core body
+    too (q off 16 bytes, v rows a slice of a wider buffer, and MLA's smoke
+    24 / 16); the LSE output against the plain LSE.  Returns the bf16
+    cases' max error."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(62)
+    worst, lse_err = 0.0, 0.0
+
+    def routed(want_tc, *args, **kw):
+        tc0 = flash_attention.tc_launches
+        out = flash_attention(*args, **kw)
+        check(flash_attention.tc_launches - tc0 == want_tc,
+              f"flash at MLA's head dims took the wrong body ({args[0].dtype}, "
+              f"{tuple(args[0].shape)}, {tuple(args[2].shape)})")
+        return out
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, K in MLA_FWD_CASES:
+            q = torch.randn(B, S, H, 192, generator=g, device=dev).to(dtype)
+            kb = torch.full((B, S + 7, K, 192), float("nan"), device=dev, dtype=dtype)
+            vb = torch.full((B, S + 7, K, 128), float("nan"), device=dev, dtype=dtype)
+            kb[:, :S] = torch.randn(B, S, K, 192, generator=g, device=dev).to(dtype)
+            vb[:, :S] = torch.randn(B, S, K, 128, generator=g, device=dev).to(dtype)
+            k, v = kb[:, :S], vb[:, :S]
+            for causal in (True, False):
+                want_tc = int(dtype == torch.bfloat16)
+                out, lse = routed(want_tc, q, k, v, causal=causal, return_lse=True)
+                err = _err(out, R.attention_ref(q, k, v, causal=causal), dtype)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                    lse_err = max(lse_err, float(
+                        (lse - R.attention_lse_ref(q, k, causal=causal)).abs().max()))
+                cases.append(("flash MLA", str(dtype), B, S, H, K, causal))
+            del q, kb, vb, k, v, out, lse
+    check(lse_err <= 1e-4, f"flash LSE at 192 / 128 off the plain LSE: {lse_err}")
+    q = torch.randn(1, 100, 16, 192, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, 100, 4, 192, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, 100, 4, 128, generator=g, device=dev).bfloat16()
+    want = R.attention_ref(q, k, v, causal=True)
+    vw = torch.randn(1, 100, 4, 129, generator=g, device=dev).bfloat16()
+    vw[..., :128] = v
+    for label, args in (("q off 16 bytes", (_off_16_bytes(q), k, v)),
+                        ("v rows 258 bytes apart", (q, k, vw[..., :128]))):
+        errs["flash_attention"] = max(errs["flash_attention"], _err(
+            routed(0, *args, causal=True), want, torch.bfloat16))
+        cases.append(("flash MLA", label))
+    qs, ks, vs = (torch.randn(2, 37, 4, d, generator=g, device=dev).bfloat16()
+                  for d in (24, 24, 16))
+    errs["flash_attention"] = max(errs["flash_attention"], _err(
+        routed(0, qs, ks, vs, causal=True), R.attention_ref(qs, ks, vs, causal=True),
+        torch.bfloat16))
+    cases.append(("flash MLA smoke 24 / 16",))
+    return {"max_abs_err_bf16": worst, "lse_max_abs_err": lse_err}
 
 
 def _mla_dense_rows(dev, errs, cases) -> dict:
@@ -1412,7 +1533,9 @@ def _mla_dense_rows(dev, errs, cases) -> dict:
     call and its bound, with inputs from a generator of their own:
 
     - flash at DeepSeek-V2-Lite's MLA prefill (B = 1, Sq = Sk = 512, H = K =
-      16, hd 192 / hd_v 128, causal: the CUDA-core body) beside SDPA;
+      16, hd 192 / hd_v 128, causal: the tensor-core body) beside SDPA and
+      beside the CUDA-core body it replaces (its ctypes entry on the same
+      inputs: ``cuda_core_*``), warm and cold, after ``_check_mla_flash``;
     - paged decode over fp pages at Llama-3-405B's H = 128 / K = 8 / hd 128
       (g = 16) and Kimi-K2's and Qwen1.5-110B's H = 64 / K = 8 (g = 8), B = 8
       over 96..800 tokens, held with +-99 and NaN in every unreferenced slot;
@@ -1423,7 +1546,8 @@ def _mla_dense_rows(dev, errs, cases) -> dict:
 
     Every bf16 paged prefill call timed here takes the tensor-core body and
     every decode call the split body (but the misaligned ``other_body``
-    calls); flash at 192 / 128 takes neither tensor-core body."""
+    calls); every bf16 flash call at 192 / 128 the tensor-core body, which
+    must be ``MLA_TC_GAIN`` times faster than the CUDA-core body."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -1438,28 +1562,48 @@ def _mla_dense_rows(dev, errs, cases) -> dict:
     launches0, tc0 = ops.launch_counts(), ops.tc_launch_counts()
     split0 = ops.split_launch_counts()
     # flash at MLA's head dims
+    checked = _check_mla_flash(dev, errs, cases)
+    flash0 = (ops.launch_counts()["flash_attention"], ops.tc_launch_counts()["flash_attention"])
     Sq, H, hd, hd_v = 512, 16, 192, 128
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _on(dev, dtype, *(rng.normal(size=sh).astype(np.float32) for sh in
                                     ((1, Sq, H, hd), (1, Sq, H, hd), (1, Sq, H, hd_v))))
-        errs["flash_attention"] = max(errs["flash_attention"], _err(
-            flash_attention(q, k, v, causal=True), R.attention_ref(q, k, v, causal=True),
-            dtype))
+        want = R.attention_ref(q, k, v, causal=True)
+        err = _err(flash_attention(q, k, v, causal=True), want, dtype)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
         cases.append(("flash", "deepseek-v2-lite MLA", str(dtype), Sq, True))
     es, dt = 2, torch.bfloat16
+    scale = hd ** -0.5
+    old = _err(_flash_cuda_core_bf16(q, k, v, True, scale), want, dt)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = Sq * (Sq + 1) // 2
     nb, fl = bound(es * (2 * Sq * H * hd + Sq * H * hd_v + Sq * H * hd_v),
                    2 * H * (hd + hd_v) * pairs, dt)
-    rows["flash_attention mla"] = dict(
+    row = dict(
         **_times(lambda: flash_attention(q, k, v, causal=True),
                  lambda: R.attention_ref(q, k, v, causal=True),
                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                        scale=hd ** -0.5)),
-        bound_ms=nb, bound_by=fl,
+                                                        scale=scale)),
+        bound_ms=nb, bound_by=fl, body="tensor cores", max_abs_err=err,
+        checked=checked, cuda_core_max_abs_err=old,
         shape=f"deepseek-v2-lite MLA: B=1 Sq=Sk={Sq} causal H=K={H} hd={hd} hd_v={hd_v}")
-    flash_tc = ops.tc_launch_counts()["flash_attention"] - tc0["flash_attention"]
-    check(flash_tc == 0, f"flash at 192 / 128 took the tensor-core body {flash_tc} times")
+    row.update(_cold_device_ms(lambda *t: flash_attention(*t, causal=True), (q, k, v),
+                               es * (2 * Sq * H * hd + 2 * Sq * H * hd_v), dev))
+    out = torch.empty_like(want)
+    row["cuda_core_ms"] = time_ms(lambda: _flash_cuda_core_bf16(q, k, v, True, scale, out))
+    row["cuda_core_device_ms"] = device_ms(
+        lambda: _flash_cuda_core_bf16(q, k, v, True, scale, out))["device_ms"]
+    row["gain_over_cuda_core"] = row["cuda_core_device_ms"] / row["device_ms"]
+    check(row["gain_over_cuda_core"] >= MLA_TC_GAIN,
+          f"flash at 192 / 128: the tensor-core body {row['device_ms']} ms is not "
+          f"{MLA_TC_GAIN}x faster than the CUDA-core body {row['cuda_core_device_ms']} ms")
+    rows["flash_attention mla"] = row
+    del out
+    flash_n = ops.launch_counts()["flash_attention"] - flash0[0]
+    flash_tc = ops.tc_launch_counts()["flash_attention"] - flash0[1]
+    check(flash_tc == flash_n - 1 > 0,
+          f"a bf16 flash call at 192 / 128 missed the tensor-core body: {flash_tc} of "
+          f"{flash_n} (one f32)")
     ps, npp = 16, 64
     other = 0
     for label, (H, K, hd) in MLA_DENSE_PAGED.items():
@@ -2224,12 +2368,25 @@ def _serve(eng, reqs) -> dict:
     return res
 
 
+def _flash_head_dims(cfg) -> tuple:
+    """``(hd, hd_v)`` of a model's flash calls: MLA's ``(nope + rope,
+    v_head)`` (DeepSeek-V2-Lite's 192 / 128, its smoke config's 24 / 16),
+    else ``(hd, hd)``."""
+    if cfg.mla is not None:
+        return cfg.mla.nope_head_dim + cfg.mla.rope_head_dim, cfg.mla.v_head_dim
+    return cfg.hd, cfg.hd
+
+
 def _check_tc(counts, tcs, cfg, what: str) -> None:
     """Every flash and paged prefill call of a bf16 model took the
-    tensor-core body; of a float32 model, none did, nor flash at MLA's
-    head dims (192 / 128: the CUDA-core body)."""
+    tensor-core body; of a float32 model, none did, nor flash at head dims
+    that body has no form for (MLA's smoke 24 / 16; MLA's 192 / 128 takes
+    it)."""
+    from repro_torch.kernels import _build
+
+    flash_tc = _flash_head_dims(cfg) in _build.TC_HEAD_DIM_PAIRS or cfg.mla is None
     want = {k: counts[k] if cfg.dtype == "bfloat16"
-            and not (k == "flash_attention" and cfg.mla is not None) else 0 for k in tcs}
+            and (k != "flash_attention" or flash_tc) else 0 for k in tcs}
     check(tcs == want, f"{what}: tensor-core launches {tcs}, expected {want}")
 
 
@@ -2459,8 +2616,8 @@ def _check_slot_launches(counts, tcs, splits, cfg, adm: int, steps: int, what: s
     Mamba layer; RMSNorm once a layer, once more a layer with an FFN, and
     once for the final norm, in both (xLSTM's cells run no other kernel);
     the paged kernels never; flash through the tensor-core body in bf16
-    (MLA's 192 / 128 through the CUDA-core body); every decode call
-    through the split-context body."""
+    (MLA's 192 / 128 too); every decode call through the split-context
+    body."""
     from repro_torch.models import layer_kind
 
     mixers = [layer_kind(cfg, i).split("+")[0] for i in range(cfg.n_layers)]
@@ -2901,8 +3058,9 @@ def phase_mla(dev) -> dict:
     """The whole DeepSeek-V2-Lite-16B (27 layers, bf16, 31.4 GB of weights
     drawn on the card) through ``LLMEngine.admit``/``step``: 4 requests of
     128-512 prompt tokens and 32 new tokens each, every launch counted and
-    matched (flash once a layer per admission, through its CUDA-core body;
-    RMSNorm twice a layer plus once per admission and step; no decode
+    matched (flash once a layer per admission, every call through its
+    tensor-core body at 192 / 128; RMSNorm twice a layer plus once per
+    admission and step; no decode
     attention: the absorbed decode has no kernel); then a profiled decode
     window and LLMSched over one DeepSeek slot replica."""
     from repro_torch.configs import get_config
@@ -2929,7 +3087,7 @@ def phase_mla(dev) -> dict:
                             for i, p in enumerate(prompts)], "mla")
     n = cfg.n_layers
     check(run["launches"]["flash_attention"] == n * run["admissions"]
-          and run["tc_launches"]["flash_attention"] == 0
+          and run["tc_launches"]["flash_attention"] == n * run["admissions"]
           and run["launches"]["decode_attention"] == 0
           and run["launches"]["rmsnorm"] == (2 * n + 1) * (run["admissions"]
                                                            + run["decode_steps"]),
@@ -3624,11 +3782,17 @@ def _backward_wide(dev) -> dict:
     return {"timing_bf16_backward_wide": rows}
 
 
-#: (label, B, S_q = S_k, H = K, hd, hd_v) of the flash backward checks at
-#: MLA's head dims, causal: DeepSeek's smoke widths, DeepSeek-V2-Lite's
-#: (one sequence of 386 tokens, and a ragged 100 at B = 2)
-MLA_BWD_CASES = (("deepseek smoke", 2, 37, 4, 24, 16), ("deepseek-v2-lite", 1, 386, 16, 192, 128),
-                 ("deepseek-v2-lite ragged", 2, 100, 16, 192, 128))
+#: (label, B, S_q = S_k, H, K, hd, hd_v, causal) of the flash backward checks
+#: at MLA's head dims: DeepSeek's smoke widths, DeepSeek-V2-Lite's (one
+#: sequence of 386 tokens, a ragged 100 at B = 2 with H = K and with GQA,
+#: bidirectional at 37 and at 1024 with GQA); the timed shape (B = 4, S =
+#: 1024, causal) is held in ``_mla_backward_row``
+MLA_BWD_CASES = (("deepseek smoke", 2, 37, 4, 4, 24, 16, True),
+                 ("deepseek-v2-lite", 1, 386, 16, 16, 192, 128, True),
+                 ("deepseek-v2-lite ragged", 2, 100, 16, 16, 192, 128, True),
+                 ("deepseek-v2-lite ragged GQA", 2, 100, 16, 4, 192, 128, True),
+                 ("deepseek-v2-lite bidirectional", 2, 37, 16, 16, 192, 128, False),
+                 ("deepseek-v2-lite bidirectional GQA", 1, 1024, 16, 4, 192, 128, False))
 #: (label, B, T, D, N, h0, dh_T) of the scan backward checks: Jamba-1.5-Large's
 #: training shape, the smoke config's N = 8 with h0 and dh_T, ragged T and D,
 #: a T of one step, one past a checkpoint and one at it, 33 chunks with a
@@ -3647,29 +3811,44 @@ SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
 def _check_mla_backward(dev, errs, cases) -> None:
     """The flash backward at MLA's head dims (``MLA_BWD_CASES``) against the
-    plain backward, f32 and bf16, causal: every call through the CUDA-core
-    body (no tensor-core launch), each rerun bit-equal."""
+    plain backward, f32 and bf16: bf16 at 192 / 128 through the tensor-core
+    body, f32 and 24 / 16 through the CUDA-core body, and once more a bf16
+    case at 192 / 128 with its inputs off 16 bytes, through the CUDA-core
+    body; each rerun bit-equal."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     for dtype in (torch.float32, torch.bfloat16):
-        for label, B, S, H, hd, hd_v in MLA_BWD_CASES:
-            q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, S, S, H, H, hd, True, 58,
+        for label, B, S, H, K, hd, hd_v, causal in MLA_BWD_CASES:
+            q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, S, S, H, K, hd, causal, 58,
                                                     hd_v=hd_v)
+            want_tc = dtype == torch.bfloat16 and (hd, hd_v) in _build.TC_HEAD_DIM_PAIRS
             tc0 = flash_attention_bwd.tc_launches
-            got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-            check(flash_attention_bwd.tc_launches == tc0,
-                  f"flash_attention_bwd at {hd} / {hd_v} took the tensor-core body")
-            want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            check(flash_attention_bwd.tc_launches - tc0 == want_tc,
+                  f"flash_attention_bwd at {hd} / {hd_v} ({label}, {dtype}) took the wrong body")
+            want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 check(a.shape == b.shape and a.dtype == dtype, f"flash_attention_bwd {name} "
                       f"({label}): {a.dtype} {tuple(a.shape)}")
                 errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], _bwd_err(
                     a, b, dtype, f"flash_attention_bwd {name} ({label}, {dtype})"))
             check(all(torch.equal(a, b) for a, b in
-                      zip(got, flash_attention_bwd(q, k, v, o, lse, do, causal=True))),
+                      zip(got, flash_attention_bwd(q, k, v, o, lse, do, causal=causal))),
                   f"flash_attention_bwd is not deterministic ({label}, {dtype})")
             cases.append(("flash_attention_bwd", label, hd, hd_v, str(dtype)))
+            if want_tc and label == "deepseek-v2-lite ragged GQA":
+                args = [_off_16_bytes(t) for t in (q, k, v, o)] + [lse, _off_16_bytes(do)]
+                tc0 = flash_attention_bwd.tc_launches
+                off = flash_attention_bwd(*args, causal=causal)
+                check(flash_attention_bwd.tc_launches == tc0,
+                      "flash_attention_bwd at 192 / 128 off 16 bytes took the tensor-core body")
+                for name, a, b in zip(("dq", "dk", "dv"), off, want):
+                    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], _bwd_err(
+                        a, b, dtype, f"flash_attention_bwd {name} ({label}, off 16 bytes)"))
+                cases.append(("flash_attention_bwd", label, "off 16 bytes", str(dtype)))
+                del args, off
             del q, k, v, o, lse, do, got, want
 
 
@@ -3782,10 +3961,13 @@ def _scan_bwd_row(dev, B=1, T=1024, D=16384, N=16) -> dict:
 def _mla_backward_row(dev, errs, cases, B=4, S=1024, H=16, hd=192, hd_v=128) -> dict:
     """Row 5b-MLA: the flash backward at DeepSeek-V2-Lite's training shape
     (B = 4, S = 1024, causal, H = K = 16, hd 192 / hd_v 128), bf16, on the
-    CUDA-core body, the shape ``train_families`` gives it: dq, dk and dv
+    tensor-core body, the shape ``train_families`` gives it: dq, dk and dv
     held against the plain backward on the same inputs (``BWD_TOL``), a
-    rerun bit-equal, then the times; the library call (timed, never used by
-    the port) is autograd's backward of SDPA at the same shape."""
+    rerun bit-equal, then the times, warm and cold; the library call
+    (timed, never used by the port) is autograd's backward of SDPA at the
+    same shape; ``cuda_core_*`` the CUDA-core body it replaces on the same
+    inputs (its ctypes entry, held to ``BWD_TOL`` too), which must be
+    ``MLA_TC_GAIN`` times slower."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as R
@@ -3794,7 +3976,7 @@ def _mla_backward_row(dev, errs, cases, B=4, S=1024, H=16, hd=192, hd_v=128) -> 
     dt, es = torch.bfloat16, 2
     label = "deepseek-v2-lite train"
     q, k, v, o, lse, do = _flash_bwd_inputs(dev, dt, B, S, S, H, H, hd, True, 61, hd_v=hd_v)
-    tc0 = flash_attention_bwd.tc_launches
+    n0, tc0 = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
     err = {}
@@ -3806,7 +3988,14 @@ def _mla_backward_row(dev, errs, cases, B=4, S=1024, H=16, hd=192, hd_v=128) -> 
     check(all(torch.equal(a, b) for a, b in
               zip(got, flash_attention_bwd(q, k, v, o, lse, do, causal=True))),
           f"flash_attention_bwd is not deterministic ({label}, {dt})")
+    check(flash_attention_bwd.tc_launches == tc0 + 2,
+          "the MLA backward missed the tensor-core body")
     cases.append(("flash_attention_bwd", label, hd, hd_v, str(dt)))
+    scale = hd ** -0.5
+    old = {}
+    for name, a, b in zip(("dq", "dk", "dv"),
+                          _flash_bwd_cuda_core_bf16(q, k, v, o, lse, do, True, scale), want):
+        old[name] = _bwd_err(a, b, dt, f"flash_attention_bwd CUDA-core body {name} ({label})")
     del got, want
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=hd ** -0.5)
@@ -3818,9 +4007,24 @@ def _mla_backward_row(dev, errs, cases, B=4, S=1024, H=16, hd=192, hd_v=128) -> 
         **_times(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
                  lambda: R.attention_bwd_ref(q, k, v, o, lse, do, causal=True),
                  lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)),
-        bound_ms=nb, bound_by=fl, body="CUDA cores", max_abs_err=err,
-        tol=BWD_TOL[dt], shape=f"B={B} Sq=Sk={S} causal H=K={H} hd={hd} hd_v={hd_v}")
-    check(flash_attention_bwd.tc_launches == tc0, "the MLA backward took the tensor-core body")
+        bound_ms=nb, bound_by=fl, body="tensor cores", max_abs_err=err,
+        cuda_core_max_abs_err=old, tol=BWD_TOL[dt],
+        shape=f"B={B} Sq=Sk={S} causal H=K={H} hd={hd} hd_v={hd_v}")
+    touched = (2 * B * S * H * hd + B * S * H * hd_v * 3) * es + 4 * B * H * S
+    row.update(_cold_device_ms(lambda *t: flash_attention_bwd(*t, causal=True),
+                               (q, k, v, o, lse, do), touched, dev))
+    row["cuda_core_ms"] = time_ms(
+        lambda: _flash_bwd_cuda_core_bf16(q, k, v, o, lse, do, True, scale))
+    row["cuda_core_device_ms"] = device_ms(
+        lambda: _flash_bwd_cuda_core_bf16(q, k, v, o, lse, do, True, scale))["device_ms"]
+    row["gain_over_cuda_core"] = row["cuda_core_device_ms"] / row["device_ms"]
+    check(row["gain_over_cuda_core"] >= MLA_TC_GAIN,
+          f"the flash backward at 192 / 128: the tensor-core body {row['device_ms']} ms is not "
+          f"{MLA_TC_GAIN}x faster than the CUDA-core body {row['cuda_core_device_ms']} ms")
+    n = flash_attention_bwd.launches - n0
+    check(flash_attention_bwd.tc_launches - tc0 == n,
+          f"a timed MLA backward call missed the tensor-core body: "
+          f"{flash_attention_bwd.tc_launches - tc0} of {n}")
     return row
 
 
@@ -3872,10 +4076,10 @@ def _family_launches(counts, tcs, cfg, passes: int, what: str) -> None:
     backward kernel once; the scan once a Mamba layer a pass; where the
     model has no encoder, flash once an attention or MLA layer a pass and
     RMSNorm as a prefill pass takes it (Whisper and the VLM: both at least
-    once); no serving kernel; in bf16 at a head dim of ``TC_HEAD_DIMS``
-    every flash call, forward and backward, took the tensor-core body
-    (``tcs``: ``ops.tc_launch_counts()``), in float32 or at MLA's head dims
-    none."""
+    once); no serving kernel; in bf16 at head dims of ``TC_HEAD_DIM_PAIRS``
+    (MLA's 192 / 128 included) every flash call, forward and backward, took
+    the tensor-core body (``tcs``: ``ops.tc_launch_counts()``), in float32
+    or at MLA's smoke 24 / 16 none."""
     from repro_torch.kernels import _build
     from repro_torch.models import layer_kind
 
@@ -3895,8 +4099,8 @@ def _family_launches(counts, tcs, cfg, passes: int, what: str) -> None:
         check({k: counts[k] for k in want} == want, f"{what}: launches {counts}, want {want}")
     others = {k: v for k, v in counts.items() if v and k not in TRAIN_KERNELS}
     check(not others, f"{what}: a kernel off the training path ran: {others}")
-    tc = (counts["flash_attention"] if cfg.dtype == "bfloat16" and not n_mla
-          and cfg.hd in _build.TC_HEAD_DIMS else 0)
+    tc = (counts["flash_attention"] if cfg.dtype == "bfloat16"
+          and _flash_head_dims(cfg) in _build.TC_HEAD_DIM_PAIRS else 0)
     got = {k: tcs[k] for k in ("flash_attention", "flash_attention_bwd")}
     check(got == {"flash_attention": tc, "flash_attention_bwd": tc}
           and not any(v for k, v in tcs.items() if k not in got),

@@ -69,7 +69,7 @@ SIGNATURES: Dict[str, List] = {
     "ssm_scan_f32": [P] * 10 + [I] * 5 + [L] * 12 + [P],
     "ssm_scan_bf16": [P] * 10 + [I] * 5 + [L] * 12 + [P],
     # the tensor-core bodies (csrc/attention_tc.cuh), bf16 only
-    "flash_attention_tc_bf16": [P] * 5 + [I] * 7 + [L] * 9 + [F, P],
+    "flash_attention_tc_bf16": [P] * 5 + [I] * 8 + [L] * 9 + [F, P],
     "paged_prefill_tc_bf16": [P] * 5 + [I] * 8 + [L] * 6 + [F, P],
     "paged_prefill_q8_tc_bf16": [P] * 7 + [I] * 8 + [L] * 12 + [F, P],
     # the split-context decode bodies (csrc/decode_split.cuh), f32 and bf16
@@ -93,8 +93,14 @@ SIGNATURES: Dict[str, List] = {
     "ssm_scan_bwd_form_f32": [I, I, P],
     "ssm_scan_bwd_form_bf16": [I, I, P],
 }
-#: head dims the tensor-core attention body is built for (hd == hd_v)
+#: head dims the tensor-core attention body is built for at hd == hd_v (the
+#: paged prefill's, and flash's there)
 TC_HEAD_DIMS = (16, 64, 128)
+#: (hd, hd_v) pairs the flash forward's and backward's tensor-core bodies
+#: are built for: hd == hd_v in TC_HEAD_DIMS, and MLA's (192, 128)
+#: (DeepSeek-V2-Lite); MLA's smoke (24, 16) is no multiple of 16 and stays
+#: on the CUDA-core bodies
+TC_HEAD_DIM_PAIRS = tuple((d, d) for d in TC_HEAD_DIMS) + ((192, 128),)
 #: folded query rows per CTA and key tokens per tile of that body
 TC_ROWS = 64
 TC_TILE = 64
@@ -128,9 +134,9 @@ RMSNORM_WARPS = (1, 2, 4, 8, 16)
 #: states each lane holds (csrc/ssm_scan.cu)
 SSM_LANES = (1, 2, 4)
 #: (hd, hd_v) pairs the flash backward kernel is built for: hd == hd_v at 16,
-#: 64 and 128 (bf16 calls with 16-byte rows take its tensor-core body there),
-#: and MLA's (24, 16) (DeepSeek's smoke config) and (192, 128)
-#: (DeepSeek-V2-Lite), on its CUDA-core body only
+#: 64 and 128, MLA's (24, 16) (DeepSeek's smoke config) and (192, 128)
+#: (DeepSeek-V2-Lite); bf16 calls with 16-byte rows take its tensor-core body
+#: at the pairs of TC_HEAD_DIM_PAIRS, every other call its CUDA-core body
 BWD_HEAD_DIM_PAIRS = ((16, 16), (64, 64), (128, 128), (24, 16), (192, 128))
 #: widest row the RMSNorm backward kernel takes (the part of a row past its
 #: register slots keeps its f32 dgamma partial in a CTA's shared memory),

@@ -7,13 +7,15 @@
 //   registers as mma A-fragments (bf16, unscaled);
 // - K/V tiles are staged in shared memory by cp.async, 16 bytes a thread, in
 //   a ring of kStages = 3 stages, so two tiles load while one is used (the
-//   first two are in flight before Q is read). Each thread's copy addresses
-//   are computed once (Copier), so a tile's copies cost a multiply and two
-//   cp.async a row. Rows are stored with their 16-byte chunks XOR-swizzled
-//   by the row, so ldmatrix (and ldmatrix.trans for V) reads them free of
-//   bank conflicts. A token at or past the CTA's last visible key is never
-//   read: its copy has a source size of 0, which zero-fills the row, so
-//   garbage (even NaN) past Sk / ctx never reaches shared memory;
+//   first two are in flight before Q is read); at 192 / 128 a ring of
+//   kWideStages = 2, one tile loading while one is used. Each thread's copy
+//   addresses are computed once (Copier), so a tile's copies cost a
+//   multiply and one cp.async a 16-byte chunk. Rows are stored with their
+//   16-byte chunks XOR-swizzled by the row, so ldmatrix (and ldmatrix.trans
+//   for V) reads them free of bank conflicts. A token at or past the CTA's
+//   last visible key is never read: its copy has a source size of 0, which
+//   zero-fills the row, so garbage (even NaN) past Sk / ctx never reaches
+//   shared memory;
 // - S = Q.K^T on the tensor cores (mma.sync m16n8k16, bf16 in, f32
 //   accumulate), scaled in f32 after the product with log2(e) folded in;
 // - on a tile that crosses the diagonal or the tail (one branch a tile),
@@ -46,6 +48,21 @@
 // alone on its scheduler waits on its own copies, products and exps, so a
 // 64-token tile costs ~1 us to a lone CTA; the bytes bound of a call is
 // ~1-6 us.
+// Head dims: the body is templated on <HD, HDV>, q's and k's width and v's
+// (and the output's). The paged prefill and flash at hd == hd_v take HD ==
+// HDV in {16, 64, 128}; flash also takes MLA's (192, 128) (DeepSeek-V2-Lite).
+// There a K row is 24 16-byte chunks and a V row 16, so a thread copies one
+// chunk lane of 8 (three chunks of a K row, two of a V row; Copier), K and V
+// keep their own swizzled tiles (24 + 16 KB a stage), S = Q.K^T takes 12
+// k-steps over the 48 registers of Q's fragments, and O is 16 column blocks
+// of 8. What bounds it at 192 / 128 (DeepSeek-V2-Lite's prefill, B = 1,
+// Sq = Sk = 512, H = K = 16): its bytes, 0.0031 ms, against 0.0014 ms of
+// products; 8 row blocks x 16 heads are 128 CTAs, one a SM, so a lone CTA's
+// latency sets the time (~16 us: 8 key tiles of 64 for the longest row
+// block). The ring keeps kWideStages = 2 stages of 40 KB (80 KB, 245
+// registers, no spill: two CTAs a SM where 3 stages' 120 KB left one): the
+// same time there, and 28 % less at the training shape's 1024 CTAs (B = 4,
+// S = 1024; tools/flash_mla_variants.py).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -63,7 +80,8 @@ namespace cg = cooperative_groups;
 constexpr int kRows = 64;     // folded query rows per CTA, 16 per warp
 constexpr int kTok = 64;      // K/V tokens per tile
 constexpr int kThreads = 128; // 4 warps
-constexpr int kStages = 3;    // K/V tiles in flight: the ring's depth
+constexpr int kStages = 3;    // K/V tiles in flight at hd == hd_v: the ring's depth
+constexpr int kWideStages = 2;  // ... at MLA's 192 / 128 (40 KB a stage; see above)
 constexpr int kMaxSplits = 8; // context splits of a row block: one cluster
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -75,7 +93,7 @@ struct Params {
   const float* ksc;     // Q8: (P, ps, K) scale pools through their strides
   const float* vsc;
   const int* bt;        // paged: the request's block table
-  void* out;            // (B, Sq, H, hd) contiguous bf16
+  void* out;            // (B, Sq, H, hd_v) contiguous bf16
   float* lse;           // flash: (B, H, Sq) f32 row log-sum-exp, or null
   int Sq, Sk, H, K, causal, q_off, ps_shift, P, splits;  // page size 1 << ps_shift
   long long qs0, qs1, qs2;
@@ -159,37 +177,55 @@ __device__ __forceinline__ int swz(int t, int c) {
   return t * HD + ((c ^ (t & kMask)) << 3);
 }
 
-template <int HD, bool Q8>
+template <int HD, int HDV, bool Q8>
 struct Smem {
-  static constexpr int kTileElems = kTok * HD;
+  static_assert(!Q8 || HD == HDV, "int8 pages: one head dim");
+  static constexpr int kTileK = kTok * HD;   // elements of a K tile
+  static constexpr int kTileV = kTok * HDV;  // ... of a V tile
+  static constexpr int kRing = HD == HDV ? kStages : kWideStages;  // stages of the ring
   // bf16 pages: the ring holds bf16 K and V tiles, read by ldmatrix in place.
   // int8 pages: the ring holds the raw int8 tiles and the tiles' scales; one
   // bf16 K/V tile and one copy of the scales serve the products.
-  static constexpr size_t kStage = Q8 ? 2 * kTileElems + 2 * kTok * sizeof(float)
-                                      : 2 * kTileElems * sizeof(__nv_bfloat16);
-  static constexpr size_t kWide = Q8 ? 2 * kTileElems * sizeof(__nv_bfloat16)
+  static constexpr size_t kStage = Q8 ? kTileK + kTileV + 2 * kTok * sizeof(float)
+                                      : (kTileK + kTileV) * sizeof(__nv_bfloat16);
+  static constexpr size_t kWide = Q8 ? (kTileK + kTileV) * sizeof(__nv_bfloat16)
                                          + 2 * kTok * sizeof(float)
                                      : 0;
-  static constexpr size_t kBytes = kStages * kStage + kWide;
+  static constexpr size_t kBytes = kRing * kStage + kWide;
 };
 
-// One thread's share of a key tile's copies: 16-byte chunk `c` of rows
-// t_first, t_first + kRowStep, ... of K and of V, whose addresses in the
-// first token (or page slot) are computed once, so a tile's copies cost a
-// multiply and two cp.async a row.  Tokens at or past `limit` are
-// zero-filled without a read; paged positions map through the block
-// table, whose entries are range-checked (a bad page id traps) as they are
-// read.  int8 pages: each thread also copies one scale of the tile (K's
-// for the first kTok threads, V's for the others).
-template <int HD, bool PAGED, bool Q8>
+// 16-byte chunks of a row that one thread of a copy plan handles side by
+// side with its neighbours: the largest power of two (at most 16) dividing
+// both rows' chunk counts, so K's and V's rows share one plan (8 at 192 /
+// 128: 24 and 16 chunks)
+__host__ __device__ constexpr int chunk_lanes(int a, int b) {
+  int l = 16;
+  while (a % l || b % l) l /= 2;
+  return l;
+}
+
+// One thread's share of a key tile's copies: chunk lane `c` of rows
+// t_first, t_first + kRowStep, ... of K and of V (chunks c, c + kLanes, ...
+// of each row), whose addresses in the first token (or page slot) are
+// computed once, so a tile's copies cost a multiply and one cp.async a chunk.
+// Tokens at or past `limit` are zero-filled without a read; paged positions
+// map through the block table, whose entries are range-checked (a bad page
+// id traps) as they are read.  int8 pages: each thread also copies one scale
+// of the tile (K's for the first kTok threads, V's for the others).
+template <int HD, int HDV, bool PAGED, bool Q8>
 struct Copier {
   using TP = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
   static constexpr int kPer = 16 / static_cast<int>(sizeof(TP));  // elements a chunk
-  static constexpr int kChunks = HD / kPer;                         // chunks a row
-  static constexpr int kRowStep = kThreads / kChunks;
+  static constexpr int kLanes = chunk_lanes(HD / kPer, HDV / kPer);
+  static constexpr int kSegsK = HD / kPer / kLanes;                 // chunks a lane, K
+  static constexpr int kSegsV = HDV / kPer / kLanes;                // ... V
+  static constexpr int kRowStep = kThreads / kLanes;
   static constexpr int kRowsPer = (kTok + kRowStep - 1) / kRowStep;
-  static constexpr uint32_t kTensor = kTok * HD * sizeof(TP);  // bytes of K (or V) a stage
-  static_assert(kThreads % kChunks == 0 && kRowStep % 8 == 0, "copy plan");
+  static constexpr uint32_t kTensorK = kTok * HD * sizeof(TP);  // bytes of K a stage
+  static constexpr uint32_t kTensor = kTensorK + kTok * HDV * sizeof(TP);
+  static_assert(kThreads % kLanes == 0 && kRowStep % 8 == 0, "copy plan");
+  // a lane's later chunks keep the swizzle's XOR in the low 3 bits of the chunk
+  static_assert((kSegsK == 1 && kSegsV == 1) || kLanes >= 8, "copy plan");
   static_assert(!Q8 || kThreads == 2 * kTok, "one scale a thread");
 
   const TP* k;
@@ -198,14 +234,14 @@ struct Copier {
   long long k_page, v_page;  // paged: page strides
   const int* bt;
   int ps_shift, P, t_first;
-  uint32_t dst;              // byte offset of the first row's chunk in a stage
+  uint32_t dst_k, dst_v;     // byte offsets of the first row's chunks in a stage
   const float* sc;           // int8 pages: this thread's scale pool at head kh
   long long sc_page, sc_row;
   uint32_t sc_dst;
 
   __device__ __forceinline__ Copier(const Params& p, int b, int kh) {
-    const int c = threadIdx.x % kChunks;
-    t_first = threadIdx.x / kChunks;
+    const int c = threadIdx.x % kLanes;
+    t_first = threadIdx.x / kLanes;
     k = static_cast<const TP*>(p.k) + kh * p.ks2 + c * kPer + (PAGED ? 0 : b * p.ks0);
     v = static_cast<const TP*>(p.v) + kh * p.vs2 + c * kPer + (PAGED ? 0 : b * p.vs0);
     k_row = p.ks1;
@@ -215,13 +251,14 @@ struct Copier {
     bt = p.bt;
     ps_shift = p.ps_shift;
     P = p.P;
-    dst = Q8 ? t_first * HD + c * kPer : 2 * swz<HD>(t_first, c);
+    dst_k = Q8 ? t_first * HD + c * kPer : 2 * swz<HD>(t_first, c);
+    dst_v = kTensorK + (Q8 ? t_first * HDV + c * kPer : 2 * swz<HDV>(t_first, c));
     if constexpr (Q8) {
       const bool is_v = threadIdx.x >= kTok;
       sc = is_v ? p.vsc + kh * p.vss2 : p.ksc + kh * p.kss2;
       sc_page = is_v ? p.vss0 : p.kss0;
       sc_row = is_v ? p.vss1 : p.kss1;
-      sc_dst = 2 * kTensor + threadIdx.x * sizeof(float);
+      sc_dst = kTensor + threadIdx.x * sizeof(float);
     }
   }
 
@@ -248,9 +285,14 @@ struct Copier {
       const bool live = pos < limit;
       long long ko = 0, vo = 0;
       if (live) where(pos, ko, vo);
-      const uint32_t d = stage + dst + j * kRowStep * HD * sizeof(TP);
-      cp_async16(d, k + ko, live);
-      cp_async16(d + kTensor, v + vo, live);
+      const uint32_t dk = stage + dst_k + j * kRowStep * HD * sizeof(TP);
+      const uint32_t dv = stage + dst_v + j * kRowStep * HDV * sizeof(TP);
+#pragma unroll
+      for (int s = 0; s < kSegsK; ++s)
+        cp_async16(dk + s * kLanes * 16, k + ko + s * kLanes * kPer, live);
+#pragma unroll
+      for (int s = 0; s < kSegsV; ++s)
+        cp_async16(dv + s * kLanes * 16, v + vo + s * kLanes * kPer, live);
     }
     if constexpr (Q8) {
       const int pos = tile * kTok + threadIdx.x % kTok;
@@ -296,13 +338,14 @@ __device__ __forceinline__ void widen_tile(const unsigned char* stage, unsigned 
   wsc[threadIdx.x] = sc[threadIdx.x];  // 2 * kTok scales, one a thread
 }
 
-template <int HD, bool PAGED, bool Q8>
+template <int HD, int HDV, bool PAGED, bool Q8>
 __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  using S = Smem<HD, Q8>;
+  using S = Smem<HD, HDV, Q8>;
+  constexpr int kStages = S::kRing;
   constexpr int kKSteps = HD / 16;  // k-steps of S = Q.K^T
   constexpr int kNB = kTok / 8;     // 8-token column blocks of S
-  constexpr int kDB = HD / 8;       // 8-wide column blocks of O
+  constexpr int kDB = HDV / 8;      // 8-wide column blocks of O
   // ldmatrix runs one k-step ahead of the products at hd 128 (its longer
   // product chains leave latency to hide); at 64 and 16 the extra registers
   // cost more than they hide (chip_smoke.py timings, PERF.md)
@@ -345,7 +388,7 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
   float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;
 
   // the first kStages - 1 tiles go in flight before Q is read
-  const Copier<HD, PAGED, Q8> copier(p, b, kh);
+  const Copier<HD, HDV, PAGED, Q8> copier(p, b, kh);
   const uint32_t ring = smem_addr(tc_smem);
   unsigned char* wide = tc_smem + kStages * S::kStage;
 #pragma unroll
@@ -394,12 +437,12 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
       widen_tile<HD>(stage, wide);
       __syncthreads();
       kt = reinterpret_cast<const __nv_bfloat16*>(wide);
-      ksc = reinterpret_cast<const float*>(kt + 2 * kTok * HD);
+      ksc = reinterpret_cast<const float*>(kt + S::kTileK + S::kTileV);
       vsc = ksc + kTok;
     } else {
       kt = reinterpret_cast<const __nv_bfloat16*>(stage);
     }
-    const __nv_bfloat16* vt = kt + kTok * HD;
+    const __nv_bfloat16* vt = kt + S::kTileK;
     const int t0 = tile * kTok;
 
     // S = Q.K^T (16 x 64 per warp).  Each k-step's K fragments are loaded
@@ -537,8 +580,8 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
 #pragma unroll
         for (int d2 = 0; d2 < kDB / 2; ++d2) {
           uint32_t(&f)[4] = vf[(kk + kAhead) & 1][d2];
-          ldsm_x4_t(v_base + 2 * swz<HD>((kk + kAhead) * 16 + (lm & 1) * 8 + lr,
-                                         2 * d2 + (lm >> 1)),
+          ldsm_x4_t(v_base + 2 * swz<HDV>((kk + kAhead) * 16 + (lm & 1) * 8 + lr,
+                                          2 * d2 + (lm >> 1)),
                     f[0], f[1], f[2], f[3]);
         }
       }
@@ -568,7 +611,7 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
       if (r >= n_rows) continue;
       const float inv = 1.f / (half ? dB : dA);
       const long long tok = static_cast<long long>(b) * p.Sq + r / g;
-      __nv_bfloat16* dst = out + (tok * p.H + kh * g + r % g) * HD + quad * 2;
+      __nv_bfloat16* dst = out + (tok * p.H + kh * g + r % g) * HDV + quad * 2;
 #pragma unroll
       for (int j = 0; j < kDB; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
@@ -582,17 +625,17 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
     // its partial rows (unnormalized O, m and l) to its own shared memory,
     // then each merges every split-th row through distributed shared memory
     // and writes it: out = sum_s O_s 2^(m_s - M) / max(sum_s l_s 2^(m_s - M), 1e-30)
-    static_assert(kRows * HD * sizeof(float) + 2 * kRows * sizeof(float) <= S::kBytes,
+    static_assert(kRows * HDV * sizeof(float) + 2 * kRows * sizeof(float) <= S::kBytes,
                   "the partials must fit where the ring was");
     cp_async_wait<0>();
     __syncthreads();  // every warp is done with the ring
-    float* part = reinterpret_cast<float*>(tc_smem);  // [kRows][HD]
-    float* pm = part + kRows * HD;                     // [kRows]
+    float* part = reinterpret_cast<float*>(tc_smem);  // [kRows][HDV]
+    float* pm = part + kRows * HDV;                    // [kRows]
     float* pl = pm + kRows;                            // [kRows]
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int lr = warp * 16 + (lane >> 2) + half * 8;
-      float* dst = part + lr * HD + quad * 2;
+      float* dst = part + lr * HDV + quad * 2;
 #pragma unroll
       for (int j = 0; j < kDB; ++j)
         *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[j][2 * half], o[j][2 * half + 1]);
@@ -606,9 +649,9 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
     const int rank = blockIdx.z;  // the cluster spans z: its block rank
     const int n_mine = (rows - rank + p.splits - 1) / p.splits;
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-    for (int i = threadIdx.x; i < n_mine * (HD / 4); i += kThreads) {
-      const int lr = rank + (i / (HD / 4)) * p.splits;
-      const int d4 = i % (HD / 4);
+    for (int i = threadIdx.x; i < n_mine * (HDV / 4); i += kThreads) {
+      const int lr = rank + (i / (HDV / 4)) * p.splits;
+      const int d4 = i % (HDV / 4);
       // every split's (m, l, 4 dims of O) in flight at once, then merged
       float m[kMaxSplits], l[kMaxSplits];
       float4 x[kMaxSplits];
@@ -618,7 +661,7 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
           m[s] = *cluster.map_shared_rank(pm + lr, s);
           l[s] = *cluster.map_shared_rank(pl + lr, s);
           x[s] = *reinterpret_cast<const float4*>(
-              cluster.map_shared_rank(part + lr * HD + d4 * 4, s));
+              cluster.map_shared_rank(part + lr * HDV + d4 * 4, s));
         }
       }
       float M = kNegInf;
@@ -641,7 +684,7 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
       const float inv = 1.f / fmaxf(L, 1e-30f);
       const int r = r0 + lr;
       const long long tok = static_cast<long long>(b) * p.Sq + r / g;
-      __nv_bfloat16* dst = out + (tok * p.H + kh * g + r % g) * HD + d4 * 4;
+      __nv_bfloat16* dst = out + (tok * p.H + kh * g + r % g) * HDV + d4 * 4;
       reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
       reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
       if (p.lse != nullptr && d4 == 0)
@@ -651,11 +694,11 @@ __global__ void __launch_bounds__(kThreads) attention_tc_kernel(const Params p) 
   }
 }
 
-template <int HD, bool PAGED, bool Q8>
+template <int HD, int HDV, bool PAGED, bool Q8>
 int launch_hd(const Params& p, int BK, cudaStream_t stream) {
-  using S = Smem<HD, Q8>;
+  using S = Smem<HD, HDV, Q8>;
   static size_t granted[kMaxDevices] = {};
-  cudaError_t err = allow_smem(attention_tc_kernel<HD, PAGED, Q8>, S::kBytes, granted);
+  cudaError_t err = allow_smem(attention_tc_kernel<HD, HDV, PAGED, Q8>, S::kBytes, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_rows = p.Sq * (p.H / p.K);
   cudaLaunchConfig_t cfg = {};
@@ -670,23 +713,30 @@ int launch_hd(const Params& p, int BK, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = p.splits;  // the splits of a row block: one cluster
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attention_tc_kernel<HD, PAGED, Q8>, p);
+  err = cudaLaunchKernelEx(&cfg, attention_tc_kernel<HD, HDV, PAGED, Q8>, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the body for head dim `hd` (16, 64 or 128; the wrappers route no
-// other width here); B*K CTAs across, row blocks down, p.splits deep.
+// Launch the body for head dims (hd, hd_v): (16, 16), (64, 64), (128, 128)
+// and, flash only, MLA's (192, 128); the wrappers route no other pair here.
+// B*K CTAs across, row blocks down, p.splits deep.
 template <bool PAGED, bool Q8>
-int launch(const Params& p, int BK, int hd, void* stream) {
+int launch(const Params& p, int BK, int hd, int hd_v, void* stream) {
   if (BK == 0 || p.Sq == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_hd<16, PAGED, Q8>(p, BK, s);
-    case 64: return launch_hd<64, PAGED, Q8>(p, BK, s);
-    case 128: return launch_hd<128, PAGED, Q8>(p, BK, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == hd_v) {
+    switch (hd) {
+      case 16: return launch_hd<16, 16, PAGED, Q8>(p, BK, s);
+      case 64: return launch_hd<64, 64, PAGED, Q8>(p, BK, s);
+      case 128: return launch_hd<128, 128, PAGED, Q8>(p, BK, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  if constexpr (!PAGED && !Q8) {
+    if (hd == 192 && hd_v == 128) return launch_hd<192, 128, false, false>(p, BK, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

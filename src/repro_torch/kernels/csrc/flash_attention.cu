@@ -6,19 +6,25 @@
 // Sq = Sk = 386, causal, H = K = 32, hd = 64) q, k, v and the output are
 // 6.3 MB, 1.89 us at 3.35 TB/s, against 0.62 us for the causal products at
 // the bf16 tensor-core rate; at Jamba-1.5-Large's (Sq = Sk = 512, H = 64,
-// K = 8, hd = 128) 18.9 MB, 5.6 us, against 4.4 us of products.
+// K = 8, hd = 128) 18.9 MB, 5.6 us, against 4.4 us of products; at
+// DeepSeek-V2-Lite's MLA prefill (Sq = Sk = 512, H = K = 16, hd 192 / hd_v
+// 128) 10.5 MB, 3.1 us, against 1.4 us of products, where 128 CTAs, one a
+// SM, leave a lone CTA's latency to set the time (attention_tc.cuh's note
+// says what the body does about it).
 // Two bodies; the wrapper (flash_attention.py) picks one by shape:
-// - bf16 with hd = hd_v in {16, 64, 128}, inner stride 1 and 16-byte rows:
-//   the tensor-core body of attention_tc.cuh (mma.sync m16n8k16, a 3-stage
-//   cp.async ring, swizzled ldmatrix, softmax in registers), entry point
-//   flash_attention_tc_bf16. Grid (B*K, ceil(Sq*g / 64)), 128 threads,
-//   row blocks launched longest first, one launch a call: 32 x 7 = 224 CTAs
-//   at the timed shape (the longest walks 7 key tiles of 64), 8 x 64 = 512
-//   at Jamba's. The context is not split: the cluster merge of the paged
-//   prefill made every split count slower here, as the longest row block's
-//   tiles cost less than the merge;
-// - every f32 call, and bf16 at any other width (MLA's hd = 192 / hd_v =
-//   128, hd = 256) or layout: the CUDA-core body below, entry points
+// - bf16 with (hd, hd_v) in _build.TC_HEAD_DIM_PAIRS ((16, 16), (64, 64),
+//   (128, 128) and MLA's (192, 128)), inner stride 1 and 16-byte rows: the
+//   tensor-core body of attention_tc.cuh (mma.sync m16n8k16, a cp.async
+//   ring of 3 stages, 2 at 192 / 128, swizzled ldmatrix, softmax in
+//   registers), entry point flash_attention_tc_bf16. Grid (B*K, ceil(Sq*g /
+//   64)), 128 threads, row blocks launched longest first, one launch a call:
+//   32 x 7 = 224 CTAs at the timed shape (the longest walks 7 key tiles of
+//   64), 8 x 64 = 512 at Jamba's, 16 x 8 = 128 at DeepSeek-V2-Lite's
+//   prefill (Sq = Sk = 512, H = K = 16, 192 / 128). The context is not
+//   split: the cluster merge of the paged prefill made every split count
+//   slower here, as the longest row block's tiles cost less than the merge;
+// - every f32 call, and bf16 at any other width (MLA's smoke 24 / 16,
+//   hd = 256) or layout: the CUDA-core body below, entry points
 //   flash_attention_{f32,bf16}. f32 math throughout (the card-vs-CPU float32
 //   checks need exact greedy tokens, and the tensor cores have no full-f32
 //   product):
@@ -211,10 +217,11 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 REPRO_FLASH_ENTRY(flash_attention_f32, float)
 REPRO_FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
 
-// the tensor-core body (bf16, hd = hd_v in {16, 64, 128}; see attention_tc.cuh)
+// the tensor-core body (bf16, (hd, hd_v) in _build.TC_HEAD_DIM_PAIRS; see
+// attention_tc.cuh)
 extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out,
                                        float* lse, int B, int Sq, int Sk, int H, int K, int hd,
-                                       int causal, long long qs0, long long qs1,
+                                       int hd_v, int causal, long long qs0, long long qs1,
                                        long long qs2, long long ks0, long long ks1,
                                        long long ks2, long long vs0, long long vs1,
                                        long long vs2, float scale, void* stream) {
@@ -240,5 +247,5 @@ extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void*
   p.vs1 = vs1;
   p.vs2 = vs2;
   p.scale_log2 = scale * repro_torch::tc::kLog2e;
-  return repro_torch::tc::launch<false, false>(p, B * K, hd, stream);
+  return repro_torch::tc::launch<false, false>(p, B * K, hd, hd_v, stream);
 }

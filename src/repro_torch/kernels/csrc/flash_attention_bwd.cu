@@ -33,17 +33,33 @@
 // past the end are never read (zeros are staged), so garbage there, even
 // NaN, moves no gradient. dq, dk, dv are contiguous, rounded once from f32.
 // Head dims (hd, hd_v): 16, 64 and 128 with hd == hd_v, and MLA's (24, 16)
-// (DeepSeek's smoke config) and (192, 128) (DeepSeek-V2-Lite) on the CUDA-core
-// body only (_build.BWD_HEAD_DIM_PAIRS); the wrapper refuses others.
+// (DeepSeek's smoke config, CUDA-core body only) and (192, 128)
+// (DeepSeek-V2-Lite) (_build.BWD_HEAD_DIM_PAIRS); the wrapper refuses others.
+//
+// At MLA's 192 / 128 (DeepSeek-V2-Lite's training shape: B = 4, S = 1024,
+// H = K = 16, causal) the bound is operations: 0.0565 ms for the five
+// products at the bf16 rate. What bounds the tensor-core body there is
+// registers and the latency they leave unhidden: with 16 keys a warp, the
+// dK/dV pass's f32 dk (16 x 192) and dv (16 x 128) take 160 registers a
+// thread before any fragment, and the dQ pass's dq 96. The dK/dV pass keeps
+// 64 keys and 4 warps a CTA and walks 32 folded rows a step (kWideRows: S^T
+// and dP^T 16 registers each; 255 registers, no spill; 82 KB of shared
+// memory, two CTAs a SM); the dQ pass walks 32 keys a step where hd == hd_v
+// walks 64 (kWideDqKeys: S and dP 16 registers each, a 20 KB ring stage, 80
+// KB a CTA, so two CTAs a SM where 64 keys' 120 KB left one). The other
+// values of both took 7-12 % longer (tools/flash_mla_variants.py).
+// Products stay on mma.sync with no atomics, so a rerun is bit-equal.
 //
 // Two bodies; the wrapper (flash_attention.py, backward_uses_tensor_cores)
 // picks one by shape:
-// - bf16 whose q, k, v, o and dout rows are 16-byte aligned with inner
-//   stride 1: the tensor-core body (entry flash_attention_bwd_tc_bf16),
+// - bf16 at (hd, hd_v) in _build.TC_HEAD_DIM_PAIRS ((16, 16), (64, 64),
+//   (128, 128), (192, 128)) whose q, k, v, o and dout rows are 16-byte
+//   aligned with inner stride 1: the tensor-core body (entry
+//   flash_attention_bwd_tc_bf16),
 //   built from attention_tc.cuh's pieces (mma.sync m16n8k16 bf16 with f32
 //   accumulation, ldmatrix and ldmatrix.trans on XOR-swizzled tiles,
 //   cp.async with zero-fill). 128 threads, 4 warps of 16 rows each.
-//   - delta: 16-byte loads, hd / 8 lanes a row;
+//   - delta: 16-byte loads, hd_v / 8 lanes a row;
 //   - dk/dv: 64 keys a CTA, 16 a warp. K and V stay resident in shared
 //     memory; the walk's Q, dout, LSE and D tiles come through a
 //     double-buffered cp.async ring. A warp computes S^T = K Q^T and
@@ -55,12 +71,12 @@
 //     16), so the f32 dk, dv, S^T and dP^T fit the registers without
 //     spilling;
 //   - dq: 64 rows a CTA, 16 a warp, Q and dout resident in shared memory,
-//     K and V tiles of 64 keys through the ring; S and dP on the tensor
-//     cores, dS rounded once to bf16 as the A operand of dQ += dS K (K
-//     through ldmatrix.trans).
-// - f32, and bf16 with rows off 16 bytes or strided inner dims: the
-//   CUDA-core body, f32 math (held_train runs the card in f32 against the
-//   CPU). Tiles are staged in shared memory as f32 (bf16 widened as it is
+//     K and V tiles of 64 keys (32 at 192 / 128) through the ring; S and
+//     dP on the tensor cores, dS rounded once to bf16 as the A operand of
+//     dQ += dS K (K through ldmatrix.trans).
+// - f32, bf16 at (24, 16), and bf16 with rows off 16 bytes or strided
+//   inner dims: the CUDA-core body, f32 math (held_train runs the card in
+//   f32 against the CPU). Tiles are staged in shared memory as f32 (bf16 widened as it is
 //   read), 256 threads a CTA as a 16 x 16 grid, each thread a 4 x 4 patch of
 //   a 64 x 64 product (rows ty + 16 i, columns tx + 16 j: one row pair a
 //   warp, so the row operand is a broadcast and the column operand
@@ -446,39 +462,60 @@ constexpr int kThreads = 128;  // 4 warps, 16 rows (keys or folded rows) each
 constexpr int kTile = 64;      // keys of a dk/dv CTA, rows of a dq CTA, keys a dq step
 constexpr int kStages = 2;     // the walk's tiles in flight: double-buffered
 
-// folded query rows a step of the dk/dv walk: 32 at hd 64 and 128. Each
-// thread holds the f32 dk and dv (hd / 2 registers each) and S^T and dP^T
-// (rows / 2 each): at hd 128 32 rows keep them in registers, at hd 64 they
-// take 164 registers a thread (chip_smoke.py's env line), so three CTAs
-// share a SM where 64 rows left two
-template <int HD>
+// folded query rows a step of the dk/dv walk: 32 at hd 64, 128 and MLA's
+// 192 / 128 (kWideRows). Each thread holds the f32 dk and dv (hd / 2 and
+// hd_v / 2 registers) and S^T and dP^T (rows / 2 each): at hd 128 32 rows
+// keep them in registers, at hd 64 they take 164 registers a thread
+// (chip_smoke.py's env line), so three CTAs share a SM where 64 rows left
+// two; at 192 / 128 dk and dv alone take 160, and 32 rows still fit 255
+// registers without a spill, two CTAs a SM: 16 rows a step (half the
+// products between two barriers) took 9-12 % longer at DeepSeek-V2-Lite's
+// training shape (tools/flash_mla_variants.py)
+constexpr int kWideRows = 32;
+// keys a step of the dQ walk at MLA's 192 / 128 (kTile at hd == hd_v): see
+// Q below
+constexpr int kWideDqKeys = 32;
+template <int HD, int HDV>
 struct KV {
-  static constexpr int kRows = HD >= 64 ? 32 : 64;
-  static constexpr uint32_t kKeyTile = kTile * HD * 2;    // bytes of K (or V)
-  static constexpr uint32_t kRowTile = kRows * HD * 2;    // bytes of Q (or dout) a step
-  static constexpr uint32_t kStage = 2 * kRowTile + 2 * kRows * sizeof(float);
-  static constexpr size_t kBytes = 2 * kKeyTile + kStages * kStage;
+  static constexpr int kRows = HD != HDV ? kWideRows : HD >= 64 ? 32 : 64;
+  static constexpr uint32_t kKeyTile = kTile * HD * 2;    // bytes of K
+  static constexpr uint32_t kValTile = kTile * HDV * 2;   // bytes of V
+  static constexpr uint32_t kRowTile = kRows * HD * 2;    // bytes of Q a step
+  static constexpr uint32_t kDoTile = kRows * HDV * 2;    // bytes of dout a step
+  static constexpr uint32_t kStage = kRowTile + kDoTile + 2 * kRows * sizeof(float);
+  static constexpr size_t kBytes = kKeyTile + kValTile + kStages * kStage;
 };
 
-template <int HD>
+// the dQ pass: Q and dout resident ([64][HD], [64][HDV]), a ring of K and V
+// tiles of kKeys keys. At 192 / 128 a 64-key stage is 40 KB and the CTA
+// needs 120 KB, one a SM; kWideDqKeys keys a step halve the ring (and S
+// and dP's registers)
+template <int HD, int HDV>
 struct Q {
-  static constexpr uint32_t kTileBytes = kTile * HD * 2;  // bytes of one [64][HD] tile
-  static constexpr size_t kBytes = (2 + 2 * kStages) * static_cast<size_t>(kTileBytes);
+  static constexpr int kKeys = HD == HDV ? kTile : kWideDqKeys;
+  static constexpr uint32_t kQTile = kTile * HD * 2;     // bytes of Q's [64][HD]
+  static constexpr uint32_t kVTile = kTile * HDV * 2;    // bytes of dout's [64][HDV]
+  static constexpr uint32_t kStage = kKeys * (HD + HDV) * 2;  // a K and a V tile
+  static constexpr size_t kBytes = kQTile + kVTile + kStages * static_cast<size_t>(kStage);
 };
 
 // Copy rows [r0, r0 + ROWS) of a (B, S, heads, HD) bf16 tensor into a
 // swizzled [ROWS][HD] tile, 16 bytes a copy: with FOLDED (q, dout) row r is
 // token r / g of head kh*g + r % g, else (k, v) token r of head kh. Rows at
-// or past `limit` are zero-filled and never read.
+// or past `limit` are zero-filled and never read.  A row's chunks are
+// copied by kLanes threads side by side, each kSegs chunks kLanes apart (at
+// hd 192: 8 lanes of 3 of its 24 chunks).
 template <int HD, int ROWS, bool FOLDED>
 __device__ __forceinline__ void copy_rows(uint32_t dst, const void* src, const long long* st,
                                           int b, int kh, int g, int r0, int limit) {
-  constexpr int kChunks = HD / 8;
-  constexpr int kStep = kThreads / kChunks;
+  constexpr int kLanes = tc::chunk_lanes(HD / 8, HD / 8);
+  constexpr int kSegs = HD / 8 / kLanes;
+  constexpr int kStep = kThreads / kLanes;
+  static_assert(kThreads % kLanes == 0 && (kSegs == 1 || kLanes >= 8), "copy plan");
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(src) + b * st[0];
-  const int c = threadIdx.x % kChunks;
+  const int c = threadIdx.x % kLanes;
 #pragma unroll
-  for (int t = threadIdx.x / kChunks; t < ROWS; t += kStep) {
+  for (int t = threadIdx.x / kLanes; t < ROWS; t += kStep) {
     const int row = r0 + t;
     const bool live = row < limit;
     const __nv_bfloat16* s = base;
@@ -489,7 +526,9 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const void* src, const l
       else
         s += row * st[1] + kh * st[2];
     }
-    cp_async16(dst + 2 * swz<HD>(t, c), s, live);
+    const uint32_t d = dst + 2 * swz<HD>(t, c);
+#pragma unroll
+    for (int j = 0; j < kSegs; ++j) cp_async16(d + j * kLanes * 16, s + j * kLanes * 8, live);
   }
 }
 
@@ -508,10 +547,10 @@ __device__ __forceinline__ void copy_stats(uint32_t dst, const BwdParams& p, int
   cp_async4(dst + t * sizeof(float), src, live);
 }
 
-// 1. D = rowsum(dout * o): hd / 8 lanes a (b, token, head) row, 16 bytes each
-template <int HD>
+// 1. D = rowsum(dout * o): hd_v / 8 lanes a (b, token, head) row, 16 bytes each
+template <int HDV>
 __global__ void __launch_bounds__(256) delta_tc_kernel(const BwdParams p) {
-  constexpr int L = HD / 8;
+  constexpr int L = HDV / 8;
   const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / L;
   const int c = threadIdx.x % L;
   const bool live = row < static_cast<long long>(p.B) * p.Sq * p.H;
@@ -543,10 +582,11 @@ __global__ void __launch_bounds__(256) delta_tc_kernel(const BwdParams p) {
 }
 
 // 2. dk, dv: one CTA per (b * K + kh, block of 64 keys), longest first
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  using S = KV<HD>;
+  using S = KV<HD, HDV>;
+  constexpr int kD = (HD > HDV ? HD : HDV) / 16;  // k-steps (and n-steps) of the wider dim
   constexpr int BM = S::kRows;
   const int g = p.H / p.K;
   const int b = blockIdx.x / p.K;
@@ -563,20 +603,20 @@ __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
 
   const uint32_t k_s = smem_addr(smem);
   const uint32_t v_s = k_s + S::kKeyTile;
-  const uint32_t ring = v_s + S::kKeyTile;
+  const uint32_t ring = v_s + S::kValTile;
 
   // causal: rows whose token is at least n0 see this block's keys
   const int rb0 = causal ? (n0 * g) / BM : 0;
   const int rb_end = (n_rows + BM - 1) / BM;
   copy_rows<HD, kTile, false>(k_s, p.k, p.ks, b, kh, 1, n0, p.Sk);
-  copy_rows<HD, kTile, false>(v_s, p.v, p.vs, b, kh, 1, n0, p.Sk);
+  copy_rows<HDV, kTile, false>(v_s, p.v, p.vs, b, kh, 1, n0, p.Sk);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (rb0 + i < rb_end) {
       const uint32_t st = ring + i * S::kStage;
       copy_rows<HD, BM, true>(st, p.q, p.qs, b, kh, g, (rb0 + i) * BM, n_rows);
-      copy_rows<HD, BM, true>(st + S::kRowTile, p.dout, p.dos, b, kh, g, (rb0 + i) * BM, n_rows);
-      copy_stats<BM>(st + 2 * S::kRowTile, p, b, kh, g, (rb0 + i) * BM, n_rows);
+      copy_rows<HDV, BM, true>(st + S::kRowTile, p.dout, p.dos, b, kh, g, (rb0 + i) * BM, n_rows);
+      copy_stats<BM>(st + S::kRowTile + S::kDoTile, p, b, kh, g, (rb0 + i) * BM, n_rows);
     }
     cp_async_commit();
   }
@@ -587,11 +627,15 @@ __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
   const int lowA = causal ? nA * g : 0;
   const int lowB = causal ? nB * g : 0;
   const int n_last = n0 + warp * 16 + 15;  // the warp's last key
-  float dk[HD / 8][4], dv[HD / 8][4];
+  float dk[HD / 8][4], dv[HDV / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < HDV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[j][e] = 0.f;
 
   for (int rb = rb0; rb < rb_end; ++rb) {
     const int slot = (rb - rb0) % kStages;
@@ -599,15 +643,16 @@ __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
     if (next < rb_end) {
       const uint32_t st = ring + ((next - rb0) % kStages) * S::kStage;
       copy_rows<HD, BM, true>(st, p.q, p.qs, b, kh, g, next * BM, n_rows);
-      copy_rows<HD, BM, true>(st + S::kRowTile, p.dout, p.dos, b, kh, g, next * BM, n_rows);
-      copy_stats<BM>(st + 2 * S::kRowTile, p, b, kh, g, next * BM, n_rows);
+      copy_rows<HDV, BM, true>(st + S::kRowTile, p.dout, p.dos, b, kh, g, next * BM, n_rows);
+      copy_stats<BM>(st + S::kRowTile + S::kDoTile, p, b, kh, g, next * BM, n_rows);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();  // this step's tiles (and K, V) have landed
     __syncthreads();
     const uint32_t q_t = ring + slot * S::kStage;
     const uint32_t do_t = q_t + S::kRowTile;
-    const float* lse_s = reinterpret_cast<const float*>(smem + (q_t - k_s) + 2 * S::kRowTile);
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (q_t - k_s) + S::kRowTile + S::kDoTile);
     const float* dd_s = lse_s + BM;
     const int r0 = rb * BM;
 
@@ -617,22 +662,33 @@ __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
     for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // (k-steps past HD or HDV are compiled out)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      const int a_off = 2 * swz<HD>(warp * 16 + (lm & 1) * 8 + lr, 2 * kk + (lm >> 1));
-      ldsm_x4(k_s + a_off, ka[0], ka[1], ka[2], ka[3]);
-      ldsm_x4(v_s + a_off, va[0], va[1], va[2], va[3]);
+    for (int kk = 0; kk < kD; ++kk) {
+      const int a_row = warp * 16 + (lm & 1) * 8 + lr;
+      const int b_row = (lm >> 1) * 8 + lr;
+      if (kk < HD / 16) {
+        uint32_t ka[4];
+        ldsm_x4(k_s + 2 * swz<HD>(a_row, 2 * kk + (lm >> 1)), ka[0], ka[1], ka[2], ka[3]);
 #pragma unroll
-      for (int n2 = 0; n2 < BM / 16; ++n2) {
-        const int b_off = 2 * swz<HD>(n2 * 16 + (lm >> 1) * 8 + lr, 2 * kk + (lm & 1));
-        uint32_t f[4];
-        ldsm_x4(q_t + b_off, f[0], f[1], f[2], f[3]);
-        mma_bf16(s[2 * n2], ka, f[0], f[1]);
-        mma_bf16(s[2 * n2 + 1], ka, f[2], f[3]);
-        ldsm_x4(do_t + b_off, f[0], f[1], f[2], f[3]);
-        mma_bf16(dp[2 * n2], va, f[0], f[1]);
-        mma_bf16(dp[2 * n2 + 1], va, f[2], f[3]);
+        for (int n2 = 0; n2 < BM / 16; ++n2) {
+          uint32_t f[4];
+          ldsm_x4(q_t + 2 * swz<HD>(n2 * 16 + b_row, 2 * kk + (lm & 1)), f[0], f[1], f[2], f[3]);
+          mma_bf16(s[2 * n2], ka, f[0], f[1]);
+          mma_bf16(s[2 * n2 + 1], ka, f[2], f[3]);
+        }
+      }
+      if (kk < HDV / 16) {
+        uint32_t va[4];
+        ldsm_x4(v_s + 2 * swz<HDV>(a_row, 2 * kk + (lm >> 1)), va[0], va[1], va[2], va[3]);
+#pragma unroll
+        for (int n2 = 0; n2 < BM / 16; ++n2) {
+          uint32_t f[4];
+          ldsm_x4(do_t + 2 * swz<HDV>(n2 * 16 + b_row, 2 * kk + (lm & 1)), f[0], f[1], f[2],
+                  f[3]);
+          mma_bf16(dp[2 * n2], va, f[0], f[1]);
+          mma_bf16(dp[2 * n2 + 1], va, f[2], f[3]);
+        }
       }
     }
 
@@ -670,16 +726,20 @@ __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
     // dV += P^T dout and dK += dS^T Q (ldmatrix.trans: k = rows, n = head dims)
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk) {
+      const int row = kk * 16 + (lm & 1) * 8 + lr;
 #pragma unroll
-      for (int d2 = 0; d2 < HD / 16; ++d2) {
-        const int off = 2 * swz<HD>(kk * 16 + (lm & 1) * 8 + lr, 2 * d2 + (lm >> 1));
+      for (int d2 = 0; d2 < kD; ++d2) {
         uint32_t f[4];
-        ldsm_x4_t(do_t + off, f[0], f[1], f[2], f[3]);
-        mma_bf16(dv[2 * d2], pa[kk], f[0], f[1]);
-        mma_bf16(dv[2 * d2 + 1], pa[kk], f[2], f[3]);
-        ldsm_x4_t(q_t + off, f[0], f[1], f[2], f[3]);
-        mma_bf16(dk[2 * d2], sa[kk], f[0], f[1]);
-        mma_bf16(dk[2 * d2 + 1], sa[kk], f[2], f[3]);
+        if (d2 < HDV / 16) {
+          ldsm_x4_t(do_t + 2 * swz<HDV>(row, 2 * d2 + (lm >> 1)), f[0], f[1], f[2], f[3]);
+          mma_bf16(dv[2 * d2], pa[kk], f[0], f[1]);
+          mma_bf16(dv[2 * d2 + 1], pa[kk], f[2], f[3]);
+        }
+        if (d2 < HD / 16) {
+          ldsm_x4_t(q_t + 2 * swz<HD>(row, 2 * d2 + (lm >> 1)), f[0], f[1], f[2], f[3]);
+          mma_bf16(dk[2 * d2], sa[kk], f[0], f[1]);
+          mma_bf16(dk[2 * d2 + 1], sa[kk], f[2], f[3]);
+        }
       }
     }
     __syncthreads();  // the next step's copies reuse this stage
@@ -694,24 +754,28 @@ __global__ void __launch_bounds__(kThreads) dkdv_tc_kernel(const BwdParams p) {
   for (int half = 0; half < 2; ++half) {
     const int key = half ? nB : nA;
     if (key >= p.Sk) continue;
-    const long long base = ((static_cast<long long>(b) * p.Sk + key) * p.K + kh) * HD + quad * 2;
+    const long long kv = (static_cast<long long>(b) * p.Sk + key) * p.K + kh;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + base + j * 8) =
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dkp + kv * HD + quad * 2 + j * 8) =
           __floats2bfloat162_rn(dk[j][2 * half] * p.scale, dk[j][2 * half + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + base + j * 8) =
+#pragma unroll
+    for (int j = 0; j < HDV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dvp + kv * HDV + quad * 2 + j * 8) =
           __floats2bfloat162_rn(dv[j][2 * half], dv[j][2 * half + 1]);
-    }
   }
 }
 
 // 3. dq: one CTA per (b * K + kh, block of 64 folded rows), longest first.
 // Three CTAs a SM at hd <= 64: ptxas's own register target there spilled a
-// word; at hd 128 the f32 dq takes the registers of two
-template <int HD>
+// word; at hd 128 the f32 dq takes the registers of two; at 192 / 128 dq's
+// 96 registers a thread with S and dP of 32 keys take 255, and two CTAs fit
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, HD >= 128 ? 1 : 3) dq_tc_kernel(const BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  using S = Q<HD>;
+  using S = Q<HD, HDV>;
+  constexpr int KT = S::kKeys;                    // keys a step
+  constexpr int kD = (HD > HDV ? HD : HDV) / 16;  // k-steps of the wider dim
   const int g = p.H / p.K;
   const int b = blockIdx.x / p.K;
   const int kh = blockIdx.x - b * p.K;
@@ -727,20 +791,20 @@ __global__ void __launch_bounds__(kThreads, HD >= 128 ? 1 : 3) dq_tc_kernel(cons
   const int lr = lane & 7;
 
   const uint32_t q_s = smem_addr(smem);
-  const uint32_t do_s = q_s + S::kTileBytes;
-  const uint32_t ring = do_s + S::kTileBytes;  // stages of [K tile | V tile]
+  const uint32_t do_s = q_s + S::kQTile;
+  const uint32_t ring = do_s + S::kVTile;  // stages of [K tile | V tile]
 
   // causal: the block's last row sees keys 0 .. its own token
   const int n_k = causal ? min(p.Sk, (r0 + rows - 1) / g + 1) : p.Sk;
-  const int n_tiles = (n_k + kTile - 1) / kTile;
+  const int n_tiles = (n_k + KT - 1) / KT;
   copy_rows<HD, kTile, true>(q_s, p.q, p.qs, b, kh, g, r0, n_rows);
-  copy_rows<HD, kTile, true>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
+  copy_rows<HDV, kTile, true>(do_s, p.dout, p.dos, b, kh, g, r0, n_rows);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < n_tiles) {
-      const uint32_t st = ring + i * 2 * S::kTileBytes;
-      copy_rows<HD, kTile, false>(st, p.k, p.ks, b, kh, 1, i * kTile, n_k);
-      copy_rows<HD, kTile, false>(st + S::kTileBytes, p.v, p.vs, b, kh, 1, i * kTile, n_k);
+      const uint32_t st = ring + i * S::kStage;
+      copy_rows<HD, KT, false>(st, p.k, p.ks, b, kh, 1, i * KT, n_k);
+      copy_rows<HDV, KT, false>(st + KT * HD * 2, p.v, p.vs, b, kh, 1, i * KT, n_k);
     }
     cp_async_commit();
   }
@@ -774,49 +838,59 @@ __global__ void __launch_bounds__(kThreads, HD >= 128 ? 1 : 3) dq_tc_kernel(cons
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int next = tile + kStages - 1;
     if (next < n_tiles) {
-      const uint32_t st = ring + (next % kStages) * 2 * S::kTileBytes;
-      copy_rows<HD, kTile, false>(st, p.k, p.ks, b, kh, 1, next * kTile, n_k);
-      copy_rows<HD, kTile, false>(st + S::kTileBytes, p.v, p.vs, b, kh, 1, next * kTile, n_k);
+      const uint32_t st = ring + (next % kStages) * S::kStage;
+      copy_rows<HD, KT, false>(st, p.k, p.ks, b, kh, 1, next * KT, n_k);
+      copy_rows<HDV, KT, false>(st + KT * HD * 2, p.v, p.vs, b, kh, 1, next * KT, n_k);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();  // this tile (and Q, dout) have landed
     __syncthreads();
-    const uint32_t k_t = ring + (tile % kStages) * 2 * S::kTileBytes;
-    const uint32_t v_t = k_t + S::kTileBytes;
-    const int t0 = tile * kTile;
+    const uint32_t k_t = ring + (tile % kStages) * S::kStage;
+    const uint32_t v_t = k_t + KT * HD * 2;
+    const int t0 = tile * KT;
 
-    // S = Q K^T and dP = dout V^T: the warp's 16 rows x 64 keys
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    // S = Q K^T and dP = dout V^T: the warp's 16 rows x KT keys
+    float s[KT / 8][4], dp[KT / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // (k-steps past HD or HDV are compiled out)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      const int a_off = 2 * swz<HD>(warp * 16 + (lm & 1) * 8 + lr, 2 * kk + (lm >> 1));
-      ldsm_x4(q_s + a_off, qa[0], qa[1], qa[2], qa[3]);
-      ldsm_x4(do_s + a_off, oa[0], oa[1], oa[2], oa[3]);
+    for (int kk = 0; kk < kD; ++kk) {
+      const int a_row = warp * 16 + (lm & 1) * 8 + lr;
+      const int b_row = (lm >> 1) * 8 + lr;
+      if (kk < HD / 16) {
+        uint32_t qa[4];
+        ldsm_x4(q_s + 2 * swz<HD>(a_row, 2 * kk + (lm >> 1)), qa[0], qa[1], qa[2], qa[3]);
 #pragma unroll
-      for (int n2 = 0; n2 < kTile / 16; ++n2) {
-        const int b_off = 2 * swz<HD>(n2 * 16 + (lm >> 1) * 8 + lr, 2 * kk + (lm & 1));
-        uint32_t f[4];
-        ldsm_x4(k_t + b_off, f[0], f[1], f[2], f[3]);
-        mma_bf16(s[2 * n2], qa, f[0], f[1]);
-        mma_bf16(s[2 * n2 + 1], qa, f[2], f[3]);
-        ldsm_x4(v_t + b_off, f[0], f[1], f[2], f[3]);
-        mma_bf16(dp[2 * n2], oa, f[0], f[1]);
-        mma_bf16(dp[2 * n2 + 1], oa, f[2], f[3]);
+        for (int n2 = 0; n2 < KT / 16; ++n2) {
+          uint32_t f[4];
+          ldsm_x4(k_t + 2 * swz<HD>(n2 * 16 + b_row, 2 * kk + (lm & 1)), f[0], f[1], f[2], f[3]);
+          mma_bf16(s[2 * n2], qa, f[0], f[1]);
+          mma_bf16(s[2 * n2 + 1], qa, f[2], f[3]);
+        }
+      }
+      if (kk < HDV / 16) {
+        uint32_t oa[4];
+        ldsm_x4(do_s + 2 * swz<HDV>(a_row, 2 * kk + (lm >> 1)), oa[0], oa[1], oa[2], oa[3]);
+#pragma unroll
+        for (int n2 = 0; n2 < KT / 16; ++n2) {
+          uint32_t f[4];
+          ldsm_x4(v_t + 2 * swz<HDV>(n2 * 16 + b_row, 2 * kk + (lm & 1)), f[0], f[1], f[2], f[3]);
+          mma_bf16(dp[2 * n2], oa, f[0], f[1]);
+          mma_bf16(dp[2 * n2 + 1], oa, f[2], f[3]);
+        }
       }
     }
 
     // dS = P (dP - D), P = 0 by select past each row's end on a tile that
     // crosses the diagonal or the last key; rounded once to bf16 A operands
-    const bool masked = t0 + kTile > end_warp;
+    const bool masked = t0 + KT > end_warp;
     const int col = t0 + quad * 2;
-    uint32_t sa[kTile / 16][4];
+    uint32_t sa[KT / 16][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+    for (int j = 0; j < KT / 8; ++j) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -829,7 +903,7 @@ __global__ void __launch_bounds__(kThreads, HD >= 128 ? 1 : 3) dq_tc_kernel(cons
     }
     // dQ += dS K (ldmatrix.trans: k = keys, n = head dims)
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
 #pragma unroll
       for (int d2 = 0; d2 < HD / 16; ++d2) {
         uint32_t f[4];
@@ -856,38 +930,39 @@ __global__ void __launch_bounds__(kThreads, HD >= 128 ? 1 : 3) dq_tc_kernel(cons
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_hd(const BwdParams& p, cudaStream_t s) {
+  using KVS = KV<HD, HDV>;
+  using QS = Q<HD, HDV>;
   static size_t granted_kv[kMaxDevices] = {};
   static size_t granted_q[kMaxDevices] = {};
-  cudaError_t err = allow_smem(dkdv_tc_kernel<HD>, KV<HD>::kBytes, granted_kv);
+  cudaError_t err = allow_smem(dkdv_tc_kernel<HD, HDV>, KVS::kBytes, granted_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(dq_tc_kernel<HD>, Q<HD>::kBytes, granted_q);
+  err = allow_smem(dq_tc_kernel<HD, HDV>, QS::kBytes, granted_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long lanes = static_cast<long long>(p.B) * p.Sq * p.H * (HD / 8);
-  delta_tc_kernel<HD><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, s>>>(p);
+  const long long lanes = static_cast<long long>(p.B) * p.Sq * p.H * (HDV / 8);
+  delta_tc_kernel<HDV><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int g = p.H / p.K;
-  dkdv_tc_kernel<HD><<<dim3(p.B * p.K, (p.Sk + kTile - 1) / kTile), kThreads, KV<HD>::kBytes,
-                       s>>>(p);
+  dkdv_tc_kernel<HD, HDV><<<dim3(p.B * p.K, (p.Sk + kTile - 1) / kTile), kThreads, KVS::kBytes,
+                            s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_tc_kernel<HD><<<dim3(p.B * p.K, (p.Sq * g + kTile - 1) / kTile), kThreads, Q<HD>::kBytes,
-                     s>>>(p);
+  dq_tc_kernel<HD, HDV><<<dim3(p.B * p.K, (p.Sq * g + kTile - 1) / kTile), kThreads, QS::kBytes,
+                          s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the pairs of _build.TC_HEAD_DIM_PAIRS
 int launch(const BwdParams& p, int hd, int hd_v, void* stream) {
   if (p.B == 0 || p.Sq == 0 || p.Sk == 0 || p.H == 0) return 0;
-  if (hd != hd_v) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_hd<16>(p, s);
-    case 64: return launch_hd<64>(p, s);
-    case 128: return launch_hd<128>(p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (hd == 16 && hd_v == 16) return launch_hd<16, 16>(p, s);
+  if (hd == 64 && hd_v == 64) return launch_hd<64, 64>(p, s);
+  if (hd == 128 && hd_v == 128) return launch_hd<128, 128>(p, s);
+  if (hd == 192 && hd_v == 128) return launch_hd<192, 128>(p, s);  // MLA: DeepSeek-V2-Lite
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tcb

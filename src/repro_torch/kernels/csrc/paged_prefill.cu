@@ -21,6 +21,9 @@
 //   read. The grid splits the context so that one chunk fills the card:
 //   (K, ceil(C*g / 64), splits), the fewest power-of-two splits (at most 8)
 //   that give at least one CTA per SM (paged_attention.prefill_splits).
+//   It launches the body at hd == hd_v (tc::launch takes both; the
+//   <192, 128> form is flash's alone: MLA keeps no paged K/V, so nothing
+//   bounds this kernel at 192 / 128).
 //   The splits of a row block run as one thread-block cluster and merge
 //   their f32 partials through distributed shared memory: one launch a
 //   call, no scratch. Timed shape: 8 key tiles, 8 splits of one tile,
@@ -279,7 +282,7 @@ extern "C" int paged_prefill_tc_bf16(const void* q, const void* kp, const void* 
   const repro_torch::tc::Params p = paged_params(q, kp, vp, bt, out, C, H, K, hd, ps, P, past,
                                                  splits, ks0, ks1, ks2, vs0, vs1, vs2,
                                                  scale);
-  return repro_torch::tc::launch<true, false>(p, K, hd, stream);
+  return repro_torch::tc::launch<true, false>(p, K, hd, hd, stream);
 }
 
 extern "C" int paged_prefill_q8_tc_bf16(const void* q, const void* kp, const void* vp,
@@ -302,5 +305,5 @@ extern "C" int paged_prefill_q8_tc_bf16(const void* q, const void* kp, const voi
   p.vss0 = vss0;
   p.vss1 = vss1;
   p.vss2 = vss2;
-  return repro_torch::tc::launch<true, true>(p, K, hd, stream);
+  return repro_torch::tc::launch<true, true>(p, K, hd, hd, stream);
 }

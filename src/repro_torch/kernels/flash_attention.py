@@ -10,14 +10,16 @@ query rows as on the TPU, cut into blocks of :data:`BLOCK_ROWS` rows.
 Two bodies serve it, chosen by shape (:func:`uses_tensor_cores`), never
 by failure:
 
-- bf16 with ``hd == hd_v`` in :data:`~repro_torch.kernels._build.TC_HEAD_DIMS`
-  (16, 64, 128: stablelm-1.6b's 64, Jamba-1.5-Large's and internlm2-20b's
-  128), inner stride 1 and 16-byte-aligned rows: the tensor-core body
-  (``csrc/attention_tc.cuh``: ``mma.sync`` bf16 products with f32
-  accumulation, a ``cp.async`` ring of K/V tiles);
-- every float32 call, and bf16 at any other shape (MLA's hd 192 / hd_v
-  128, hd 256, rows that are not 16-byte aligned): the CUDA-core body in
-  f32 math.
+- bf16 with ``(hd, hd_v)`` in
+  :data:`~repro_torch.kernels._build.TC_HEAD_DIM_PAIRS` (16, 64 and 128
+  at hd == hd_v: stablelm-1.6b's 64, Jamba-1.5-Large's and internlm2-20b's
+  128; and MLA's 192 / 128, DeepSeek-V2-Lite's), inner stride 1 and
+  16-byte-aligned rows: the tensor-core body (``csrc/attention_tc.cuh``:
+  ``mma.sync`` bf16 products with f32 accumulation, a ``cp.async`` ring
+  of K/V tiles);
+- every float32 call, and bf16 at any other shape (MLA's smoke 24 / 16,
+  hd 256, rows that are not 16-byte aligned): the CUDA-core body in f32
+  math.
 
 q, k and v are read through their strides, so the wrapper transposes
 nothing.  Like the TPU kernel it does not take a per-batch ``kv_len`` or
@@ -40,11 +42,12 @@ dims of :data:`~repro_torch.kernels._build.BWD_HEAD_DIM_PAIRS`: hd == hd_v
 at 16, 64 and 128, and MLA's 24 / 16 and 192 / 128
 (:func:`backward_supported`; other head dims raise
 ``NotImplementedError``).  It too has two bodies, chosen by shape
-(:func:`backward_uses_tensor_cores`): bf16 at hd == hd_v whose q, k, v, o
-and do rows are 16-byte aligned with inner stride 1 takes the tensor-core
-body (FlashAttention-2's backward on ``mma.sync``), everything else (f32,
-MLA's head dims, rows off 16 bytes, strided inner dims) the CUDA-core body
-in f32 math.  Its calls are counted in ``flash_attention_bwd.launches``
+(:func:`backward_uses_tensor_cores`): bf16 at the forward's
+``TC_HEAD_DIM_PAIRS`` (MLA's 192 / 128 included) whose q, k, v, o and do
+rows are 16-byte aligned with inner stride 1 takes the tensor-core body
+(FlashAttention-2's backward on ``mma.sync``), everything else (f32, MLA's
+smoke 24 / 16, rows off 16 bytes, strided inner dims) the CUDA-core body in
+f32 math.  Its calls are counted in ``flash_attention_bwd.launches``
 and, of those, the tensor-core body's in ``flash_attention_bwd.tc_launches``.  The trainer
 reaches both through ``ops._FlashAttention``.  Called directly with grad
 mode on and an input that requires grad, the forward wrapper raises (its
@@ -72,13 +75,12 @@ def uses_tensor_cores(dtype: torch.dtype, shapes, strides, misalign) -> bool:
 
     Pure Python on what q, k and v describe: their ``dtype``, ``shapes``,
     ``strides`` (in elements) and ``data_ptr() % 16``, each a triple in
-    the order q, k, v.  True for bf16 with ``hd == hd_v`` in
-    ``TC_HEAD_DIMS`` whose rows are 16-byte aligned with inner stride 1.
+    the order q, k, v.  True for bf16 with ``(hd, hd_v)`` in
+    ``TC_HEAD_DIM_PAIRS`` whose rows are 16-byte aligned with inner stride 1.
     """
     if dtype != torch.bfloat16:
         return False
-    hd = shapes[0][-1]
-    if hd != shapes[2][-1] or hd not in _build.TC_HEAD_DIMS:
+    if (shapes[0][-1], shapes[2][-1]) not in _build.TC_HEAD_DIM_PAIRS:
         return False
     return (_build.rows_16b(shapes[0], strides[0], misalign[0], 2)
             and _build.rows_16b(shapes[1], strides[1], misalign[1], 2)
@@ -91,14 +93,13 @@ def backward_uses_tensor_cores(dtype: torch.dtype, shapes, strides, misalign) ->
 
     Pure Python on what q, k, v, o and do describe: ``dtype``, and their
     ``shapes``, ``strides`` (in elements) and ``data_ptr() % 16``, each a
-    5-tuple in that order.  True for bf16 with ``hd == hd_v`` in
-    ``TC_HEAD_DIMS`` whose five tensors' rows are 16-byte aligned with
+    5-tuple in that order.  True for bf16 with ``(hd, hd_v)`` in
+    ``TC_HEAD_DIM_PAIRS`` whose five tensors' rows are 16-byte aligned with
     inner stride 1.
     """
     if dtype != torch.bfloat16:
         return False
-    hd = shapes[0][-1]
-    if hd != shapes[2][-1] or hd not in _build.TC_HEAD_DIMS:
+    if (shapes[0][-1], shapes[2][-1]) not in _build.TC_HEAD_DIM_PAIRS:
         return False
     return all(_build.rows_16b(sh, st, m, 2) for sh, st, m in zip(shapes, strides, misalign))
 
@@ -175,8 +176,8 @@ def flash_attention(
     if tc:
         name = "flash_attention_tc_bf16"
         code = _build.entry(name)(
-            pq, pk, pv, out.data_ptr(), p_lse, B, Sq, Sk, H, K, hd, int(bool(causal)), qs[0],
-            qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
+            pq, pk, pv, out.data_ptr(), p_lse, B, Sq, Sk, H, K, hd, hd_v, int(bool(causal)),
+            qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, stream,
         )
     else:
         name = f"flash_attention_{_SUFFIX[dtype]}"

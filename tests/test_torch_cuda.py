@@ -826,8 +826,9 @@ def test_tensor_core_bodies_read_strided_and_stacked_views(dev):
 
 @pytest.mark.gpu
 def test_only_bf16_at_tensor_core_widths_takes_tensor_cores(dev):
-    """bf16 at hd 64 and 128 takes the tensor-core body; f32, MLA's 192/128
-    and a misaligned bf16 view take the CUDA-core body, and still match."""
+    """bf16 at hd 64 and 128, and flash at MLA's 192/128, takes the
+    tensor-core body; f32, MLA's smoke 24/16 and a misaligned bf16 view
+    take the CUDA-core body, and still match."""
     rng = np.random.default_rng(76)
     for hd in (64, 128):
         for dtype, tc in ((BF16, 1), (torch.float32, 0)):
@@ -845,9 +846,16 @@ def test_only_bf16_at_tensor_core_widths_takes_tensor_cores(dev):
             tc0 = paged_prefill_attention_int8.tc_launches
             paged_prefill_attention_int8(qc, kq, vq, bt, 20, ks, vs)
             assert paged_prefill_attention_int8.tc_launches == tc0 + tc
-    q = _randn(rng, (1, 70, 16, 192), BF16, dev)
-    k, v = _randn(rng, (1, 70, 16, 192), BF16, dev), _randn(rng, (1, 70, 16, 128), BF16, dev)
+    for dtype, tc in ((BF16, 1), (torch.float32, 0)):
+        q = _randn(rng, (1, 70, 16, 192), dtype, dev)
+        k = _randn(rng, (1, 70, 16, 192), dtype, dev)
+        v = _randn(rng, (1, 70, 16, 128), dtype, dev)
+        tc0 = flash_attention.tc_launches
+        _close(flash_attention(q, k, v), R.attention_ref(q, k, v), dtype)
+        assert flash_attention.tc_launches == tc0 + tc
     tc0 = flash_attention.tc_launches
+    q, k = _randn(rng, (2, 37, 4, 24), BF16, dev), _randn(rng, (2, 37, 4, 24), BF16, dev)
+    v = _randn(rng, (2, 37, 4, 16), BF16, dev)
     _close(flash_attention(q, k, v), R.attention_ref(q, k, v), BF16)
     qm = _randn(rng, (1, 70, 4, 65), BF16, dev)[..., 1:]          # rows 2 bytes off
     assert qm.data_ptr() % 16 != 0
@@ -1170,6 +1178,38 @@ def test_mla_prefill_runs_flash_at_192_128(dev):
     assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
 
 
+@pytest.mark.gpu
+def test_mla_prefill_runs_flash_tensor_cores_at_192_128_in_bf16(dev):
+    """The bf16 twin of the test above: the same prefill in bf16 on the
+    card takes flash's tensor-core body once a layer, and its logits lie
+    within the bf16 tolerance (2e-2 of max(1, the largest |logit|), plus
+    2e-2 of each) of the CPU's float32 logits on the same bf16-rounded
+    weights."""
+    from repro_torch.models import prefill
+
+    cfg = _deepseek_smoke_at_mla_head_dims()
+    params = init_params(cfg, seed=3, device="cpu")
+    params = _to_dtype(params, torch.bfloat16)
+    toks = torch.tensor([list(range(3, 40)), list(range(50, 87))], dtype=torch.int32)
+    want, _ = prefill(_to_dtype(params, torch.float32), cfg, toks, max_len=64)
+    ops.reset_launch_counts()
+    got, _ = prefill(_to(params, dev), cfg.with_(dtype="bfloat16"), toks.to(dev), max_len=64)
+    torch.cuda.synchronize()
+    counts, tcs = ops.launch_counts(), ops.tc_launch_counts()
+    assert counts["flash_attention"] == tcs["flash_attention"] == cfg.n_layers
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+    scale = max(1.0, float(want.abs().max()))
+    excess = (got.float().cpu() - want).abs() - 2e-2 * (scale + want.abs())
+    assert float(excess.max()) <= 0, float((got.float().cpu() - want).abs().max())
+
+
+def _to_dtype(params, dtype):
+    """``params`` with every floating leaf cast to ``dtype``."""
+    if isinstance(params, dict):
+        return {k: _to_dtype(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.is_floating_point() else params
+
+
 def _to(params, d):
     from repro_torch.bridge import params_to
 
@@ -1403,25 +1443,29 @@ def test_flash_bwd_kernel_matches_plain_backward(dev, B, Sq, Sk, H, K, hd, causa
         q, k, v, o, lse, do, causal=causal)))
 
 
-# (B, S, H, hd, hd_v, causal) at MLA's head dims: DeepSeek's smoke widths
+# (B, S, H, K, hd, hd_v, causal) at MLA's head dims: DeepSeek's smoke widths
 # (24 / 16, hd no multiple of 16), DeepSeek-V2-Lite's (192 / 128), a ragged S
-# with GQA, and bidirectional
-MLA_BWD_SHAPES = [(2, 37, 4, 24, 16, True), (1, 386, 16, 192, 128, True),
-                  (2, 100, 16, 192, 128, True), (1, 70, 4, 24, 16, False)]
+# with GQA (H = 16, K = 4), and bidirectional at both pairs
+MLA_BWD_SHAPES = [(2, 37, 4, 4, 24, 16, True), (1, 386, 16, 16, 192, 128, True),
+                  (2, 100, 16, 16, 192, 128, True), (2, 100, 16, 4, 192, 128, True),
+                  (1, 70, 4, 4, 24, 16, False), (1, 150, 16, 16, 192, 128, False)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,H,hd,hd_v,causal", MLA_BWD_SHAPES)
-def test_flash_bwd_kernel_at_mla_head_dims(dev, B, S, H, hd, hd_v, causal, dtype):
-    """MLA's (hd, hd_v) pairs take the CUDA-core body, f32 and bf16, and
-    match the plain backward; a rerun gives the same bits."""
+@pytest.mark.parametrize("B,S,H,K,hd,hd_v,causal", MLA_BWD_SHAPES)
+def test_flash_bwd_kernel_at_mla_head_dims(dev, B, S, H, K, hd, hd_v, causal, dtype):
+    """MLA's (hd, hd_v) pairs match the plain backward, f32 and bf16; bf16
+    at 192 / 128 takes the tensor-core body, f32 and 24 / 16 the CUDA-core
+    body; a rerun gives the same bits."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
-    q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, S, S, H, H, hd, causal, hd_v=hd_v)
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, dtype, B, S, S, H, K, hd, causal, hd_v=hd_v)
     before, tc = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
     got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    assert flash_attention_bwd.launches == before + 1 and flash_attention_bwd.tc_launches == tc
+    want_tc = dtype == torch.bfloat16 and (hd, hd_v) == (192, 128)
+    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.tc_launches == tc + want_tc
     want = R.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape

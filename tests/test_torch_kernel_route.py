@@ -52,7 +52,11 @@ FLASH_SHAPES = [
     ((2, 97, 48, 128), (2, 97, 8, 128), (2, 97, 8, 128), BF16, True),       # internlm2-20b
     ((1, 9, 4, 16), (1, 9, 4, 16), (1, 9, 4, 16), BF16, True),              # smoke widths
     ((1, 386, 32, 64), (1, 386, 32, 64), (1, 386, 32, 64), F32, False),     # f32: exact tokens
-    ((1, 70, 16, 192), (1, 70, 16, 192), (1, 70, 16, 128), BF16, False),    # MLA 192 / 128
+    ((1, 70, 16, 192), (1, 70, 16, 192), (1, 70, 16, 128), BF16, True),     # MLA 192 / 128
+    ((2, 100, 16, 192), (2, 100, 4, 192), (2, 100, 4, 128), BF16, True),    # MLA, GQA
+    ((1, 70, 16, 192), (1, 70, 16, 192), (1, 70, 16, 128), F32, False),     # MLA in f32
+    ((2, 37, 4, 24), (2, 37, 4, 24), (2, 37, 4, 16), BF16, False),          # MLA smoke 24 / 16
+    ((1, 70, 16, 128), (1, 70, 16, 128), (1, 70, 16, 192), BF16, False),    # 128 / 192
     ((1, 70, 8, 256), (1, 70, 8, 256), (1, 70, 8, 256), BF16, False),       # hd 256
     ((1, 70, 8, 96), (1, 70, 8, 96), (1, 70, 8, 96), BF16, False),          # hd 96
     ((1, 70, 8, 64), (1, 70, 8, 64), (1, 70, 8, 128), BF16, False),         # hd != hd_v
@@ -90,6 +94,37 @@ def test_flash_route_refuses_misaligned_or_strided_rows(which):
     strides = [good] * 3
     strides[which] = (70 * 4 * 128, 4 * 128, 128, 2)
     assert not _flash(shape, shape, shape, strides=tuple(strides))
+
+
+MLA = ((1, 70, 16, 192), (1, 70, 16, 192), (1, 70, 16, 128))
+
+
+def test_flash_route_takes_mla_transposed_views_with_aligned_rows():
+    """(B, H, S, d) buffers at MLA's 192 / 128 seen as (B, S, H, d): rows
+    of 384 and 256 bytes, inner stride 1."""
+    (B, S, H, hd), _, (_, _, _, hd_v) = MLA
+    qk = (H * S * hd, hd, S * hd, 1)
+    assert _flash(*MLA, strides=(qk, qk, (H * S * hd_v, hd_v, S * hd_v, 1)))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_route_refuses_mla_misaligned_or_strided_rows(which):
+    """MLA's 192 / 128 off the 16-byte grid, with rows a slice of a wider
+    buffer (one element wider than the head dim), an inner stride of 2, or
+    the head dim transposed with the heads ((B, S, d, heads) seen as (B, S,
+    heads, d): inner stride 16) takes the CUDA-core body."""
+    good = tuple(map(_contig, MLA))
+    assert _flash(*MLA)
+    mis = [0, 0, 0]
+    mis[which] = 2
+    assert not _flash(*MLA, misalign=tuple(mis))
+    d = MLA[which][-1]
+    for bad in ((70 * 16 * (d + 1), 16 * (d + 1), d + 1, 1),
+                (70 * 16 * 2 * d, 16 * 2 * d, 2 * d, 2),
+                (70 * 16 * d, 16 * d, 1, 16)):
+        strides = list(good)
+        strides[which] = bad
+        assert not _flash(*MLA, strides=tuple(strides))
 
 
 def test_flash_route_ignores_the_stride_of_a_size_one_dim():
@@ -531,7 +566,7 @@ def test_needs_grad_is_grad_mode_and_an_input_that_requires_it():
     (64, 64, True),      # stablelm-1.6b
     (128, 128, True),    # internlm2-20b, Jamba-1.5-Large
     (16, 16, True),      # the smoke configs
-    (192, 128, True),    # MLA: DeepSeek-V2-Lite (CUDA-core body)
+    (192, 128, True),    # MLA: DeepSeek-V2-Lite (tensor-core body in bf16)
     (24, 16, True),      # MLA: DeepSeek's smoke config (CUDA-core body)
     (32, 32, False), (256, 256, False), (64, 128, False), (128, 192, False), (16, 24, False),
 ])
@@ -550,8 +585,9 @@ def _flash_bwd(q_shape, k_shape, v_shape, dtype=BF16, strides=None, misalign=(0,
 @pytest.mark.parametrize("q,k,v,dtype,want", FLASH_SHAPES)
 def test_flash_backward_route_by_dtype_and_head_dim(q, k, v, dtype, want):
     """The backward's tensor-core body takes what the forward's takes:
-    bf16 at hd == hd_v in TC_HEAD_DIMS (the training widths: stablelm's 64,
-    internlm2's and Jamba's 128, the smoke configs' 16), never f32."""
+    bf16 at TC_HEAD_DIM_PAIRS (the training widths: stablelm's 64,
+    internlm2's and Jamba's 128, the smoke configs' 16, DeepSeek-V2-Lite's
+    MLA 192 / 128, with GQA too), never f32 nor MLA's smoke 24 / 16."""
     assert _flash_bwd(q, k, v, dtype) is want
 
 
@@ -561,6 +597,33 @@ def test_flash_backward_route_takes_transposed_views_with_aligned_rows():
     kst = (2 * S * hd, hd, S * hd, 1)
     assert _flash_bwd((B, S, H, hd), (B, S, 2, hd), (B, S, 2, hd),
                       strides=(st, kst, kst, st, st))
+
+
+def test_flash_backward_route_takes_mla_transposed_views_with_aligned_rows():
+    (B, S, H, hd), _, (_, _, _, hd_v) = MLA
+    qk = (H * S * hd, hd, S * hd, 1)
+    vo = (H * S * hd_v, hd_v, S * hd_v, 1)
+    assert _flash_bwd(*MLA, strides=(qk, qk, vo, vo, vo))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4])
+def test_flash_backward_route_refuses_mla_misaligned_or_strided_rows(which):
+    """Any one of q, k, v, o and do at MLA's 192 / 128 off the 16-byte grid,
+    with rows one element wider than the head dim, an inner stride of 2 or
+    the head dim transposed with the heads, takes the CUDA-core body."""
+    shapes = MLA + (MLA[0][:-1] + MLA[2][-1:],) * 2
+    good = tuple(map(_contig, shapes))
+    assert _flash_bwd(*MLA)
+    mis = [0] * 5
+    mis[which] = 2
+    assert not _flash_bwd(*MLA, misalign=tuple(mis))
+    d = shapes[which][-1]
+    for bad in ((70 * 16 * (d + 1), 16 * (d + 1), d + 1, 1),
+                (70 * 16 * 2 * d, 16 * 2 * d, 2 * d, 2),
+                (70 * 16 * d, 16 * d, 1, 16)):
+        strides = list(good)
+        strides[which] = bad
+        assert not _flash_bwd(*MLA, strides=tuple(strides))
 
 
 @pytest.mark.parametrize("which", [0, 1, 2, 3, 4])
